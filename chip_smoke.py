@@ -2,14 +2,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the rolling commitment planner, on the card
-and checks its one kernel, the commitment sweep, against the plain PyTorch
-version.  Phases, in this order, each printing one JSON line and raising
-on failure:
+Drives the port's three paths on the card — the rolling commitment
+planner, and the serving engine on the published stablelm-1.6b and
+rwkv6-3b — and checks each of their kernels (commitment sweep, flash
+attention, RWKV6 recurrence) against its plain PyTorch version.  Phases, in
+this order, each printing one JSON line and raising on failure:
 
   device    card name and power limit, torch and CUDA versions
-  build     nvcc build of the kernel (time, ptxas report)
-  kernel    kernel vs plain version on the card: ragged shapes, the
+  build     nvcc build of the three kernels, one nvcc each, all at once
+            (time, ptxas report)
+  kernel    sweep kernel vs plain version on the card: ragged shapes, the
             (T,)/(G,) cases, no weights, prefix masks, the main-path shape
             8192 x 128 x 1344; batched launch == one launch per row block
   ties      the solvers' sorts on tied inputs, card vs CPU bit for bit
@@ -24,8 +26,23 @@ on failure:
   profile   the grid plan under torch.profiler: device busy time, time by
             kernel (full table in build/chip_smoke/profile_grid_plan.txt), and
             the host-side tranche book timed alone
-  timing    kernel and plain-version times at the main-path shape, then
-            the kernel line {"kernels": [...]}
+  flash     flash-attention kernel vs plain version: ragged shapes in both
+            layouts, prefill (1, 32, 2048, 64) causal in bf16 and f32, and
+            a batched decode (8 slots, 32 heads, one query) against a
+            4096-long cache with 8 different kv_len
+  linrec    RWKV6 kernel vs plain version: ragged T, strong decay, a
+            carried state, and (1, 40, 2048, 64)
+  model_cpu both reduced float32 configs served on the CPU (plain
+            versions) and on the card (kernels): tokens equal, logits close
+  serve_dense  the full published stablelm-1.6b in bf16, random weights
+            from a seeded generator on the card: an engine of 8 slots and
+            cache 4096 serves 16 requests (prompts of 128-2048 tokens, 32
+            new tokens each); throughput, time to first token, flash
+            launches, peak memory (a main path)
+  serve_rwkv   the same for the full rwkv6-3b; RWKV6 launches (a main path)
+  timing    each kernel's and its plain version's times at its main-path
+            shape, library times, bounds, then the kernel line
+            {"kernels": [...]}
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 before any
@@ -56,11 +73,25 @@ EXPECTED_LAUNCHES = 234     # 117 replayed weeks x (rolling + one-shot)
 RTOL, ATOL, COST_RTOL = 2e-4, 1e-2, 1e-5
 PLAIN_CHUNK = 512           # rows per plain-version chunk at the main shape
 # Peak rates for the bound (NVIDIA data sheets, dense, at the full power
-# limit): FP32 on the CUDA cores and HBM bandwidth.
+# limit): FP32 on the CUDA cores, bf16 on the tensor cores, HBM bandwidth.
 PEAKS = {
-    "sxm": {"fp32_flops": 67e12, "bytes": 3.35e12},
-    "pcie": {"fp32_flops": 51e12, "bytes": 2.0e12},
+    "sxm": {"fp32_flops": 67e12, "bf16_flops": 989e12, "bytes": 3.35e12},
+    "pcie": {"fp32_flops": 51e12, "bf16_flops": 756e12, "bytes": 2.0e12},
 }
+# Serving: the engine and its requests (prompt lengths from numpy seed 0)
+SERVE_SLOTS, SERVE_CACHE, SERVE_REQUESTS = 8, 4096, 16
+PROMPT_MIN, PROMPT_MAX, NEW_TOKENS = 128, 2048, 32
+PROFILE_TICKS = 8           # decode ticks under the profiler, every slot busy
+# Kernel main shapes: flash prefill (B, H, S, D) and decode (slots, H, D)
+# against SERVE_CACHE; linrec (B, H, T, d)
+FLASH_PREFILL = (1, 32, 2048, 64)
+FLASH_DECODE = (SERVE_SLOTS, 32, 64)
+LINREC_MAIN = (1, 40, 2048, 64)
+FLASH_F32, FLASH_BF16 = dict(atol=2e-5, rtol=1e-4), dict(atol=2e-2, rtol=1e-2)
+LINREC_TOL = dict(atol=2e-3, rtol=2e-3)
+# card vs CPU logits of the reduced float32 models (the tolerances of the
+# CPU parity tests against the JAX package)
+MODEL_TOL = {"stablelm-1.6b": 1e-4, "rwkv6-3b": 2e-3}
 FLOPS_PER_TRIPLE = 6        # sub, 2 max, 2 fma (2 flops each) per hour
 
 
@@ -137,16 +168,37 @@ def phase_device():
          count=torch.cuda.device_count())
 
 
-def phase_build():
+def kernel_modules():
     from repro_torch.kernels.commitment_sweep import commitment_sweep as ck
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.linrec import linrec as lk
+    return {"commitment_sweep": ck, "flash_attention": fk, "rwkv6": lk}
+
+
+def reset_launches():
+    for mod in kernel_modules().values():
+        mod.LAUNCHES = 0
+
+
+def read_launches():
+    return {name: mod.LAUNCHES for name, mod in kernel_modules().items()}
+
+
+def phase_build():
+    from repro_torch.kernels import build as kbuild
+    mods = kernel_modules()
     t0 = time.perf_counter()
-    lib = ck.build()
-    ck.load()
+    libs = kbuild.build(*(m.SOURCE for m in mods.values()))
+    for m in mods.values():
+        m.load()
     secs = time.perf_counter() - t0
-    log = Path(str(lib) + ".log").read_text()
-    ptxas = [ln.strip() for ln in log.splitlines() if "ptxas info" in ln]
-    emit("build", seconds=secs, library=str(lib.relative_to(ROOT)),
-         ptxas=ptxas)
+    ptxas = {}
+    for name, lib in zip(mods, libs):
+        log = Path(str(lib) + ".log").read_text()
+        ptxas[name] = [ln.strip() for ln in log.splitlines()
+                       if "ptxas info" in ln and ("Used" in ln or "spill" in ln)]
+    emit("build", seconds=secs,
+         libraries=[str(lib.relative_to(ROOT)) for lib in libs], ptxas=ptxas)
 
 
 def phase_kernel(dev):
@@ -266,17 +318,16 @@ def grid_cells(pools, rep, num_grid):
 
 def phase_plan(pools):
     from repro_torch.core.api import PlanRequest, RollingConfig, plan
-    from repro_torch.kernels.commitment_sweep import commitment_sweep as ck
     req = PlanRequest(pools=pools, mode="rolling",
                       rolling=RollingConfig(solver="grid", num_grid=NUM_GRID))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ck.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     rep = plan(req)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = ck.LAUNCHES
+    launches = read_launches()["commitment_sweep"]
     costs = dict(total_cost=rep.total_cost, one_shot_cost=rep.one_shot_cost,
                  hindsight_cost=rep.hindsight_cost,
                  savings_vs_one_shot=rep.savings_vs_one_shot)
@@ -363,6 +414,21 @@ def phase_cpu(pools):
          ladder_matches_active=True)
 
 
+def device_kernels(prof):
+    """(device us, count, name) of every device-side event (kernels,
+    memcpys, memsets), largest first: the aten ops on the host side carry
+    their kernels' time too and would count twice; the profiler's own
+    buffer events are not the program's work."""
+    kernels = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
+        if dev_us > 0 and on_device and "Buffer" not in ev.key:
+            kernels.append((dev_us, ev.count, ev.key))
+    return sorted(kernels, reverse=True)
+
+
 def phase_profile(pools, rep, plan_s):
     """Where the plan's time goes: the grid plan again under
     torch.profiler (device time by kernel, device busy share), and the
@@ -380,17 +446,7 @@ def phase_profile(pools, rep, plan_s):
         plan(req)
         torch.cuda.synchronize()
     prof_s = time.perf_counter() - t0
-    # Device-side events only (kernels, memcpys, memsets): the aten ops
-    # on the host side carry their kernels' time too and would count twice;
-    # the profiler's own buffer events are not the plan's work.
-    kernels = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
-        if dev_us > 0 and on_device and "Buffer" not in ev.key:
-            kernels.append((dev_us, ev.count, ev.key))
-    kernels.sort(reverse=True)
+    kernels = device_kernels(prof)
     busy_s = sum(k[0] for k in kernels) / 1e6
     sweep_s = sum(k[0] for k in kernels if "sweep_kernel" in k[2]) / 1e6
     lines = [f"{us / 1e3:12.3f} ms {n:8d}x  {key}" for us, n, key in kernels]
@@ -430,43 +486,540 @@ def median_ms(fn, reps):
     return statistics.median(times)
 
 
-def phase_timing(dev, launches, max_abs_err):
-    from repro_torch.kernels.commitment_sweep import commitment_sweep as ck
-    f, w, cs = main_shape_inputs(dev)
-    kernel = lambda: ck.commitment_sweep_cuda(f, w, cs)  # noqa: E731
-    plain = lambda: plain_chunked(f, w, cs)  # noqa: E731
+def flash_inputs(dev, dtype, b, hq, hkv, sq, skv, d, seed, layout="bhsd"):
+    gen = torch.Generator().manual_seed(seed)
+    shape_q = (b, hq, sq, d) if layout == "bhsd" else (b, sq, hq, d)
+    shape_kv = (b, hkv, skv, d) if layout == "bhsd" else (b, skv, hkv, d)
+    return [torch.randn(s_, generator=gen).to(dev, dtype)
+            for s_ in (shape_q, shape_kv, shape_kv)]
+
+
+def decode_inputs(dev, dtype=torch.bfloat16):
+    """The batched decode's call: 8 slots, one query each, against the
+    (B, S, H, D) cache, each slot with its own fill level."""
+    b, h, d = FLASH_DECODE
+    q, k, v = flash_inputs(dev, dtype, b, h, h, 1, SERVE_CACHE, d, 11,
+                           layout="bshd")
+    kv_len = torch.tensor([1, 129, 700, 1501, 2048, 2900, 3999, 4096],
+                          dtype=torch.int32, device=dev)
+    return q, k, v, kv_len
+
+
+def flash_compare(name, got, want, tol):
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **tol,
+                               msg=lambda m: f"flash {name}: {m}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def phase_flash(dev):
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    errs = {}
+    cases = {  # (b, hq, hkv, sq, skv, d, causal, kv_len)
+        "mha_ragged": (2, 4, 4, 77, 77, 64, True, None),
+        "gqa_ragged": (2, 8, 2, 200, 200, 64, True, None),
+        "mqa_d128": (1, 8, 1, 64, 64, 128, True, None),
+        "decode_one_query": (2, 4, 2, 1, 300, 64, True, None),
+        "cross_d32": (1, 2, 2, 96, 160, 32, True, None),
+        "noncausal": (2, 4, 2, 100, 150, 64, False, None),
+        "padded_cache": (2, 8, 2, 3, 384, 64, True, 257),
+    }
+    for i, (name, (b, hq, hkv, sq, skv, d, causal, kvl)) in enumerate(
+            cases.items()):
+        for layout in ("bhsd", "bshd"):
+            q, k, v = flash_inputs(dev, torch.float32, b, hq, hkv, sq, skv,
+                                   d, i, layout)
+            got = ops.flash_attention(q, k, v, causal=causal, kv_len=kvl,
+                                      layout=layout)
+            if layout == "bshd":
+                q, k, v, got = (x.transpose(1, 2) for x in (q, k, v, got))
+            want = attention_ref(q, k, v, causal=causal,
+                                              kv_len=kvl)
+            errs[f"{name}_{layout}"] = flash_compare(name, got, want,
+                                                     FLASH_F32)
+    b, h, s, d = FLASH_PREFILL
+    for dtype, tol in ((torch.bfloat16, FLASH_BF16), (torch.float32,
+                                                       FLASH_F32)):
+        q, k, v = flash_inputs(dev, dtype, b, h, h, s, s, d, 20,
+                               layout="bshd")
+        got = ops.flash_attention(q, k, v, causal=True, layout="bshd")
+        want = attention_ref(
+            *(x.transpose(1, 2) for x in (q, k, v)), causal=True)
+        errs[f"prefill_{dtype}"] = flash_compare(
+            "prefill", got.transpose(1, 2), want, tol)
+    for dtype, tol in ((torch.bfloat16, FLASH_BF16), (torch.float32,
+                                                       FLASH_F32)):
+        q, k, v, kv_len = decode_inputs(dev, dtype)
+        got = ops.flash_attention(q, k, v, causal=True, kv_len=kv_len,
+                                  layout="bshd")
+        want = attention_ref(
+            *(x.transpose(1, 2) for x in (q, k, v)), causal=True,
+            kv_len=kv_len)
+        errs[f"decode_{dtype}"] = flash_compare(
+            "decode", got.transpose(1, 2), want, tol)
+    emit("flash", max_abs_err=errs, tol_f32=FLASH_F32, tol_bf16=FLASH_BF16,
+         prefill_shape=list(FLASH_PREFILL),
+         decode=dict(slots=FLASH_DECODE[0], heads=FLASH_DECODE[1],
+                     head_dim=FLASH_DECODE[2], cache=SERVE_CACHE,
+                     kv_len=decode_inputs(dev)[3].tolist()))
+    return errs["prefill_torch.bfloat16"]
+
+
+def linrec_inputs(dev, b, h, t, d, seed, *, lo=-6.0, hi=3.0, layout="bhtd"):
+    """r, k, v normal; logw = -exp(U(lo, hi)), the model's decay range up
+    to strong decays (w = exp(logw) down to e^-20); u normal; a nonzero
+    state."""
+    gen = torch.Generator().manual_seed(seed)
+    shape = (b, h, t, d) if layout == "bhtd" else (b, t, h, d)
+    r, k, v = (torch.randn(shape, generator=gen) for _ in range(3))
+    logw = -torch.exp(lo + (hi - lo) * torch.rand(shape, generator=gen))
+    u = torch.randn(h, d, generator=gen)
+    s0 = 0.1 * torch.randn(b, h, d, d, generator=gen)
+    return [x.to(dev) for x in (r, k, v, logw, u, s0)]
+
+
+def phase_linrec(dev):
+    from repro_torch.kernels.linrec import ops
+    from repro_torch.kernels.linrec.ref import rwkv6_chunked_ref
+    errs = {}
+    cases = {  # (b, h, t, d, layout)
+        "single_chunk": (1, 2, 32, 16, "bhtd"),
+        "ragged_70": (2, 3, 70, 16, "bhtd"),
+        "t_33_d32": (2, 2, 33, 32, "bthd"),
+        "ragged_1000_d64": (1, 4, 1000, 64, "bthd"),
+        "one_step": (3, 2, 1, 64, "bhtd"),
+    }
+    for i, (name, (b, h, t, d, layout)) in enumerate(cases.items()):
+        r, k, v, logw, u, s0 = linrec_inputs(dev, b, h, t, d, i,
+                                             layout=layout)
+        y, s = ops.rwkv6_linear_attention_logw(r, k, v, logw, u, s0,
+                                               layout=layout)
+        if layout == "bthd":
+            r, k, v, logw, y = (x.transpose(1, 2) for x in (r, k, v, logw, y))
+        wy, ws = rwkv6_chunked_ref(r, k, v, logw, u, s0)
+        torch.cuda.synchronize()
+        for label, a, b_ in (("y", y, wy), ("state", s, ws)):
+            torch.testing.assert_close(
+                a, b_, **LINREC_TOL, msg=lambda m: f"linrec {name} {label}: {m}")
+        errs[name] = float(torch.maximum((y - wy).abs().max(),
+                                         (s - ws).abs().max()))
+    # w = 1e-6 everywhere: the decay that breaks the factored form
+    r, k, v, _, u, s0 = linrec_inputs(dev, 1, 2, 64, 16, 9)
+    logw = torch.full_like(r, float(np.log(1e-6)))
+    y, s = ops.rwkv6_linear_attention_logw(r, k, v, logw, u, s0)
+    if not (torch.isfinite(y).all() and torch.isfinite(s).all()):
+        raise AssertionError("linrec: non-finite output at w = 1e-6")
+    wy, ws = rwkv6_chunked_ref(r, k, v, logw, u, s0)
+    torch.testing.assert_close(y, wy, **LINREC_TOL)
+    errs["w_1e-6"] = float((y - wy).abs().max())
+    b, h, t, d = LINREC_MAIN
+    r, k, v, logw, u, s0 = linrec_inputs(dev, b, h, t, d, 10,
+                                         layout="bthd")
+    y, s = ops.rwkv6_linear_attention_logw(r, k, v, logw, u, s0,
+                                           layout="bthd")
+    wy, ws = rwkv6_chunked_ref(*(x.transpose(1, 2) for x in (r, k, v, logw)),
+                               u, s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.transpose(1, 2), wy, **LINREC_TOL)
+    torch.testing.assert_close(s, ws, **LINREC_TOL)
+    errs["main"] = float(torch.maximum((y.transpose(1, 2) - wy).abs().max(),
+                                       (s - ws).abs().max()))
+    if not torch.isfinite(y).all():
+        raise AssertionError("linrec: non-finite output at the main shape")
+    emit("linrec", max_abs_err=errs, tol=LINREC_TOL,
+         main_shape=list(LINREC_MAIN), logw_range=[-float(np.exp(3.0)),
+                                                   -float(np.exp(-6.0))])
+    return errs["main"]
+
+
+def serve(engine, requests):
+    """Admit in arrival order while slots are free, tick, until every
+    request is done; all requests arrive at t = 0.  Returns host-clock
+    timings (each admission and tick ends in a device-to-host copy)."""
+    pending = list(requests)
+    ttft, prefill_one, prefill_s, tick_s, decoded, ticks = {}, {}, 0.0, 0.0, 0, 0
+    t_start = time.perf_counter()
+    while pending or engine.active_slots:
+        while pending:
+            t0 = time.perf_counter()
+            if not engine.try_admit(pending[0]):
+                break
+            t1 = time.perf_counter()
+            prefill_s += t1 - t0
+            prefill_one[pending[0].rid] = t1 - t0
+            ttft[pending.pop(0).rid] = t1 - t_start
+        t0 = time.perf_counter()
+        active = engine.active_slots
+        engine.tick()
+        tick_s += time.perf_counter() - t0
+        decoded += active
+        ticks += 1
+    return dict(wall_s=time.perf_counter() - t_start, prefill_s=prefill_s,
+                decode_s=tick_s, decode_tokens=decoded, ticks=ticks,
+                ttft=ttft, prefill_one=prefill_one)
+
+
+def phase_serve(name, arch, dev, counted):
+    """The full published ``arch`` served by the engine: the main path of
+    the kernel named ``counted``."""
+    from repro_torch import configs
+    from repro_torch.models.model import build
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = configs.get(arch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    lens = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    reqs = [Request(i, p, NEW_TOKENS) for i, p in enumerate(prompts)]
+    engine = ServeEngine(model, num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    stats = serve(engine, reqs)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(r.done and len(r.generated) == NEW_TOKENS + 1 for r in reqs):
+        raise AssertionError(f"{name}: not every request got "
+                             f"{NEW_TOKENS + 1} tokens")
+    toks = np.concatenate([r.generated for r in reqs])
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{name}: token ids outside the vocabulary")
+    if launches[counted] == 0:
+        raise AssertionError(f"{name}: no {counted} launch on its main path")
+    ticks = stats["ticks"]
+    if counted == "flash_attention":
+        want = cfg.num_layers * (SERVE_REQUESTS + ticks)
+    else:  # prefill only: a one-token decode step needs no kernel
+        want = cfg.num_layers * SERVE_REQUESTS
+    if launches[counted] != want:
+        raise AssertionError(
+            f"{name}: {launches[counted]} {counted} launches, expected {want}")
+    # The engine against a direct prefill of the first request in a fresh
+    # one-slot cache: finite logits and the engine's first token.
+    cache = model.init_cache(1, SERVE_CACHE)
+    logits, _ = model.apply(torch.as_tensor(prompts[0][None], device=dev),
+                            mode="prefill", cache=cache, pos=0)
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{name}: non-finite prefill logits")
+    if int(logits[0, -1].argmax()) != reqs[0].generated[0]:
+        raise AssertionError(f"{name}: engine's first token != direct "
+                             "prefill's")
+    prof = profile_serving(name, engine, reqs, stats, counted)
+    ttft = sorted(stats["ttft"].values())
+    out = dict(
+        arch=arch, params=model.num_params(), dtype=cfg.dtype,
+        layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+        slots=SERVE_SLOTS, cache_len=SERVE_CACHE, requests=SERVE_REQUESTS,
+        prompt_tokens=int(lens.sum()), prompt_len_min_max=[int(lens.min()),
+                                                           int(lens.max())],
+        new_tokens=NEW_TOKENS, init_s=init_s, wall_s=stats["wall_s"],
+        prefill_s=stats["prefill_s"],
+        prefill_tokens_per_s=float(lens.sum()) / stats["prefill_s"],
+        decode_s=stats["decode_s"], decode_ticks=ticks,
+        decode_tokens=stats["decode_tokens"],
+        decode_tokens_per_s=stats["decode_tokens"] / stats["decode_s"],
+        ttft_p50_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
+        ttft_first_s=ttft[0], launches=launches,
+        max_memory_allocated=peak, profile=prof)
+    emit(name, **out)
+    del engine, model, cache
+    torch.cuda.empty_cache()
+    return launches[counted], out
+
+
+def profile_serving(name, engine, reqs, stats, counted):
+    """Where serving time goes, under torch.profiler on the drained engine:
+    the longest request's prefill again, then PROFILE_TICKS ticks with
+    every slot busy.  Device busy time is set against the same work's
+    unprofiled host-clock time from the timed run (the profiler slows the
+    host), so ``device_busy_share`` is the device's share of real time.
+    Full tables in build/chip_smoke/profile_<name>.txt."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import Request
+    kernel = {"flash_attention": "flash_kernel", "rwkv6": "rwkv6_kernel"}[
+        counted]
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof_pre:
+        engine.try_admit(Request(1000, longest.prompt, PROFILE_TICKS + 1))
+        torch.cuda.synchronize()
+    for i in range(1, SERVE_SLOTS):
+        engine.try_admit(Request(1000 + i, reqs[i % len(reqs)].prompt[:PROMPT_MIN],
+                                 PROFILE_TICKS + 1))
+    with profile(activities=acts) as prof_dec:
+        for _ in range(PROFILE_TICKS):
+            engine.tick()
+        torch.cuda.synchronize()
+    while engine.active_slots:
+        engine.tick()
+    out, text = {}, [smi()]
+    for label, prof, real_s in (
+            ("prefill_longest", prof_pre, stats["prefill_one"][longest.rid]),
+            ("decode_tick", prof_dec, stats["decode_s"] * PROFILE_TICKS
+             / stats["ticks"])):
+        kernels = device_kernels(prof)
+        busy = sum(k[0] for k in kernels) / 1e6
+        own = sum(k[0] for k in kernels if kernel in k[2]) / 1e6
+        launches = sum(k[1] for k in kernels)
+        n = 1 if label == "prefill_longest" else PROFILE_TICKS
+        out[label] = dict(
+            unprofiled_s=real_s / n, device_busy_s=busy / n,
+            device_busy_share=busy / real_s, kernel_device_s=own / n,
+            kernel_share_of_busy=own / busy if busy else None,
+            device_events=launches / n,
+            prompt_tokens=len(longest.prompt) if n == 1 else None,
+            top=[[round(us / 1e3 / n, 4), c // n, key[:60]]
+                 for us, c, key in kernels[:5]])
+        text.append(f"{label}: unprofiled {real_s / n:.6f} s, device busy "
+                    f"{busy / n:.6f} s per {'prefill' if n == 1 else 'tick'}")
+        text += [f"{us / 1e3 / n:12.4f} ms {c / n:8.1f}x  {key}"
+                 for us, c, key in kernels]
+    path = ROOT / "build" / "chip_smoke"
+    path.mkdir(parents=True, exist_ok=True)
+    (path / f"profile_{name}.txt").write_text("\n".join(text) + "\n")
+    return out
+
+
+def phase_model_cpu(dev):
+    """Both reduced float32 configs, one set of weights, served on the CPU
+    (plain versions) and on the card (kernels)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.model import build
+    from repro_torch.serve.engine import Request, ServeEngine
+    out = {}
+    for arch in ("stablelm-1.6b", "rwkv6-3b"):
+        cfg = dataclasses.replace(configs.reduced(arch), dtype="float32")
+        cpu = build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        card = build(cfg, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(1)
+        specs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+                 for n, m in ((5, 6), (40, 4), (77, 8), (12, 5), (100, 3))]
+        gens = []
+        for model in (cpu, card):
+            reqs = [Request(i, p, m) for i, (p, m) in enumerate(specs)]
+            serve(ServeEngine(model, num_slots=3, cache_len=128), reqs)
+            gens.append([r.generated for r in reqs])
+        if gens[0] != gens[1]:
+            raise AssertionError(f"model_cpu {arch}: card tokens != CPU")
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 37)))
+        errs = {}
+        results = []
+        for model in (cpu, card):
+            cache = model.init_cache(2, 64)
+            pre, cache = model.apply(tok[:, :36], mode="prefill",
+                                     cache=cache, pos=0)
+            dec, _ = model.apply(tok[:, 36:], mode="decode", cache=cache,
+                                 pos=torch.tensor([36, 36]))
+            train, _ = model.apply(tok, mode="train")
+            results.append((pre.cpu(), dec.cpu(), train.cpu()))
+        tol = MODEL_TOL[arch]
+        for label, a, b in zip(("prefill", "decode", "train"), *results):
+            torch.testing.assert_close(
+                b, a, atol=tol, rtol=tol,
+                msg=lambda m: f"model_cpu {arch} {label}: {m}")
+            errs[label] = float((a - b).abs().max())
+        out[arch] = dict(tokens_equal=True, max_abs_err=errs, tol=tol,
+                         requests=len(specs))
+    emit("model_cpu", **out)
+
+
+def flash_flops_bytes(b, h, sq, kv_lens, d, elem_bytes, causal):
+    """Products (QK^T and PV, 2 flops per multiply-add) over the keys each
+    query row attends to, and each input read and output written once
+    (K/V only up to each row's kv_len)."""
+    keys = 0
+    for n in kv_lens:
+        if causal:  # query i sees n - sq + i + 1 keys
+            keys += sum(n - sq + i + 1 for i in range(sq))
+        else:
+            keys += sq * n
+    flops = 4 * h * d * keys
+    kv_read = 2 * h * d * sum(kv_lens) * elem_bytes
+    nbytes = kv_read + 2 * b * h * sq * d * elem_bytes
+    return flops, nbytes
+
+
+def linrec_flops_bytes(b, h, t, d):
+    """The chunked form's arithmetic per (batch, head, chunk of L = 32):
+    r.S, the strictly causal (L, L, dk) decay sum (exp, two multiplies and
+    an add per term), att @ v, the bonus and the state update; bytes: r, k,
+    v, logw read and y written once, float32, plus the state in and out."""
+    L = 32
+    chunks = -(-t // L)
+    per_chunk = (2 * L * d * d + 4 * (L * (L - 1) // 2) * d
+                 + 2 * (L * (L - 1) // 2) * d + 3 * L * d + 2 * L * d * d)
+    flops = b * h * chunks * per_chunk
+    nbytes = 4 * (5 * b * h * t * d + 2 * b * h * d * d)
+    return flops, nbytes
+
+
+def time_turns(kernel, plain, kernel_reps=25, plain_reps=5):
+    """plain, kernel, kernel, plain: both measured in turns on one card;
+    returns (kernel ms, plain ms, the kernel's two sets, the plain's)."""
     for fn in (kernel, plain):
         fn()
     torch.cuda.synchronize()
-    # plain, kernel, kernel, plain: both measured in turns on one card
-    plain_a = median_ms(plain, 5)
-    kern_a = median_ms(kernel, 25)
-    kern_b = median_ms(kernel, 25)
-    plain_b = median_ms(plain, 5)
-    ms, plain_ms = statistics.median([kern_a, kern_b]), (plain_a + plain_b) / 2
+    plain_a = median_ms(plain, plain_reps)
+    kern_a = median_ms(kernel, kernel_reps)
+    kern_b = median_ms(kernel, kernel_reps)
+    plain_b = median_ms(plain, plain_reps)
+    return (statistics.median([kern_a, kern_b]), (plain_a + plain_b) / 2,
+            [kern_a, kern_b], [plain_a, plain_b])
+
+
+def library_ms(fn, reps=25):
+    fn()
+    torch.cuda.synchronize()
+    return median_ms(fn, reps)
+
+
+def bound(flops, nbytes, flops_peak, peak):
+    t_ops, t_bytes = flops / flops_peak, nbytes / peak["bytes"]
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def timing_flash(dev, peak):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    b, h, s, d = FLASH_PREFILL
+    q, k, v = flash_inputs(dev, torch.bfloat16, b, h, h, s, s, d, 20,
+                           layout="bshd")
+    lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pre = time_turns(
+        lambda: fk.flash_attention_cuda(q, k, v, lens, causal=True,
+                                        scale=d ** -0.5, seq_dim=1),
+        lambda: attention_ref(qt, kt, vt, causal=True))
+    pre_lib = library_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    flops, nbytes = flash_flops_bytes(b, h, s, [s] * b, d, 2, True)
+    pre_bound = bound(flops, nbytes, peak["bf16_flops"], peak)
+
+    q, k, v, kv_len = decode_inputs(dev)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    keep = (torch.arange(SERVE_CACHE, device=dev)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    dec = time_turns(
+        lambda: fk.flash_attention_cuda(q, k, v, kv_len, causal=True,
+                                        scale=d ** -0.5, seq_dim=1),
+        lambda: attention_ref(qt, kt, vt, causal=True, kv_len=kv_len))
+    dec_lib = library_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep))
+    bsl, hd, dd = FLASH_DECODE
+    dflops, dbytes = flash_flops_bytes(bsl, hd, 1, kv_len.tolist(), dd, 2,
+                                       True)
+    dec_bound = bound(dflops, dbytes, peak["bf16_flops"], peak)
+    return dict(prefill=(pre, pre_lib, pre_bound, flops, nbytes),
+                decode=(dec, dec_lib, dec_bound, dflops, dbytes))
+
+
+def timing_linrec(dev, peak):
+    from repro_torch.kernels.linrec import linrec as lk
+    from repro_torch.kernels.linrec.ref import rwkv6_chunked_ref
+    b, h, t, d = LINREC_MAIN
+    r, k, v, logw, u, s0 = linrec_inputs(dev, b, h, t, d, 10, layout="bthd")
+    rt, kt, vt, lt = (x.transpose(1, 2) for x in (r, k, v, logw))
+    res = time_turns(
+        lambda: lk.rwkv6_cuda(r, k, v, logw, u, s0, time_dim=1),
+        lambda: rwkv6_chunked_ref(rt, kt, vt, lt, u, s0), plain_reps=3)
+    flops, nbytes = linrec_flops_bytes(b, h, t, d)
+    return res, bound(flops, nbytes, peak["fp32_flops"], peak), flops, nbytes
+
+
+def phase_timing(dev, launches, errs):
+    from repro_torch.kernels.commitment_sweep import commitment_sweep as ck
     name = torch.cuda.get_device_name(0)
     peak = PEAKS["pcie" if "PCIe" in name else "sxm"]
+    f, w, cs = main_shape_inputs(dev)
+    ms, plain_ms, kern_sets, plain_sets = time_turns(
+        lambda: ck.commitment_sweep_cuda(f, w, cs),
+        lambda: plain_chunked(f, w, cs))
     nnz_w = float((w != 0).sum())
     flops = FLOPS_PER_TRIPLE * MAIN_G * nnz_w      # work the masks need
     nbytes = 4 * (f.numel() + w.numel() + cs.numel() + 2 * MAIN_P * MAIN_G)
-    t_ops, t_bytes = flops / peak["fp32_flops"], nbytes / peak["bytes"]
-    bound_ms = 1e3 * max(t_ops, t_bytes)
+    sweep_bound = bound(flops, nbytes, peak["fp32_flops"], peak)
     full_flops = FLOPS_PER_TRIPLE * MAIN_P * MAIN_G * MAIN_T
-    emit("timing", shape=[MAIN_P, MAIN_G, MAIN_T], kernel_ms=[kern_a, kern_b],
-         plain_ms=[plain_a, plain_b], bound_flops=flops, bound_bytes=nbytes,
-         bound_ms_all_triples=1e3 * full_flops / peak["fp32_flops"],
-         peak=peak)
-    print(json.dumps({"kernels": [{
-        "name": "commitment_sweep", "route": "cuda",
-        "source": "src/repro_torch/kernels/commitment_sweep/csrc/"
-                  "commitment_sweep.cu",
-        "replaces": "src/repro/kernels/commitment_sweep/commitment_sweep.py:64",
-        "launches": launches, "launches_per_plan": launches,
-        "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
-    }]}), flush=True)
+    del f, w, cs
+    fl = timing_flash(dev, peak)
+    (pre, pre_lib, pre_bound, pflops, pbytes) = fl["prefill"]
+    (dec, dec_lib, dec_bound, dflops, dbytes) = fl["decode"]
+    lin, lin_bound, lflops, lbytes = timing_linrec(dev, peak)
+    emit("timing", peak=peak,
+         commitment_sweep=dict(
+             shape=[MAIN_P, MAIN_G, MAIN_T], kernel_ms=kern_sets,
+             plain_ms=plain_sets, bound_flops=flops, bound_bytes=nbytes,
+             bound_ms_all_triples=1e3 * full_flops / peak["fp32_flops"]),
+         flash_prefill=dict(shape=list(FLASH_PREFILL), dtype="bfloat16",
+                            kernel_ms=pre[2], plain_ms=pre[3],
+                            library_ms=pre_lib, bound_flops=pflops,
+                            bound_bytes=pbytes),
+         flash_decode=dict(slots_heads_dim=list(FLASH_DECODE),
+                           cache=SERVE_CACHE, dtype="bfloat16",
+                           kernel_ms=dec[2], plain_ms=dec[3],
+                           library_ms=dec_lib, bound_flops=dflops,
+                           bound_bytes=dbytes),
+         rwkv6=dict(shape=list(LINREC_MAIN), kernel_ms=lin[2],
+                    plain_ms=lin[3], bound_flops=lflops, bound_bytes=lbytes))
+    print(json.dumps({"kernels": [
+        {
+            "name": "commitment_sweep", "route": "cuda",
+            "source": "src/repro_torch/kernels/commitment_sweep/csrc/"
+                      "commitment_sweep.cu",
+            "replaces":
+                "src/repro/kernels/commitment_sweep/commitment_sweep.py:64",
+            "launches": launches["commitment_sweep"],
+            "launches_per_plan": launches["commitment_sweep"],
+            "max_abs_err": errs["commitment_sweep"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": sweep_bound[0],
+            "bound_by": sweep_bound[1], "library_ms": None,
+        },
+        {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces":
+                "src/repro/kernels/flash_attention/flash_attention.py:99",
+            "launches": launches["flash_attention"],
+            "launches_per_serve": launches["flash_attention"],
+            "max_abs_err": errs["flash_attention"], "ms": pre[0],
+            "plain_ms": pre[1], "bound_ms": pre_bound[0],
+            "bound_by": pre_bound[1], "library_ms": pre_lib,
+            "shape": f"prefill {FLASH_PREFILL} causal bf16",
+            "decode_ms": dec[0], "decode_plain_ms": dec[1],
+            "decode_bound_ms": dec_bound[0], "decode_bound_by": dec_bound[1],
+            "decode_library_ms": dec_lib,
+        },
+        {
+            "name": "rwkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/linrec/csrc/linrec.cu",
+            "replaces": "src/repro/kernels/linrec/linrec.py:92",
+            "launches": launches["rwkv6"],
+            "launches_per_serve": launches["rwkv6"],
+            "max_abs_err": errs["rwkv6"], "ms": lin[0], "plain_ms": lin[1],
+            "bound_ms": lin_bound[0], "bound_by": lin_bound[1],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes the RWKV6 "
+                            "recurrence",
+            "shape": f"{LINREC_MAIN} float32",
+        },
+    ]}), flush=True)
 
 
 def main() -> int:
@@ -477,8 +1030,10 @@ def main() -> int:
     dev = torch.device("cuda")
     phase_device()
     phase_build()
-    max_abs_err = phase_kernel(dev)
+    errs = {"commitment_sweep": phase_kernel(dev)}
     phase_ties(dev)
+    errs["flash_attention"] = phase_flash(dev)
+    errs["rwkv6"] = phase_linrec(dev)
     from repro_torch.data import traces
     t0 = time.perf_counter()
     pools = traces.synthetic_pool_set(
@@ -486,10 +1041,17 @@ def main() -> int:
     emit("fleet", pools=NUM_POOLS, hours=NUM_HOURS,
          synth_s=time.perf_counter() - t0)
     phase_cpu(pools)
-    grid_rep, launches, plan_s = phase_plan(pools)
+    grid_rep, sweep_launches, plan_s = phase_plan(pools)
     phase_quantile(pools, grid_rep)
     phase_profile(pools, grid_rep, plan_s)
-    phase_timing(dev, launches, max_abs_err)
+    del pools, grid_rep
+    phase_model_cpu(dev)
+    launches = {"commitment_sweep": sweep_launches}
+    launches["flash_attention"], _ = phase_serve(
+        "serve_dense", "stablelm-1.6b", dev, "flash_attention")
+    launches["rwkv6"], _ = phase_serve(
+        "serve_rwkv", "rwkv6-3b", dev, "rwkv6")
+    phase_timing(dev, launches, errs)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

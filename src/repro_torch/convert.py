@@ -1,6 +1,7 @@
-"""Carry a fleet and its purchase options across from the JAX package.
+"""Carry a fleet, its purchase options and a model's parameters across from
+the JAX package.
 
-Both functions are duck-typed: they read plain fields (``keys``,
+The functions are duck-typed: they read plain fields (``keys``,
 ``demand``, ``configs`` of a pool set; ``name``, ``cloud``, ``rate``,
 ``term_weeks``, ``convertible`` of a purchase option) as numpy arrays and
 Python values, so they need no import of the reference package.  The
@@ -12,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core import demand as dm
 from repro_torch.core import portfolio as pf
@@ -43,3 +45,43 @@ def options_from_reference(ref_opts) -> list[pf.PurchaseOption]:
         )
         for o in ref_opts
     ]
+
+
+def _flatten(node, prefix=""):
+    """(dotted name, leaf) pairs of a tree of dicts and lists."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _flatten(v, f"{prefix}{k}.")
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            yield from _flatten(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], node
+
+
+def _tensor(x) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":  # numpy's bfloat16 extension type
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def model_params_from_reference(cfg, tree) -> dict[str, torch.Tensor]:
+    """The port model's ``state_dict`` holding the JAX model's parameters.
+
+    ``tree`` is the reference's parameter pytree (nested dicts and lists of
+    arrays, any array type numpy can read); the leaves of its stacked
+    ``layers`` subtree carry a leading layer axis, which is split into
+    ``layers.<i>.<name>`` entries.  bfloat16 leaves pass through float32,
+    which holds them exactly; ``load_state_dict`` casts each tensor to its
+    parameter's dtype."""
+    out = dict(_flatten({k: v for k, v in tree.items() if k != "layers"}))
+    for name, stacked in _flatten(tree["layers"]):
+        arr = np.asarray(stacked)
+        if arr.shape[0] != cfg.num_layers:
+            raise ValueError(
+                f"layers.{name} stacks {arr.shape[0]} layers, the config "
+                f"has {cfg.num_layers}")
+        for i in range(cfg.num_layers):
+            out[f"layers.{i}.{name}"] = arr[i]
+    return {k: _tensor(v) for k, v in out.items()}

@@ -9,9 +9,7 @@ its T sums do not depend on the row tiling.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes``, at the first launch,
-never at import.  The library lands in ``build/repro_torch_kernels/`` at
-the repository root (override with ``REPRO_TORCH_BUILD_DIR``), named by a
-hash of the source and the flags, so an edited source rebuilds.
+never at import (:mod:`repro_torch.kernels.build`).
 
 :func:`commitment_sweep_cuda` takes CUDA tensors only and raises on
 anything else; :mod:`ops` decides between it and the plain version by the
@@ -21,20 +19,13 @@ device of the tensors.  ``LAUNCHES`` counts the launches it made.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import build as _build
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "commitment_sweep.cu"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 _INT_MAX = 2**31 - 1
 # Candidate tiles run on grid.y, which CUDA caps at 65535 blocks of 128.
 _MAX_CANDIDATES = 65535 * 128
@@ -42,85 +33,25 @@ _MAX_CANDIDATES = 65535 * 128
 #: Kernel launches made by :func:`commitment_sweep_cuda` in this process.
 LAUNCHES = 0
 
-_LIB = None
-
-
-def build_dir() -> Path:
-    """Where the shared library is built (created on demand)."""
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    # src/repro_torch/kernels/commitment_sweep/ -> repository root
-    return Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
-        "commitment-sweep kernel is built from source at first use"
-    )
-
-
-def library_path() -> Path:
-    """The shared library's path for the current source and flags."""
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return build_dir() / f"libcommitment_sweep_{digest}.so"
+_SIGNATURES = {
+    "commitment_sweep_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # f, w, cs
+        ctypes.c_void_p, ctypes.c_void_p,                    # over, under
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,            # P, G, T
+        ctypes.c_void_p,                                     # stream
+    ],
+}
 
 
 def build() -> Path:
     """Compile the kernel if its library is not built yet; returns the
-    library's path.  The compiler's output (``-Xptxas -v``: registers,
-    shared memory, spills) is kept beside it as ``<library>.log``.  The
-    library is written under a temporary name and renamed into place, so
-    concurrent builds never load a half-written file."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        log = proc.stdout + proc.stderr
-        Path(str(out) + ".log").write_text(log)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {SOURCE}:\n{log}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    library's path (its ``nvcc`` output beside it as ``<library>.log``)."""
+    return _build.build(SOURCE)[0]
 
 
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the library; declares the C signature."""
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.commitment_sweep_launch
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # f, w, cs
-            ctypes.c_void_p, ctypes.c_void_p,                    # over, under
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,            # P, G, T
-            ctypes.c_void_p,                                     # stream
-        ]
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+    return _build.load(SOURCE, _SIGNATURES)
 
 
 def _check(name: str, x, device, ndim: int) -> None:

@@ -1,0 +1,3 @@
+"""The model stack of the port: configuration, parameter specs, layers and
+the families it runs (dense transformer, RWKV6), entered by
+:func:`repro_torch.models.model.build`."""

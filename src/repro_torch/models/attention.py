@@ -1,0 +1,134 @@
+"""Attention layers: GQA with (partial) rotary embeddings.
+
+Three execution modes share one set of weights:
+  * train    — full causal self-attention, no cache;
+  * prefill  — the same attention over the prompt, which also writes the
+               KV cache;
+  * decode   — the new token(s) against the cache at fill level ``pos``,
+               a scalar or one level per batch row (per slot).
+
+Every mode goes through the flash-attention op
+(``repro_torch.kernels.flash_attention.ops``): on the card its CUDA kernel
+reads q and the cache in their (B, S, H, D) layout in place, with per-row
+``kv_len``; on the CPU its plain version.  Caches are laid out
+(B, S, Hkv, D), as the reference's, and are written in place.
+
+MLA (ROADMAP Queue 1, item 16) and the int8 KV cache (``kv_cache_dtype=
+"int8"``, same item) are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.common import rope_for
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import Spec, add_parameters
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.attention == "mla":
+        raise NotImplementedError(
+            "MLA attention is not ported yet (ROADMAP Queue 1, item 16)")
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError(
+            "the int8 KV cache is not ported yet (ROADMAP Queue 1, item 16)")
+
+
+def gqa_specs(cfg: ModelConfig) -> dict[str, Spec]:
+    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": Spec((d, h, hd), ("embed", "heads", "head_dim"), fan_in=d),
+        "wk": Spec((d, hkv, hd), ("embed", "kv_heads", "head_dim"), fan_in=d),
+        "wv": Spec((d, hkv, hd), ("embed", "kv_heads", "head_dim"), fan_in=d),
+        "wo": Spec((h, hd, d), ("heads", "head_dim", "embed"), fan_in=h * hd),
+    }
+
+
+def attn_specs(cfg: ModelConfig) -> dict[str, Spec]:
+    _check_ported(cfg)
+    return gqa_specs(cfg)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> dict[str, Spec]:
+    """One layer's KV cache, (B, S, Hkv, D) each."""
+    _check_ported(cfg)
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    axes = ("batch", "cache_seq", "kv_heads", "head_dim")
+    return {
+        "k": Spec((batch, seq, hkv, hd), axes, init="zeros"),
+        "v": Spec((batch, seq, hkv, hd), axes, init="zeros"),
+    }
+
+
+def update_cache(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
+    """Write ``new`` (B, S_new, ...) into ``cache`` (B, S, ...) at offset
+    ``pos``, in place: an int, or a (B,) integer tensor of per-slot offsets.
+    As the reference's ``dynamic_update_slice``, an offset is clamped to
+    [0, S - S_new], so the write always fits."""
+    s_new, s = new.shape[1], cache.shape[1]
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        start = pos.to(torch.int64).clamp(0, s - s_new)
+        rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+        cols = start[:, None] + torch.arange(s_new, device=cache.device)
+        cache[rows, cols] = new.to(cache.dtype)
+        return
+    start = min(max(int(pos), 0), s - s_new)
+    cache[:, start:start + s_new] = new.to(cache.dtype)
+
+
+class GQAAttention(nn.Module):
+    """Grouped-query attention; parameters ``wq, wk, wv (d, H, D)`` and
+    ``wo (H, D, d)``, the reference's layouts."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        add_parameters(self, attn_specs(cfg), dtype, device)
+
+    def forward(self, x, *, mode: str, cache, pos, positions):
+        """x (B, S, d) -> y (B, S, d).  ``cache`` is this layer's
+        {"k", "v"} (B, S_cache, Hkv, D), written in place in prefill and
+        decode; ``pos`` is the write offset (prefill) or fill level
+        (decode), an int or a (B,) tensor; ``positions`` (B, S) are the
+        rotary positions."""
+        cfg = self.cfg
+        b, s, d = x.shape
+        h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = (x @ self.wq.reshape(d, h * hd)).view(b, s, h, hd)
+        k = (x @ self.wk.reshape(d, hkv * hd)).view(b, s, hkv, hd)
+        v = (x @ self.wv.reshape(d, hkv * hd)).view(b, s, hkv, hd)
+
+        rot = int(hd * cfg.rotary_pct)
+        if rot:
+            q = torch.cat([rope_for(cfg, q[..., :rot], positions),
+                           q[..., rot:]], -1)
+            k = torch.cat([rope_for(cfg, k[..., :rot], positions),
+                           k[..., rot:]], -1)
+
+        scale = 1.0 / math.sqrt(hd)
+        if mode == "train":
+            out = flash_attention(q, k, v, kv_len=s, scale=scale,
+                                  layout="bshd")
+        elif mode == "prefill":
+            update_cache(cache["k"], k, pos)
+            update_cache(cache["v"], v, pos)
+            out = flash_attention(q, k, v, kv_len=s, scale=scale,
+                                  layout="bshd")
+        elif mode == "decode":
+            update_cache(cache["k"], k, pos)
+            update_cache(cache["v"], v, pos)
+            s_cache = cache["k"].shape[1]
+            if isinstance(pos, torch.Tensor):
+                kv_len = (pos + s).clamp(max=s_cache)
+            else:
+                kv_len = min(int(pos) + s, s_cache)
+            out = flash_attention(q, cache["k"], cache["v"], kv_len=kv_len,
+                                  scale=scale, layout="bshd")
+        else:
+            raise ValueError(f"unknown mode {mode!r}")
+        return out.reshape(b, s, h * hd) @ self.wo.reshape(h * hd, d)

@@ -1,0 +1,137 @@
+"""Unified model API: ``build(cfg, device=None)`` -> a :class:`Model` with
+``init``, ``init_cache`` and ``apply``, dispatching on the architecture
+family.
+
+A model is an ``nn.Module``: its parameters live on one device, its layers
+in an ``nn.ModuleList``.  ``device=None`` means the card and raises without
+one (:func:`repro_torch.device.resolve_device`); the tests pass
+``device="cpu"``, which runs the kernels' plain versions; ``device="meta"``
+builds a full-size model's shapes without allocating them.  The dense family
+(``transformer``) and the RWKV family (``rwkv``) are ported; the others
+raise (ROADMAP Queue 1, item 16).
+
+Caches are dictionaries of tensors stacked over layers, the slot (batch)
+axis second: ``cache[name][layer, slot]``.  ``apply`` updates the cache it
+is given in place and returns it, so a view of some slots
+(:meth:`Model.slot_view`) is written through to the pool it views.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models.common import rms_norm, rms_norm_spec
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import Spec, add_parameters, init_module
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class Model(nn.Module):
+    """Embedding, a stack of family layers, final norm and LM head.
+    Subclasses set ``layer_cls`` and ``cache_specs``."""
+
+    layer_cls: type
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        if cfg.embeds_input or cfg.first_dense_layers or cfg.num_experts:
+            raise NotImplementedError(
+                f"{cfg.name}: embedding inputs, MoE and prefix layers are "
+                "not ported yet (ROADMAP Queue 1, item 16)")
+        self.cfg = cfg
+        # "meta" allocates nothing: parameter and cache shapes only
+        self.device = (torch.device("meta") if str(device) == "meta"
+                       else resolve_device(device))
+        self.dtype = _DTYPES[cfg.dtype]
+        add_parameters(self, {
+            "embed": Spec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                          fan_in=1),
+        }, self.dtype, self.device)
+        self.layers = nn.ModuleList(
+            self.layer_cls(cfg, dtype=self.dtype, device=self.device)
+            for _ in range(cfg.num_layers))
+        add_parameters(self, {
+            "final_norm": rms_norm_spec(cfg.d_model),
+            "lm_head": Spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
+                            fan_in=cfg.d_model),
+        }, self.dtype, self.device)
+
+    # ---- params ----
+    def init(self, generator: torch.Generator) -> "Model":
+        """Initialize every parameter from ``generator``, which must live on
+        the model's device; returns the model."""
+        init_module(self, generator)
+        return self
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    # ---- caches ----
+    @staticmethod
+    def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> dict[str, Spec]:
+        raise NotImplementedError
+
+    def init_cache(self, batch: int, seq: int) -> dict[str, torch.Tensor]:
+        """Zeroed cache, each tensor (num_layers, batch, ...) on the
+        model's device."""
+        return {
+            name: torch.zeros((self.cfg.num_layers, *s.shape),
+                              dtype=s.dtype or self.dtype, device=self.device)
+            for name, s in self.cache_specs(self.cfg, batch, seq).items()
+        }
+
+    @staticmethod
+    def slot_view(cache: dict, slot: int) -> dict[str, torch.Tensor]:
+        """The one-slot cache of ``slot``: views into ``cache``."""
+        return {name: t[:, slot:slot + 1] for name, t in cache.items()}
+
+    # ---- forward ----
+    @torch.no_grad()
+    def apply(self, tokens: torch.Tensor, *, mode: str = "train",
+              cache: dict | None = None, pos=0):
+        """tokens (B, S) integer -> (logits float32, cache).  Logits are
+        (B, S, V), or (B, 1, V) in prefill: next-token logits only.  ``pos``
+        is an int or a (B,) tensor of per-row offsets (decode: the fill
+        levels).  ``cache`` is updated in place and returned."""
+        tokens = tokens.to(self.device)
+        if isinstance(pos, torch.Tensor):
+            pos = pos.to(self.device)
+        x = self.embed[tokens]
+        positions = _positions(pos, *tokens.shape, self.device)
+        for i, layer in enumerate(self.layers):
+            cache_l = None if cache is None else {
+                name: t[i] for name, t in cache.items()}
+            x = layer(x, mode=mode, cache=cache_l, pos=pos,
+                      positions=positions)
+        if mode == "prefill":
+            # next-token logits only: a long prompt's full (S, V) float32
+            # logits are vocab-head work and traffic nobody reads
+            x = x[:, -1:]
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return (x @ self.lm_head).float(), cache
+
+    forward = apply
+
+
+def _positions(pos, b: int, s: int, device) -> torch.Tensor:
+    """(B, S) absolute positions from an int or per-row (B,) offsets."""
+    steps = torch.arange(s, device=device)
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        return pos.to(torch.int64)[:, None] + steps[None, :]
+    return (int(pos) + steps)[None, :].expand(b, s)
+
+
+def build(cfg: ModelConfig, *, device=None) -> Model:
+    """The model of ``cfg``'s family, parameters allocated (not yet
+    initialized: call ``init``) on ``device`` (default the card)."""
+    from repro_torch.models import rwkv, transformer
+
+    families = {"dense": transformer.Transformer, "ssm": rwkv.RWKV}
+    if cfg.family not in families:
+        raise NotImplementedError(
+            f"the {cfg.family!r} family is not ported yet (ROADMAP Queue 1, "
+            "item 16)")
+    return families[cfg.family](cfg, device=device)

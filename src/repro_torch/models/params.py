@@ -1,0 +1,70 @@
+"""Parameter specs: one declaration drives a parameter's shape, dtype and
+initialization, as in the JAX package's ``params``.
+
+The init rule is the reference's: zeros, ones, or a normal draw times
+``1 / sqrt(fan_in)`` (``fan_in`` defaults to the second-to-last dim, or the
+last of a vector), drawn in float32 and cast to the parameter's dtype; a
+Spec's ``dtype`` overrides the model's (float32 norms, ``w0``, ``u``,
+``ln_x``).  The draws come from a ``torch.Generator`` the caller seeds, so
+they are not the reference's ``jax.random`` numbers: parity tests carry the
+reference's parameters across instead (``repro_torch.convert``).  The
+logical axes are kept for the record; the sharding helpers are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """Declaration of one parameter (or cache) tensor."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]       # logical axis name per dim
+    init: str = "normal"               # normal | zeros | ones
+    fan_in: int | None = None          # normal: std = 1/sqrt(fan_in)
+    dtype: torch.dtype | None = None   # override (e.g. float32 for norms)
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def add_parameters(module: nn.Module, specs: dict[str, Spec], dtype,
+                   device) -> None:
+    """Register one uninitialized ``nn.Parameter`` per spec on ``module``
+    (in the specs' order) and remember the specs for :func:`init_module`."""
+    module._param_specs = {**getattr(module, "_param_specs", {}), **specs}
+    for name, spec in specs.items():
+        module.register_parameter(name, nn.Parameter(torch.empty(
+            spec.shape, dtype=spec.dtype or dtype, device=device)))
+
+
+@torch.no_grad()
+def fill(t: torch.Tensor, spec: Spec, generator: torch.Generator) -> None:
+    """Initialize ``t`` in place by ``spec``'s rule."""
+    if spec.init == "zeros":
+        t.zero_()
+    elif spec.init == "ones":
+        t.fill_(1.0)
+    else:
+        shape = spec.shape
+        fan = spec.fan_in or (shape[-2] if len(shape) >= 2 else shape[-1])
+        std = 1.0 / math.sqrt(max(fan, 1))
+        draw = torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=generator.device)
+        t.copy_(draw.mul_(std))
+
+
+def init_module(module: nn.Module, generator: torch.Generator) -> None:
+    """Initialize every spec'd parameter of ``module`` and its submodules,
+    in registration order, from ``generator`` (on the parameters'
+    device)."""
+    for sub in module.modules():
+        for name, spec in getattr(sub, "_param_specs", {}).items():
+            fill(getattr(sub, name), spec, generator)
+

@@ -1,0 +1,160 @@
+"""The PyTorch port's flash attention against the JAX package's.
+
+On the CPU the port's ``ops`` runs the plain PyTorch version; the JAX side
+runs its Pallas kernel in interpret mode and its jnp oracle.  Tolerances
+are the reference's own (``tests/test_kernels.py``): atol 2e-5 / rtol 1e-4
+in float32, 2e-2 in bfloat16 — the same softmax with its sums taken in
+another order.  The per-slot decode is held to the JAX model's ``_sdpa``
+with vector offsets, which is the function the engine's batched decode
+computes; ``_sdpa`` rounds its probabilities to the value dtype before the
+PV product, which in float32 changes nothing.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.ops import flash_attention as jflash  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref as jref  # noqa: E402
+from repro.models.attention import _sdpa  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as tker  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as tops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+
+F32 = dict(atol=2e-5, rtol=1e-4)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _full_f32_matmuls():
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    yield
+    torch.set_float32_matmul_precision(prev)
+
+
+def _randn(rng, *shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def _qkv(seed, b, hq, hkv, sq, skv, d):
+    rng = np.random.default_rng(seed)
+    return (_randn(rng, b, hq, sq, d), _randn(rng, b, hkv, skv, d),
+            _randn(rng, b, hkv, skv, d))
+
+
+def _port(q, k, v, **kw):
+    return tops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                **kw).numpy()
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", [
+    (1, 4, 4, 128, 128, 64),    # MHA, exact blocks
+    (2, 8, 2, 200, 200, 64),    # GQA 4:1, ragged seq
+    (1, 8, 1, 64, 64, 128),     # MQA
+    (2, 4, 2, 1, 300, 64),      # decode: single query
+    (1, 2, 2, 96, 160, 32),     # cross-ish lengths
+])
+def test_shapes_match_jax(b, hq, hkv, sq, skv, d):
+    q, k, v = _qkv(b * 1000 + sq, b, hq, hkv, sq, skv, d)
+    got = _port(q, k, v, causal=True)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    np.testing.assert_allclose(got, jflash(jq, jk, jv, causal=True), **F32)
+    np.testing.assert_allclose(got, jref(jq, jk, jv, causal=True), **F32)
+
+
+def test_noncausal_matches_jax():
+    q, k, v = _qkv(1, 2, 4, 2, 100, 150, 64)
+    got = _port(q, k, v, causal=False)
+    want = jflash(*(jnp.asarray(x) for x in (q, k, v)), causal=False)
+    np.testing.assert_allclose(got, want, **F32)
+
+
+def test_kv_len_padded_cache():
+    """Decode against a partially filled, padded KV cache."""
+    q, k, v = _qkv(2, 2, 8, 2, 1, 384, 64)
+    got = _port(q, k, v, causal=True, kv_len=257)
+    want = jref(*(jnp.asarray(x) for x in (q, k[:, :, :257], v[:, :, :257])),
+                causal=True)
+    np.testing.assert_allclose(got, want, **F32)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+def test_dtypes_match_jax(dtype, atol):
+    q, k, v = _qkv(3, 1, 4, 2, 128, 128, 64)
+    jq, jk, jv = (jnp.asarray(x, dtype=dtype) for x in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(np.array(x, np.float32)).to(
+        getattr(torch, dtype)) for x in (jq, jk, jv))
+    got = tops.flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == getattr(torch, dtype)
+    want = jflash(jq, jk, jv, causal=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=atol,
+                               rtol=1e-2)
+
+
+def test_causality_property():
+    """Perturbing future tokens must not change past outputs."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(4, 1, 2, 2, 64, 64, 32))
+    out1 = tops.flash_attention(q, k, v, causal=True)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 50:] += 10.0
+    v2[:, :, 50:] += 10.0
+    out2 = tops.flash_attention(q, k2, v2, causal=True)
+    torch.testing.assert_close(out1[:, :, :50], out2[:, :, :50], atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("sq", [1, 3])
+def test_per_slot_kv_len_decode_matches_sdpa(sq):
+    """One call, every batch row with its own fill level, the model's
+    (B, S, H, D) layout: the JAX model's _sdpa with vector q_offset/kv_len."""
+    rng = np.random.default_rng(5)
+    b, hq, hkv, s_cache, d = 5, 8, 2, 96, 32
+    fill = np.array([1, 17, 40, 95, 96 - sq], np.int32)   # positions held
+    q = _randn(rng, b, sq, hq, d)
+    k = _randn(rng, b, s_cache, hkv, d)
+    v = _randn(rng, b, s_cache, hkv, d)
+    kv_len = fill + sq
+    got = tops.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=True, kv_len=torch.from_numpy(kv_len), scale=d ** -0.5,
+        layout="bshd").numpy()
+    want = _sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                 q_offset=jnp.asarray(fill), kv_len=jnp.asarray(kv_len),
+                 scale=d ** -0.5)
+    np.testing.assert_allclose(got, np.asarray(want), **F32)
+
+
+def test_bshd_layout_equals_bhsd():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(6, 2, 4, 2, 33, 70, 64))
+    lens = torch.tensor([70, 45])
+    bhsd = tops.flash_attention(q, k, v, kv_len=lens)
+    bshd = tops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), kv_len=lens,
+                                layout="bshd")
+    assert bshd.shape == (2, 33, 4, 64) and bshd.is_contiguous()
+    torch.testing.assert_close(bshd.transpose(1, 2), bhsd, atol=0, rtol=0)
+
+
+def test_vector_kv_len_equals_per_row_scalars():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(7, 3, 4, 4, 5, 64, 32))
+    lens = [64, 9, 30]
+    out = attention_ref(q, k, v, causal=True, kv_len=torch.tensor(lens))
+    for i, n in enumerate(lens):
+        one = attention_ref(q[i:i + 1], k[i:i + 1, :, :n], v[i:i + 1, :, :n],
+                            causal=True)
+        torch.testing.assert_close(out[i:i + 1], one, atol=1e-6, rtol=1e-6)
+
+
+def test_kernel_wrapper_takes_cuda_tensors_only():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(8, 1, 2, 2, 4, 8, 32))
+    lens = torch.tensor([8], dtype=torch.int32)
+    before = tker.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        tker.flash_attention_cuda(q, k, v, lens, causal=True, scale=1.0)
+    with pytest.raises(ValueError, match="layout"):
+        tops.flash_attention(q, k, v, layout="hbsd")
+    assert tker.LAUNCHES == before

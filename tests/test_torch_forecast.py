@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import forecast as jfc  # noqa: E402
 from repro.data import traces as jtr  # noqa: E402
 from repro_torch.core import forecast as tfc  # noqa: E402
+from repro_torch.numerics import linspace  # noqa: E402
 
 WK = 168
 HORIZON = 3 * WK
@@ -58,6 +59,32 @@ def test_design_matrix(t_max):
     assert got.shape == want.shape
     # sin/cos of the same float32 angles, one ulp apart at most
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_changepoint_knots_equal_the_rolling_paths(states):
+    """The knots linspace(0.1, 0.9, 8) bit for bit: the rolling replay
+    builds its design matrix eagerly (``prefix_fit_state``), so its knots
+    are an eager ``jnp.linspace``'s, and the changepoint columns of both
+    packages' refit states are then equal bit for bit too."""
+    js, ts = states
+    want = np.asarray(jnp.linspace(0.1, 0.9, 8))
+    got = linspace(0.1, 0.9, 8).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    cps = slice(2, 2 + tfc.ForecastConfig().num_changepoints)
+    np.testing.assert_array_equal(
+        ts.x[:, cps].numpy().view(np.uint32),
+        np.asarray(js.x)[:, cps].view(np.uint32),
+    )
+
+
+@pytest.mark.parametrize("start,stop,num", [
+    (0.1, 0.9, 3), (0.1, 0.9, 20), (-2.5, 1.75, 11), (0.0, 1.0, 128),
+    (0.0, 1.0, 257),
+])
+def test_linspace_equals_eager_reference(start, stop, num):
+    want = np.asarray(jnp.linspace(start, stop, num))
+    got = linspace(start, stop, num).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 def test_short_history_drops_yearly_terms(states):

@@ -57,6 +57,13 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert "repro_torch.core.replan" in mods
     assert "repro_torch.kernels.commitment_sweep.commitment_sweep" in mods
+    for name in ("repro_torch.serve.engine", "repro_torch.models.model",
+                 "repro_torch.models.rwkv", "repro_torch.models.transformer",
+                 "repro_torch.configs",
+                 "repro_torch.kernels.flash_attention.flash_attention",
+                 "repro_torch.kernels.linrec.linrec",
+                 "repro_torch.kernels.build"):
+        assert name in mods
 
 
 def test_no_import_of_jax_or_reference_in_source():
