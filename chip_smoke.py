@@ -5,12 +5,16 @@
 Drives the port's three paths on the card — the rolling commitment
 planner, and the serving engine on the published stablelm-1.6b and
 rwkv6-3b — and checks each of their kernels (commitment sweep, flash
-attention, RWKV6 recurrence) against its plain PyTorch version.  Phases, in
-this order, each printing one JSON line and raising on failure:
+attention, RWKV6 recurrence) against its plain PyTorch version.  Flash
+attention is three CUDA kernels, routed by dtype, head dim and query rows
+(``flash_attention.route``): a tensor-core bf16 prefill (``prefill_tc``),
+a split-KV decode (``decode_split``) and the SIMT kernel (``simt``: f32
+prefill, bf16 with head dim 32).  Phases, in this order, each printing one
+JSON line and raising on failure:
 
   device    card name and power limit, torch and CUDA versions
-  build     nvcc build of the three kernels, one nvcc each, all at once
-            (time, ptxas report)
+  build     nvcc build of the five kernel sources, one nvcc each, all at
+            once (time, ptxas report)
   kernel    sweep kernel vs plain version on the card: ragged shapes, the
             (T,)/(G,) cases, no weights, prefix masks, the main-path shape
             8192 x 128 x 1344; batched launch == one launch per row block
@@ -26,23 +30,31 @@ this order, each printing one JSON line and raising on failure:
   profile   the grid plan under torch.profiler: device busy time, time by
             kernel (full table in build/chip_smoke/profile_grid_plan.txt), and
             the host-side tranche book timed alone
-  flash     flash-attention kernel vs plain version: ragged shapes in both
-            layouts, prefill (1, 32, 2048, 64) causal in bf16 and f32, and
-            a batched decode (8 slots, 32 heads, one query) against a
-            4096-long cache with 8 different kv_len
+  flash     flash-attention kernels vs plain version: ragged shapes in
+            f32 and bf16 and both layouts (each case checked to launch the
+            kernel its route names), prefill (1, 32, 2048, 64) causal in
+            bf16 and f32, and a batched decode (8 slots, 32 heads, one
+            query) against a 4096-long cache with 8 different kv_len, in
+            bf16 and f32, held also against the split-KV algebra's plain
+            version; each bf16 query row's error norm against its
+            reference norm as well as element by element
   linrec    RWKV6 kernel vs plain version: ragged T, strong decay, a
             carried state, and (1, 40, 2048, 64)
   model_cpu both reduced float32 configs served on the CPU (plain
-            versions) and on the card (kernels): tokens equal, logits close
+            versions) and on the card (kernels): tokens equal, logits
+            close; flash decode on decode_split, f32 prefill on simt
   serve_dense  the full published stablelm-1.6b in bf16, random weights
             from a seeded generator on the card: an engine of 8 slots and
             cache 4096 serves 16 requests (prompts of 128-2048 tokens, 32
             new tokens each); throughput, time to first token, flash
-            launches, peak memory (a main path)
+            launches by kernel (exactly 24 x 16 prefill_tc, 24 x ticks
+            decode_split, no simt), peak memory (a main path)
   serve_rwkv   the same for the full rwkv6-3b; RWKV6 launches (a main path)
   timing    each kernel's and its plain version's times at its main-path
-            shape, library times, bounds, then the kernel line
-            {"kernels": [...]}
+            shape (flash: prefill_tc at the bf16 prefill, decode_split at
+            the bf16 decode, simt at the f32 prefill), library times,
+            bounds, each flash wrapper's and library call's host time per
+            call, then the kernel line {"kernels": [...]}
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 before any
@@ -87,12 +99,22 @@ PROFILE_TICKS = 8           # decode ticks under the profiler, every slot busy
 FLASH_PREFILL = (1, 32, 2048, 64)
 FLASH_DECODE = (SERVE_SLOTS, 32, 64)
 LINREC_MAIN = (1, 40, 2048, 64)
-FLASH_F32, FLASH_BF16 = dict(atol=2e-5, rtol=1e-4), dict(atol=2e-2, rtol=1e-2)
+FLASH_F32 = dict(atol=2e-5, rtol=1e-4)
+# bf16: element by element (P is rounded to bf16 for the tensor cores, so
+# in a row over a few keys whose output cancels the error is ~2^-9 of |v|,
+# not of |out|), and each query row's error norm at most `row` times the
+# row's reference norm, which holds a whole row to ~1/50 of its size
+FLASH_BF16 = dict(atol=1e-2, rtol=1e-2, row=2e-2)
+# the flash kernels' names as the profiler shows them (all hold "flash_")
+FLASH_PROFILE_NAMES = ("flash_prefill_tc_kernel", "flash_decode_split_kernel",
+                       "flash_decode_combine_kernel", "::flash_kernel<")
 LINREC_TOL = dict(atol=2e-3, rtol=2e-3)
 # card vs CPU logits of the reduced float32 models (the tolerances of the
 # CPU parity tests against the JAX package)
 MODEL_TOL = {"stablelm-1.6b": 1e-4, "rwkv6-3b": 2e-3}
 FLOPS_PER_TRIPLE = 6        # sub, 2 max, 2 fma (2 flops each) per hour
+# Spin before each timed run: ~2 ms at the H100's ~1.7 GHz clock
+HOST_COVER_CYCLES = 3_500_000
 
 
 def emit(phase: str, **fields) -> None:
@@ -178,22 +200,37 @@ def kernel_modules():
 def reset_launches():
     for mod in kernel_modules().values():
         mod.LAUNCHES = 0
+    by_kernel = kernel_modules()["flash_attention"].LAUNCHES_BY_KERNEL
+    for name in by_kernel:
+        by_kernel[name] = 0
 
 
 def read_launches():
-    return {name: mod.LAUNCHES for name, mod in kernel_modules().items()}
+    out = {name: mod.LAUNCHES for name, mod in kernel_modules().items()}
+    out["flash_by_kernel"] = dict(
+        kernel_modules()["flash_attention"].LAUNCHES_BY_KERNEL)
+    return out
+
+
+def kernel_sources():
+    """Every CUDA source of the port by name (flash's three by route)."""
+    mods = kernel_modules()
+    return {"commitment_sweep": mods["commitment_sweep"].SOURCE,
+            **{f"flash_{k}": src for k, src in
+               mods["flash_attention"].SOURCES.items()},
+            "rwkv6": mods["rwkv6"].SOURCE}
 
 
 def phase_build():
     from repro_torch.kernels import build as kbuild
-    mods = kernel_modules()
+    mods, srcs = kernel_modules(), kernel_sources()
     t0 = time.perf_counter()
-    libs = kbuild.build(*(m.SOURCE for m in mods.values()))
+    libs = kbuild.build(*srcs.values())
     for m in mods.values():
         m.load()
     secs = time.perf_counter() - t0
     ptxas = {}
-    for name, lib in zip(mods, libs):
+    for name, lib in zip(srcs, libs):
         log = Path(str(lib) + ".log").read_text()
         ptxas[name] = [ln.strip() for ln in log.splitlines()
                        if "ptxas info" in ln and ("Used" in ln or "spill" in ln)]
@@ -473,11 +510,19 @@ def phase_profile(pools, rep, plan_s):
                       for us, n, key in kernels[:8]])
 
 
-def median_ms(fn, reps):
+def median_ms(fn, reps, cover=True):
+    """Median device milliseconds of fn() over reps runs, by CUDA events.
+    With ``cover``, a spin kernel queued before the start event keeps the
+    card busy while the host enqueues fn's launches, so the interval is the
+    card's time for fn and not the host's dispatch (which would dominate a
+    Python wrapper around a kernel of a few tens of microseconds); without
+    it, on an idle card, the interval is one call's dispatch and run."""
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
             enable_timing=True)
+        if cover:
+            torch.cuda._sleep(HOST_COVER_CYCLES)
         a.record()
         fn()
         b.record()
@@ -506,16 +551,47 @@ def decode_inputs(dev, dtype=torch.bfloat16):
 
 
 def flash_compare(name, got, want, tol):
+    """Hold got to want (..., D) by ``tol``: element by element, and, where
+    it names ``row``, each row's error norm against the row's norm.
+    Returns the largest absolute error and the largest row ratio."""
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), **tol,
+    got, want = got.float(), want.float()
+    elem = {k: tol[k] for k in ("atol", "rtol")}
+    torch.testing.assert_close(got, want, **elem,
                                msg=lambda m: f"flash {name}: {m}")
-    return float((got.float() - want.float()).abs().max())
+    err, norm = (got - want).norm(dim=-1), want.norm(dim=-1)
+    row = float((err / norm.clamp_min(torch.finfo(torch.float32).tiny)).max())
+    if "row" in tol and not bool((err <= tol["row"] * norm).all()):
+        raise AssertionError(f"flash {name}: a row's error is {row:.3g} of "
+                             f"its norm, above {tol['row']}")
+    return float((got - want).abs().max()), row
+
+
+def flash_routed(fk, fn):
+    """Run fn(); return its result and the one flash kernel it launched."""
+    before = dict(fk.LAUNCHES_BY_KERNEL)
+    out = fn()
+    used = [k for k, n in fk.LAUNCHES_BY_KERNEL.items() if n != before[k]]
+    if len(used) != 1 or fk.LAUNCHES_BY_KERNEL[used[0]] != before[used[0]] + 1:
+        raise AssertionError(f"flash: one call launched {used}")
+    return out, used[0]
 
 
 def phase_flash(dev):
+    """Every flash kernel against the plain version: the ragged cases in
+    f32 and bf16 and both layouts, each checked to have launched the
+    kernel its route names (f32 prefill and bf16 D = 32 on simt, bf16
+    D = 64/128 prefill on prefill_tc, one query on decode_split), then the
+    prefill and decode main shapes, the decode also against the split-KV
+    algebra's plain version.  Returns the largest error over all cases."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-    errs = {}
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_ref,
+        attention_split_ref,
+    )
+    errs, rows, routes = {}, {}, {}
+    vec_kv = torch.tensor([130, 200, 300], dtype=torch.int32)
     cases = {  # (b, hq, hkv, sq, skv, d, causal, kv_len)
         "mha_ragged": (2, 4, 4, 77, 77, 64, True, None),
         "gqa_ragged": (2, 8, 2, 200, 200, 64, True, None),
@@ -524,46 +600,70 @@ def phase_flash(dev):
         "cross_d32": (1, 2, 2, 96, 160, 32, True, None),
         "noncausal": (2, 4, 2, 100, 150, 64, False, None),
         "padded_cache": (2, 8, 2, 3, 384, 64, True, 257),
+        "d128_ragged": (1, 4, 4, 300, 300, 128, True, None),
+        "vec_kv_len_prefill": (3, 4, 2, 130, 300, 64, True, vec_kv),
+        "gqa8_decode_d128": (3, 16, 2, 1, 1000, 128, True,
+                             torch.tensor([1, 513, 1000], dtype=torch.int32)),
+        # 6 tiles of 128 keys at D = 64: wraps prefill_tc's 3-stage ring
+        "ring_wrap_kv_len": (2, 8, 2, 520, 700, 64, True,
+                             torch.tensor([611, 700], dtype=torch.int32)),
     }
     for i, (name, (b, hq, hkv, sq, skv, d, causal, kvl)) in enumerate(
             cases.items()):
-        for layout in ("bhsd", "bshd"):
-            q, k, v = flash_inputs(dev, torch.float32, b, hq, hkv, sq, skv,
-                                   d, i, layout)
-            got = ops.flash_attention(q, k, v, causal=causal, kv_len=kvl,
-                                      layout=layout)
-            if layout == "bshd":
-                q, k, v, got = (x.transpose(1, 2) for x in (q, k, v, got))
-            want = attention_ref(q, k, v, causal=causal,
-                                              kv_len=kvl)
-            errs[f"{name}_{layout}"] = flash_compare(name, got, want,
-                                                     FLASH_F32)
+        kvl = kvl.to(dev) if isinstance(kvl, torch.Tensor) else kvl
+        for dtype, tol in ((torch.float32, FLASH_F32),
+                           (torch.bfloat16, FLASH_BF16)):
+            for layout in ("bhsd", "bshd"):
+                q, k, v = flash_inputs(dev, dtype, b, hq, hkv, sq, skv, d, i,
+                                       layout)
+                got, used = flash_routed(fk, lambda: ops.flash_attention(
+                    q, k, v, causal=causal, kv_len=kvl, layout=layout))
+                if used != fk.route(dtype, d, sq):
+                    raise AssertionError(f"flash {name}: launched {used}, "
+                                         f"route {fk.route(dtype, d, sq)}")
+                if layout == "bshd":
+                    q, k, v, got = (x.transpose(1, 2) for x in (q, k, v, got))
+                want = attention_ref(q, k, v, causal=causal, kv_len=kvl)
+                key = f"{name}_{str(dtype)[6:]}_{layout}"
+                errs[key], rows[key] = flash_compare(key, got, want, tol)
+                routes[key] = used
     b, h, s, d = FLASH_PREFILL
     for dtype, tol in ((torch.bfloat16, FLASH_BF16), (torch.float32,
                                                        FLASH_F32)):
         q, k, v = flash_inputs(dev, dtype, b, h, h, s, s, d, 20,
                                layout="bshd")
-        got = ops.flash_attention(q, k, v, causal=True, layout="bshd")
+        got, used = flash_routed(fk, lambda: ops.flash_attention(
+            q, k, v, causal=True, layout="bshd"))
         want = attention_ref(
             *(x.transpose(1, 2) for x in (q, k, v)), causal=True)
-        errs[f"prefill_{dtype}"] = flash_compare(
+        key = f"prefill_{str(dtype)[6:]}"
+        errs[key], rows[key] = flash_compare(
             "prefill", got.transpose(1, 2), want, tol)
+        routes[key] = used
     for dtype, tol in ((torch.bfloat16, FLASH_BF16), (torch.float32,
                                                        FLASH_F32)):
         q, k, v, kv_len = decode_inputs(dev, dtype)
-        got = ops.flash_attention(q, k, v, causal=True, kv_len=kv_len,
-                                  layout="bshd")
+        got, used = flash_routed(fk, lambda: ops.flash_attention(
+            q, k, v, causal=True, kv_len=kv_len, layout="bshd"))
         want = attention_ref(
             *(x.transpose(1, 2) for x in (q, k, v)), causal=True,
             kv_len=kv_len)
-        errs[f"decode_{dtype}"] = flash_compare(
+        key = f"decode_{str(dtype)[6:]}"
+        errs[key], rows[key] = flash_compare(
             "decode", got.transpose(1, 2), want, tol)
-    emit("flash", max_abs_err=errs, tol_f32=FLASH_F32, tol_bf16=FLASH_BF16,
-         prefill_shape=list(FLASH_PREFILL),
+        routes[key] = used
+        split = attention_split_ref(
+            *(x.transpose(1, 2) for x in (q, k, v)), kv_len, fk.DECODE_SPLIT)
+        key = f"decode_vs_split_ref_{str(dtype)[6:]}"
+        errs[key], rows[key] = flash_compare(
+            "decode vs split ref", got.transpose(1, 2), split, tol)
+    emit("flash", max_abs_err=errs, row_err_over_norm=rows, routes=routes,
+         tol_f32=FLASH_F32,
+         tol_bf16=FLASH_BF16, prefill_shape=list(FLASH_PREFILL),
          decode=dict(slots=FLASH_DECODE[0], heads=FLASH_DECODE[1],
                      head_dim=FLASH_DECODE[2], cache=SERVE_CACHE,
                      kv_len=decode_inputs(dev)[3].tolist()))
-    return errs["prefill_torch.bfloat16"]
+    return max(errs.values())
 
 
 def linrec_inputs(dev, b, h, t, d, seed, *, lo=-6.0, hi=3.0, layout="bhtd"):
@@ -703,6 +803,13 @@ def phase_serve(name, arch, dev, counted):
     if launches[counted] != want:
         raise AssertionError(
             f"{name}: {launches[counted]} {counted} launches, expected {want}")
+    if counted == "flash_attention":  # every prompt is > 1 token, bf16, D 64
+        mix = dict(prefill_tc=cfg.num_layers * SERVE_REQUESTS,
+                   decode_split=cfg.num_layers * ticks, simt=0)
+        if launches["flash_by_kernel"] != mix:
+            raise AssertionError(f"{name}: flash launches by kernel "
+                                 f"{launches['flash_by_kernel']}, expected "
+                                 f"{mix}")
     # The engine against a direct prefill of the first request in a fresh
     # one-slot cache: finite logits and the engine's first token.
     cache = model.init_cache(1, SERVE_CACHE)
@@ -746,8 +853,7 @@ def profile_serving(name, engine, reqs, stats, counted):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import Request
-    kernel = {"flash_attention": "flash_kernel", "rwkv6": "rwkv6_kernel"}[
-        counted]
+    kernel = {"flash_attention": "flash_", "rwkv6": "rwkv6_kernel"}[counted]
     longest = max(reqs, key=lambda r: len(r.prompt))
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -773,9 +879,14 @@ def profile_serving(name, engine, reqs, stats, counted):
         own = sum(k[0] for k in kernels if kernel in k[2]) / 1e6
         launches = sum(k[1] for k in kernels)
         n = 1 if label == "prefill_longest" else PROFILE_TICKS
+        by_name = {  # device seconds per step of each of the port's kernels
+            part: sum(k[0] for k in kernels if part in k[2]) / 1e6 / n
+            for part in (FLASH_PROFILE_NAMES if counted == "flash_attention"
+                         else (kernel,))}
         out[label] = dict(
             unprofiled_s=real_s / n, device_busy_s=busy / n,
             device_busy_share=busy / real_s, kernel_device_s=own / n,
+            kernel_device_s_by_name=by_name,
             kernel_share_of_busy=own / busy if busy else None,
             device_events=launches / n,
             prompt_tokens=len(longest.prompt) if n == 1 else None,
@@ -800,6 +911,7 @@ def phase_model_cpu(dev):
     from repro_torch.models.model import build
     from repro_torch.serve.engine import Request, ServeEngine
     out = {}
+    reset_launches()
     for arch in ("stablelm-1.6b", "rwkv6-3b"):
         cfg = dataclasses.replace(configs.reduced(arch), dtype="float32")
         cpu = build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
@@ -834,7 +946,12 @@ def phase_model_cpu(dev):
             errs[label] = float((a - b).abs().max())
         out[arch] = dict(tokens_equal=True, max_abs_err=errs, tol=tol,
                          requests=len(specs))
-    emit("model_cpu", **out)
+    # float32: the decode on decode_split, the prefill (and train) on simt
+    flash = read_launches()["flash_by_kernel"]
+    if not (flash["decode_split"] > 0 and flash["simt"] > 0
+            and flash["prefill_tc"] == 0):
+        raise AssertionError(f"model_cpu: flash launches by kernel {flash}")
+    emit("model_cpu", flash_launches_by_kernel=flash, **out)
 
 
 def flash_flops_bytes(b, h, sq, kv_lens, d, elem_bytes, causal):
@@ -893,41 +1010,81 @@ def bound(flops, nbytes, flops_peak, peak):
                                        else "bytes")
 
 
+def host_ms(fn, calls=50):
+    """Host milliseconds per call of fn(): calls enqueued back to back on
+    the host clock, none waiting for the card (the queue holds them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / calls
+
+
+def flash_timed(kernel, plain, library, flops, nbytes, flops_peak, peak):
+    """One flash kernel at its routed main shape: device ms (kernel and
+    plain in turns, the library call), the bound, and the host's share:
+    host ms per call, and ms per call between events on an idle card
+    (dispatch and run), for the kernel's wrapper and the library call."""
+    ms, plain_ms, kern_sets, plain_sets = time_turns(kernel, plain)
+    ms_bound, by = bound(flops, nbytes, flops_peak, peak)
+    return dict(ms=ms, plain_ms=plain_ms, kernel_ms=kern_sets,
+                plain_ms_sets=plain_sets, library_ms=library_ms(library),
+                bound_ms=ms_bound, bound_by=by, bound_flops=flops,
+                bound_bytes=nbytes, host_ms=host_ms(kernel),
+                library_host_ms=host_ms(library),
+                idle_call_ms=median_ms(kernel, 25, cover=False),
+                library_idle_call_ms=median_ms(library, 25, cover=False))
+
+
 def timing_flash(dev, peak):
+    """Each flash kernel at the main shape its route serves, with its
+    plain version and scaled_dot_product_attention in the same call:
+    prefill_tc at the bf16 prefill, decode_split at the bf16 decode, simt
+    at the same prefill in float32 (the reduced models' dtype); the bounds
+    from this run's inputs."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention.ref import attention_ref
     b, h, s, d = FLASH_PREFILL
-    q, k, v = flash_inputs(dev, torch.bfloat16, b, h, h, s, s, d, 20,
-                           layout="bshd")
     lens = torch.full((b,), s, dtype=torch.int32, device=dev)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    pre = time_turns(
-        lambda: fk.flash_attention_cuda(q, k, v, lens, causal=True,
-                                        scale=d ** -0.5, seq_dim=1),
-        lambda: attention_ref(qt, kt, vt, causal=True))
-    pre_lib = library_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    flops, nbytes = flash_flops_bytes(b, h, s, [s] * b, d, 2, True)
-    pre_bound = bound(flops, nbytes, peak["bf16_flops"], peak)
+    out = {}
+    for name, dtype, elem, flops_peak in (
+            ("prefill_tc", torch.bfloat16, 2, peak["bf16_flops"]),
+            ("simt", torch.float32, 4, peak["fp32_flops"])):
+        q, k, v = flash_inputs(dev, dtype, b, h, h, s, s, d, 20,
+                               layout="bshd")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        assert fk.route(dtype, d, s) == name
+        flops, nbytes = flash_flops_bytes(b, h, s, [s] * b, d, elem, True)
+        out[name] = flash_timed(
+            lambda: fk.flash_attention_cuda(
+                q, k, v, lens, causal=True, scale=d ** -0.5, seq_dim=1),
+            lambda: attention_ref(qt, kt, vt, causal=True),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True),
+            flops, nbytes, flops_peak, peak)
+        del q, k, v, qt, kt, vt
 
-    q, k, v, kv_len = decode_inputs(dev)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    dq, dk, dv, kv_len = decode_inputs(dev)
+    dqt, dkt, dvt = (x.transpose(1, 2) for x in (dq, dk, dv))
     keep = (torch.arange(SERVE_CACHE, device=dev)[None, :]
             < kv_len[:, None])[:, None, None, :]
-    dec = time_turns(
-        lambda: fk.flash_attention_cuda(q, k, v, kv_len, causal=True,
-                                        scale=d ** -0.5, seq_dim=1),
-        lambda: attention_ref(qt, kt, vt, causal=True, kv_len=kv_len))
-    dec_lib = library_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=keep))
     bsl, hd, dd = FLASH_DECODE
+    assert fk.route(dq.dtype, dd, 1) == "decode_split"
     dflops, dbytes = flash_flops_bytes(bsl, hd, 1, kv_len.tolist(), dd, 2,
                                        True)
-    dec_bound = bound(dflops, dbytes, peak["bf16_flops"], peak)
-    return dict(prefill=(pre, pre_lib, pre_bound, flops, nbytes),
-                decode=(dec, dec_lib, dec_bound, dflops, dbytes))
+    out["decode_split"] = flash_timed(
+        lambda: fk.flash_attention_cuda(
+            dq, dk, dv, kv_len, causal=True, scale=dd ** -0.5, seq_dim=1),
+        lambda: attention_ref(dqt, dkt, dvt, causal=True, kv_len=kv_len),
+        lambda: F.scaled_dot_product_attention(dqt, dkt, dvt,
+                                               attn_mask=keep),
+        dflops, dbytes, peak["bf16_flops"], peak)
+    return out
 
 
 def timing_linrec(dev, peak):
@@ -958,25 +1115,25 @@ def phase_timing(dev, launches, errs):
     full_flops = FLOPS_PER_TRIPLE * MAIN_P * MAIN_G * MAIN_T
     del f, w, cs
     fl = timing_flash(dev, peak)
-    (pre, pre_lib, pre_bound, pflops, pbytes) = fl["prefill"]
-    (dec, dec_lib, dec_bound, dflops, dbytes) = fl["decode"]
     lin, lin_bound, lflops, lbytes = timing_linrec(dev, peak)
     emit("timing", peak=peak,
          commitment_sweep=dict(
              shape=[MAIN_P, MAIN_G, MAIN_T], kernel_ms=kern_sets,
              plain_ms=plain_sets, bound_flops=flops, bound_bytes=nbytes,
              bound_ms_all_triples=1e3 * full_flops / peak["fp32_flops"]),
-         flash_prefill=dict(shape=list(FLASH_PREFILL), dtype="bfloat16",
-                            kernel_ms=pre[2], plain_ms=pre[3],
-                            library_ms=pre_lib, bound_flops=pflops,
-                            bound_bytes=pbytes),
-         flash_decode=dict(slots_heads_dim=list(FLASH_DECODE),
-                           cache=SERVE_CACHE, dtype="bfloat16",
-                           kernel_ms=dec[2], plain_ms=dec[3],
-                           library_ms=dec_lib, bound_flops=dflops,
-                           bound_bytes=dbytes),
+         flash=dict(shapes=dict(
+             prefill_tc=f"{FLASH_PREFILL} causal bfloat16",
+             simt=f"{FLASH_PREFILL} causal float32",
+             decode_split=f"{FLASH_DECODE} cache {SERVE_CACHE} bfloat16"),
+             **fl),
          rwkv6=dict(shape=list(LINREC_MAIN), kernel_ms=lin[2],
                     plain_ms=lin[3], bound_flops=lflops, bound_bytes=lbytes))
+    flash_srcs = kernel_modules()["flash_attention"].SOURCES
+    flash_mix = launches["flash_by_kernel"]
+    pre = fl["prefill_tc"]
+
+    def rel(path):
+        return str(path.relative_to(ROOT))
     print(json.dumps({"kernels": [
         {
             "name": "commitment_sweep", "route": "cuda",
@@ -992,19 +1149,27 @@ def phase_timing(dev, launches, errs):
         },
         {
             "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_attention.cu",
+            "source": rel(flash_srcs["prefill_tc"]),
             "replaces":
                 "src/repro/kernels/flash_attention/flash_attention.py:99",
             "launches": launches["flash_attention"],
             "launches_per_serve": launches["flash_attention"],
-            "max_abs_err": errs["flash_attention"], "ms": pre[0],
-            "plain_ms": pre[1], "bound_ms": pre_bound[0],
-            "bound_by": pre_bound[1], "library_ms": pre_lib,
+            "max_abs_err": errs["flash_attention"], "ms": pre["ms"],
+            "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
+            "bound_by": pre["bound_by"], "library_ms": pre["library_ms"],
             "shape": f"prefill {FLASH_PREFILL} causal bf16",
-            "decode_ms": dec[0], "decode_plain_ms": dec[1],
-            "decode_bound_ms": dec_bound[0], "decode_bound_by": dec_bound[1],
-            "decode_library_ms": dec_lib,
+            "cuda_kernels": {
+                kern: dict(
+                    source=rel(flash_srcs[kern]),
+                    launches=flash_mix[kern], shape=shape,
+                    **{key: fl[kern][key] for key in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "host_ms", "library_host_ms")})
+                for kern, shape in (
+                    ("prefill_tc", f"prefill {FLASH_PREFILL} causal bf16"),
+                    ("decode_split",
+                     f"decode {FLASH_DECODE} cache {SERVE_CACHE} bf16"),
+                    ("simt", f"prefill {FLASH_PREFILL} causal f32"))},
         },
         {
             "name": "rwkv6", "route": "cuda",
@@ -1047,8 +1212,9 @@ def main() -> int:
     del pools, grid_rep
     phase_model_cpu(dev)
     launches = {"commitment_sweep": sweep_launches}
-    launches["flash_attention"], _ = phase_serve(
+    launches["flash_attention"], dense = phase_serve(
         "serve_dense", "stablelm-1.6b", dev, "flash_attention")
+    launches["flash_by_kernel"] = dense["launches"]["flash_by_kernel"]
     launches["rwkv6"], _ = phase_serve(
         "serve_rwkv", "rwkv6-3b", dev, "rwkv6")
     phase_timing(dev, launches, errs)

@@ -17,15 +17,19 @@
 // blocks run in no order, so the KV loop moves inside the block and
 // (m, l, acc) live in registers.
 //
-// Bound: at the serving shapes the prefill call (1, 32, 2048, 64) causal is
-// ~17 GFLOP of products against ~25 MB, so operations bound it; the batched
-// decode call (8 slots, 32 heads, one query each, against a cache of up to
-// 4096 positions) is ~2 flops per K/V byte, so the bytes of the cache bound
-// it.  This first kernel computes on the CUDA cores in float32 (wgmma for
-// the two products is a later step), so prefill runs far from the bf16
-// tensor-core bound; the design keeps K/V traffic to one read of each tile
-// per block of 16 query rows and skips tiles past the causal diagonal and
-// past kv_len, which is what the decode bound asks for.
+// Routing: this SIMT kernel serves what the two Hopper kernels beside it
+// do not take: float32 prefill (the reduced float32 models, whose 2e-5
+// tolerance bf16 tensor cores cannot meet) and bf16 with head dim 32.
+// bf16 prefill at head dim 64/128 goes to flash_prefill_tc.cu and every
+// one-query decode to flash_decode_split.cu (flash_attention.py::route).
+//
+// Bound: a prefill call of (1, 32, 2048, 64) causal is 17.2 GFLOP of
+// products against 33.6 MB of q, k, v and o in bf16 (67 MB in float32),
+// so operations bound it.  This kernel computes on the CUDA cores in
+// float32, so it runs far from the bf16 tensor-core bound and within
+// reach of the 67 TFLOP/s float32 one; the design keeps K/V traffic to
+// one read of each tile per block of 16 query rows and skips tiles past
+// the causal diagonal and past kv_len.
 //
 // Design: one block of 4 warps per (16 query rows, q head, batch row).  The
 // block stages the scaled query rows and, tile by tile, 32 keys and values

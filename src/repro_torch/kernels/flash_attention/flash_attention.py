@@ -1,15 +1,32 @@
-"""Build, binding and launch of the CUDA flash-attention kernel.
+"""Build, binding, routing and launch of the CUDA flash-attention kernels.
 
-The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``repro/kernels/flash_attention/flash_attention.py::flash_attention_kernel``.
-It keeps (m, l, acc) in registers and loops over KV tiles inside the block
-in place of the TPU's sequential KV grid axis; the source's header note says
-what bounds it on the card and what the design does about that.  Built at
-first launch by :mod:`repro_torch.kernels.build`.
+Three hand-written kernels replace the Pallas TPU kernel
+``repro/kernels/flash_attention/flash_attention.py::flash_attention_kernel``;
+each keeps (m, l, acc) in registers and loops over KV tiles inside the
+block in place of the TPU's sequential KV grid axis.  Each source's header
+note says what bounds it on the card and what its design does about that:
+
+``prefill_tc`` (``csrc/flash_prefill_tc.cu``)
+    bf16, head dim 64 or 128, ``Sq > 1``: both products on ``wgmma``, Q/K/V
+    tiles through TMA into a 3-stage mbarrier ring fed by a producer warp.
+``decode_split`` (``csrc/flash_decode_split.cu``)
+    ``Sq == 1`` (the engine's batched decode), float32 or bf16, any head
+    dim and GQA group: split-KV flash decoding, a split kernel writing
+    float32 partials and a combine kernel (one launch of the pair).
+``simt`` (``csrc/flash_attention.cu``)
+    everything else, on the CUDA cores: float32 prefill (whose 2e-5
+    tolerance bf16 tensor cores cannot meet) and bf16 with head dim 32.
+
+:func:`route` is the rule, by dtype, head dim and query length alone.  It
+is not a fallback: a CUDA tensor launches the routed kernel or the call
+raises (for example when a tensor is not 16-byte aligned for TMA).  All
+three are built at first launch by :mod:`repro_torch.kernels.build`, one
+``nvcc`` per source, in parallel.
 
 :func:`flash_attention_cuda` takes CUDA tensors only and raises on anything
 else; :mod:`ops` decides between it and the plain version by the device of
-the tensors.  ``LAUNCHES`` counts the launches it made.
+the tensors.  ``LAUNCHES`` counts its launches, ``LAUNCHES_BY_KERNEL`` the
+same launches by kernel.
 """
 
 from __future__ import annotations
@@ -21,35 +38,68 @@ import torch
 
 from repro_torch.kernels import build as _build
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {
+    "prefill_tc": _CSRC / "flash_prefill_tc.cu",
+    "decode_split": _CSRC / "flash_decode_split.cu",
+    "simt": _CSRC / "flash_attention.cu",
+}
 HEAD_DIMS = (32, 64, 128)
+TC_HEAD_DIMS = (64, 128)
+#: Keys per block of the split-KV decode: ceil(Skv / DECODE_SPLIT) splits.
+DECODE_SPLIT = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches made by :func:`flash_attention_cuda` in this process.
 LAUNCHES = 0
+#: The same launches by kernel (a decode split + combine pair counts once).
+LAUNCHES_BY_KERNEL = {name: 0 for name in SOURCES}
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "flash_attention_launch": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
-        ctypes.c_void_p, ctypes.c_void_p,                    # o, kv_len
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, Hq, Hkv
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,            # Sq, Skv, D
-        ctypes.c_void_p,                                     # strides
-        ctypes.c_float, ctypes.c_int, ctypes.c_int,          # scale, causal, dtype
-        ctypes.c_void_p,                                     # stream
-    ],
+    "prefill_tc": {"flash_prefill_tc_launch": [
+        _P, _P, _P, _P, _P,            # q, k, v, o, kv_len
+        _I, _I, _I, _I, _I, _I,        # B, Hq, Hkv, Sq, Skv, D
+        _P, _F, _I, _P,                # strides, scale, causal, stream
+    ]},
+    "decode_split": {"flash_decode_split_launch": [
+        _P, _P, _P, _P, _P, _P, _P,    # q, k, v, o, kv_len, ml, acc
+        _I, _I, _I, _I, _I, _I,        # B, Hq, Hkv, Skv, D, split
+        _P, _F, _I, _P,                # strides, scale, dtype, stream
+    ]},
+    "simt": {"flash_attention_launch": [
+        _P, _P, _P, _P, _P,            # q, k, v, o, kv_len
+        _I, _I, _I, _I, _I, _I,        # B, Hq, Hkv, Sq, Skv, D
+        _P, _F, _I, _I, _P,            # strides, scale, causal, dtype, stream
+    ]},
 }
 
 
-def build() -> Path:
-    """Compile the kernel if its library is not built yet; returns the
-    library's path (its ``nvcc`` output beside it as ``<library>.log``)."""
-    return _build.build(SOURCE)[0]
+def route(dtype: torch.dtype, d: int, sq: int) -> str:
+    """The kernel that serves a call: ``"decode_split"`` for one query row,
+    ``"prefill_tc"`` for bf16 with head dim 64 or 128, else ``"simt"``."""
+    if sq == 1:
+        return "decode_split"
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        return "prefill_tc"
+    return "simt"
 
 
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the library; declares the C signature."""
-    return _build.load(SOURCE, _SIGNATURES)
+def build() -> list[Path]:
+    """Compile the kernels whose libraries are not built yet, one ``nvcc``
+    each, at once; returns the libraries' paths in ``SOURCES`` order (each
+    ``nvcc`` output beside it as ``<library>.log``)."""
+    return _build.build(*SOURCES.values())
+
+
+def load(kernel: str | None = None):
+    """Build (if needed) and load one kernel's library, declaring its C
+    signature; without ``kernel``, build all three at once and return the
+    libraries by name."""
+    if kernel is None:
+        build()
+        return {name: load(name) for name in SOURCES}
+    return _build.load(SOURCES[kernel], _SIGNATURES[kernel])
 
 
 def _bhs_strides(x: torch.Tensor, seq_dim: int) -> tuple[int, int, int]:
@@ -57,6 +107,19 @@ def _bhs_strides(x: torch.Tensor, seq_dim: int) -> tuple[int, int, int]:
     ``seq_dim`` (2 for (B, H, S, D), 1 for (B, S, H, D))."""
     head_dim = 3 - seq_dim
     return x.stride(0), x.stride(head_dim), x.stride(seq_dim)
+
+
+def _check_16b(name: str, x: torch.Tensor, seq_dim: int, why: str) -> None:
+    """Raise unless ``x``'s base and the strides of its batch, head and seq
+    dims (those of extent > 1) are multiples of 16 bytes."""
+    head_dim = 3 - seq_dim
+    bad = x.data_ptr() % 16 != 0 or any(
+        x.shape[dim] > 1 and x.stride(dim) * x.element_size() % 16
+        for dim in (0, head_dim, seq_dim))
+    if bad:
+        raise ValueError(
+            f"{name} is not 16-byte aligned ({why}): base {x.data_ptr()}, "
+            f"strides {tuple(x.stride())}; make it contiguous")
 
 
 def flash_attention_cuda(
@@ -69,12 +132,12 @@ def flash_attention_cuda(
     scale: float,
     seq_dim: int = 2,
 ) -> torch.Tensor:
-    """Launch the kernel.  q, k, v are 4-D CUDA tensors of one dtype
-    (float32 or bfloat16) laid out (B, H, S, D) (``seq_dim=2``) or
-    (B, S, H, D) (``seq_dim=1``), any strides with the head dim contiguous;
-    kv_len is a (B,) int32 CUDA tensor.  Returns a new contiguous tensor of
-    q's shape and dtype, enqueued on the current stream without
-    synchronizing."""
+    """Launch the kernel :func:`route` picks.  q, k, v are 4-D CUDA tensors of
+    one dtype (float32 or bfloat16) laid out (B, H, S, D) (``seq_dim=2``)
+    or (B, S, H, D) (``seq_dim=1``), any strides with the head dim
+    contiguous; kv_len is a (B,) int32 CUDA tensor that the host never
+    reads.  Returns a new contiguous tensor of q's shape and dtype, enqueued
+    on the current stream without synchronizing."""
     global LAUNCHES
     if seq_dim not in (1, 2):
         raise ValueError(f"seq_dim must be 1 or 2, got {seq_dim}")
@@ -84,7 +147,7 @@ def flash_attention_cuda(
             raise TypeError(f"{name} must be a torch.Tensor, got {type(x)}")
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(
-                f"{name} is on {x.device}; the CUDA kernel takes CUDA tensors "
+                f"{name} is on {x.device}; the CUDA kernels take CUDA tensors "
                 "on one device (ops.flash_attention runs CPU tensors through "
                 "the plain version)")
         if x.dim() != 4 or x.dtype != q.dtype:
@@ -113,26 +176,49 @@ def flash_attention_cuda(
     if b > 65535 or hq > 65535 or max(sq, skv) * max(
             q.stride(seq_dim), k.stride(seq_dim)) >= 2**31:
         raise ValueError("attention shape exceeds the kernel's index range")
+    name = route(q.dtype, d, sq)
+    if name == "prefill_tc":
+        for label, x in (("q", q), ("k", k), ("v", v)):
+            _check_16b(label, x, seq_dim, "TMA loads its tiles")
+    elif name == "decode_split":
+        for label, x in (("k", k), ("v", v)):
+            _check_16b(label, x, seq_dim, "the decode loads 16-byte vectors")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0 or hq == 0:
         return out
     strides = (ctypes.c_longlong * 12)(
         *_bhs_strides(q, seq_dim), *_bhs_strides(k, seq_dim),
         *_bhs_strides(v, seq_dim), *_bhs_strides(out, seq_dim))
-    lib = load()
-    # The kernel runs after this call returns; every buffer lives in
-    # PyTorch's caching allocator, which reuses a freed block only for work
-    # queued later on the same stream, so launching on the current stream
-    # keeps them valid until it has run.
+    lib = load(name)
+    # The kernels run after this call returns; every buffer (the decode's
+    # scratch too) lives in PyTorch's caching allocator, which reuses a
+    # freed block only for work queued later on the same stream, so
+    # launching on the current stream keeps them valid until they have run.
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            kv_len.data_ptr(), b, hq, hkv, sq, skv, d, strides,
-            float(scale), int(bool(causal)), _DTYPES[q.dtype], stream,
-        )
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                kv_len.data_ptr())
+        if name == "prefill_tc":
+            err = lib.flash_prefill_tc_launch(
+                *ptrs, b, hq, hkv, sq, skv, d, strides, float(scale),
+                int(bool(causal)), stream)
+        elif name == "decode_split":
+            splits = -(-skv // DECODE_SPLIT)
+            scratch = torch.empty(b * hq * splits * (d + 2),
+                                  dtype=torch.float32, device=q.device)
+            ml_n = b * hq * splits * 2
+            err = lib.flash_decode_split_launch(
+                *ptrs, scratch.data_ptr(), scratch[ml_n:].data_ptr(), b, hq,
+                hkv, skv, d, DECODE_SPLIT, strides, float(scale),
+                _DTYPES[q.dtype], stream)
+        else:
+            err = lib.flash_attention_launch(
+                *ptrs, b, hq, hkv, sq, skv, d, strides, float(scale),
+                int(bool(causal)), _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(
-            f"flash_attention kernel launch failed with CUDA error {err}")
+            f"flash_attention {name} kernel launch failed with CUDA error "
+            f"{err}")
     LAUNCHES += 1
+    LAUNCHES_BY_KERNEL[name] += 1
     return out

@@ -1,10 +1,12 @@
 """Entry point of flash attention: layouts, ``kv_len`` and dispatch by
 device.
 
-A CUDA tensor goes to the hand-written kernel (``flash_attention.py``), a
-CPU tensor to the plain version (``ref.py``), and nothing else is taken.
-There is no fallback between the two: on a CUDA tensor the kernel launches
-or the call raises.  The kernel masks ragged ``Sq`` and ``Skv`` itself, so
+A CUDA tensor goes to the hand-written kernel that
+``flash_attention.route`` names for its dtype, head dim and query rows
+(tensor-core bf16 prefill, split-KV decode, or the SIMT kernel), a CPU
+tensor to the plain version (``ref.py``), and nothing else is taken.
+There is no fallback: on a CUDA tensor the routed kernel launches or the
+call raises.  The kernels mask ragged ``Sq`` and ``Skv`` themselves, so
 unlike the TPU entry point this one pads nothing.
 
 The training path's ``flash_attention_trainable`` (a backward that

@@ -48,3 +48,50 @@ def attention_ref(
     s = s.masked_fill(mask[:, None], float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)
+
+
+def attention_split_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_len: "int | torch.Tensor",
+    split: int,
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """The split-KV decode's algebra in plain PyTorch, for one query row:
+    ``q (B, Hq, 1, D)``, ``k, v (B, Hkv, Skv, D)``.  Keys are cut into
+    splits of ``split``; each split keeps its own max ``m``, sum ``l`` and
+    unnormalised ``acc`` over its keys below ``kv_len`` (an empty split has
+    m = -inf, l = 0), and the combine rescales the splits to their common
+    max.  Equals :func:`attention_ref` with ``Sq = 1``; a row with no key
+    gets zeros.  Used by the tests and the smoke run, never by the port."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if sq != 1:
+        raise ValueError(f"the split decode takes one query row, got {sq}")
+    group = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    lens = torch.as_tensor(kv_len, device=q.device).reshape(-1)
+    lens = lens.expand(b).to(torch.int64)
+    splits = -(-skv // split)
+    pad = splits * split - skv
+    kr = k.float().repeat_interleave(group, dim=1)
+    vr = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhd,bhkd->bhk", q[:, :, 0].float(), kr) * scale
+    col = torch.arange(splits * split, device=q.device)
+    s = torch.nn.functional.pad(s, (0, pad))
+    s = s.masked_fill(col[None, None] >= lens[:, None, None], float("-inf"))
+    s = s.view(b, hq, splits, split)
+    vr = torch.nn.functional.pad(vr, (0, 0, 0, pad)).view(
+        b, hq, splits, split, d)
+    m = s.amax(-1)                                             # (B,Hq,n)
+    p = torch.exp(s - torch.where(m == float("-inf"), 0.0, m)[..., None])
+    l = p.sum(-1)
+    acc = torch.einsum("bhnk,bhnkd->bhnd", p, vr)
+    mx = m.amax(-1, keepdim=True)
+    w = torch.exp(m - torch.where(mx == float("-inf"), 0.0, mx))
+    den = (w * l).sum(-1)[..., None]
+    num = (w[..., None] * acc).sum(-2)
+    out = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
+    return out[:, :, None].to(q.dtype)

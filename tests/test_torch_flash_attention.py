@@ -22,7 +22,10 @@ from repro.kernels.flash_attention.ref import attention_ref as jref  # noqa: E40
 from repro.models.attention import _sdpa  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as tker  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as tops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_ref,
+    attention_split_ref,
+)
 
 F32 = dict(atol=2e-5, rtol=1e-4)
 
@@ -158,3 +161,85 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
     with pytest.raises(ValueError, match="layout"):
         tops.flash_attention(q, k, v, layout="hbsd")
     assert tker.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype,d,sq,want", [
+    (torch.bfloat16, 64, 2048, "prefill_tc"),
+    (torch.bfloat16, 128, 2, "prefill_tc"),
+    (torch.bfloat16, 32, 77, "simt"),           # no tensor-core tile at D=32
+    (torch.float32, 64, 2048, "simt"),          # f32 prefill keeps 2e-5
+    (torch.float32, 128, 3, "simt"),
+    (torch.float32, 64, 1, "decode_split"),     # decode in any dtype
+    (torch.float32, 32, 1, "decode_split"),
+    (torch.bfloat16, 64, 1, "decode_split"),
+    (torch.bfloat16, 32, 1, "decode_split"),
+    (torch.bfloat16, 128, 1, "decode_split"),
+])
+def test_route_by_dtype_head_dim_and_rows(dtype, d, sq, want):
+    assert tker.route(dtype, d, sq) == want
+    assert want in tker.SOURCES and want in tker.LAUNCHES_BY_KERNEL
+
+
+def test_alignment_check_names_the_unaligned_tensor():
+    base = torch.zeros(2, 64, 4, 64 + 8, dtype=torch.bfloat16)
+    tker._check_16b("k", base[..., :64], 1, "TMA")      # 144-byte rows
+    with pytest.raises(ValueError, match="k is not 16-byte aligned"):
+        tker._check_16b("k", base[..., 1:65], 1, "TMA")  # base off by 2
+    odd = torch.zeros(2, 64, 4, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        tker._check_16b("v", odd, 1, "TMA")             # 136-byte rows
+
+
+def test_cpu_path_counts_no_kernel_launch():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(9, 1, 2, 2, 1, 40, 64))
+    before = dict(tker.LAUNCHES_BY_KERNEL)
+    tops.flash_attention(q, k, v, causal=True)
+    tops.flash_attention(q.to(torch.bfloat16), k.to(torch.bfloat16),
+                         v.to(torch.bfloat16), causal=True)
+    assert tker.LAUNCHES_BY_KERNEL == before
+
+
+_KS = tker.DECODE_SPLIT
+
+
+@pytest.mark.parametrize("hq,hkv,split,fill,d,s_cache", [
+    (4, 4, 32, [0, 16, 63, 95, 90], 32, 96),      # group 1; kv_len 1
+    (4, 2, 40, [5, 39, 40, 79, 95], 32, 96),      # 40 does not divide 96
+    (8, 2, 32, [0, 31, 32, 64, 95], 32, 96),      # group 4; split edges
+    (8, 2, 96, [3, 17, 40, 70, 95], 32, 96),      # one split covers it
+    (8, 2, 7, [0, 1, 50, 94, 95], 32, 96),        # most splits past kv_len
+    # decode_split's own split size over 3 splits, the last one short
+    (4, 2, _KS, [0, _KS, 2 * _KS + 87, 1, 300], 32, 2 * _KS + 88),
+    (4, 2, _KS, [0, _KS, 2 * _KS + 87, 1, 300], 64, 2 * _KS + 88),
+    (4, 2, _KS, [0, _KS, 2 * _KS + 87, 1, 300], 128, 2 * _KS + 88),
+])
+def test_split_decode_algebra_matches_sdpa(hq, hkv, split, fill, d, s_cache):
+    """The split-KV decode's split-and-combine algebra against the JAX
+    model's _sdpa with per-slot offsets: kv_len = 1 (fill 0), kv_len =
+    Skv (fill Skv - 1), splits wholly past kv_len, split sizes that do
+    not divide Skv, GQA groups 1, 2 and 4, head dims 32, 64 and 128."""
+    rng = np.random.default_rng(hq * 100 + split + d - 32)
+    b = 5
+    fill = np.array(fill, np.int32)
+    q = _randn(rng, b, 1, hq, d)
+    k = _randn(rng, b, s_cache, hkv, d)
+    v = _randn(rng, b, s_cache, hkv, d)
+    kv_len = fill + 1
+    got = attention_split_ref(
+        *(torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)),
+        torch.from_numpy(kv_len), split, scale=d ** -0.5)
+    want = _sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                 q_offset=jnp.asarray(fill), kv_len=jnp.asarray(kv_len),
+                 scale=d ** -0.5)
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(), np.asarray(want),
+                               **F32)
+
+
+def test_split_decode_algebra_gives_zeros_without_keys():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(10, 3, 4, 2, 1, 50, 32))
+    out = attention_split_ref(q, k, v, torch.tensor([0, 50, 0]), 16)
+    assert torch.isfinite(out).all()
+    assert out[0].abs().max() == 0 and out[2].abs().max() == 0
+    torch.testing.assert_close(
+        out[1:2], attention_ref(q[1:2], k[1:2], v[1:2], causal=True),
+        atol=2e-6, rtol=1e-5)
