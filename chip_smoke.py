@@ -32,14 +32,20 @@ JSON line and raising on failure:
             the host-side tranche book timed alone
   flash     flash-attention kernels vs plain version: ragged shapes in
             f32 and bf16 and both layouts (each case checked to launch the
-            kernel its route names), prefill (1, 32, 2048, 64) causal in
+            kernel its route names; among them simt's tile seams: Sq and
+            Skv of 65, 127, 200, kv_len below Skv, GQA group 4, D 32, 64
+            and 128), prefill (1, 32, 2048, 64) causal in
             bf16 and f32, and a batched decode (8 slots, 32 heads, one
             query) against a 4096-long cache with 8 different kv_len, in
             bf16 and f32, held also against the split-KV algebra's plain
             version; each bf16 query row's error norm against its
             reference norm as well as element by element
-  linrec    RWKV6 kernel vs plain version: ragged T, strong decay, a
-            carried state, and (1, 40, 2048, 64)
+  linrec    RWKV6 kernels (chunk, state scan, inter: one call) vs plain
+            version: ragged T, strong decay, a carried state, the model's
+            whole decay range, a chunk whose decay is exactly 0, B = 2 at
+            T = 2048, and (1, 40, 2048, 64), where the states entering the
+            chunks (the scan's scratch) are also held against the
+            chunk-parallel plain version
   model_cpu both reduced float32 configs served on the CPU (plain
             versions) and on the card (kernels): tokens equal, logits
             close; flash decode on decode_split, f32 prefill on simt
@@ -52,7 +58,8 @@ JSON line and raising on failure:
   serve_rwkv   the same for the full rwkv6-3b; RWKV6 launches (a main path)
   timing    each kernel's and its plain version's times at its main-path
             shape (flash: prefill_tc at the bf16 prefill, decode_split at
-            the bf16 decode, simt at the f32 prefill), library times,
+            the bf16 decode, simt at the f32 prefill; RWKV6 also at a short
+            prompt's T = 128), library times,
             bounds, each flash wrapper's and library call's host time per
             call, then the kernel line {"kernels": [...]}
 
@@ -99,6 +106,7 @@ PROFILE_TICKS = 8           # decode ticks under the profiler, every slot busy
 FLASH_PREFILL = (1, 32, 2048, 64)
 FLASH_DECODE = (SERVE_SLOTS, 32, 64)
 LINREC_MAIN = (1, 40, 2048, 64)
+LINREC_SHORT = (1, 40, 128, 64)     # a short prompt's call, timed beside it
 FLASH_F32 = dict(atol=2e-5, rtol=1e-4)
 # bf16: element by element (P is rounded to bf16 for the tensor cores, so
 # in a row over a few keys whose output cancels the error is ~2^-9 of |v|,
@@ -107,7 +115,10 @@ FLASH_F32 = dict(atol=2e-5, rtol=1e-4)
 FLASH_BF16 = dict(atol=1e-2, rtol=1e-2, row=2e-2)
 # the flash kernels' names as the profiler shows them (all hold "flash_")
 FLASH_PROFILE_NAMES = ("flash_prefill_tc_kernel", "flash_decode_split_kernel",
-                       "flash_decode_combine_kernel", "::flash_kernel<")
+                       "flash_decode_combine_kernel", "flash_simt_kernel")
+# the three kernels of one RWKV6 call (all hold "rwkv6_")
+RWKV6_PROFILE_NAMES = ("rwkv6_chunk_kernel", "rwkv6_state_scan_kernel",
+                       "rwkv6_inter_kernel")
 LINREC_TOL = dict(atol=2e-3, rtol=2e-3)
 # card vs CPU logits of the reduced float32 models (the tolerances of the
 # CPU parity tests against the JAX package)
@@ -607,6 +618,17 @@ def phase_flash(dev):
         # 6 tiles of 128 keys at D = 64: wraps prefill_tc's 3-stage ring
         "ring_wrap_kv_len": (2, 8, 2, 520, 700, 64, True,
                              torch.tensor([611, 700], dtype=torch.int32)),
+        # simt's tile seams (64 rows, 64 keys), GQA group 4: Sq and Skv
+        # one past, one short of and 8 past a tile, kv_len below Skv
+        "seam_65_d64": (1, 4, 1, 65, 65, 64, True, None),
+        "seam_127_d32": (2, 8, 2, 127, 127, 32, True, None),
+        "seam_200_d128": (1, 8, 2, 200, 200, 128, True, None),
+        "seam_kv_len_190": (1, 4, 1, 127, 200, 64, True, 190),
+        "seam_kv_len_d128": (1, 8, 2, 65, 127, 128, True,
+                             torch.tensor([100], dtype=torch.int32)),
+        "seam_kv_len_d32": (2, 4, 1, 200, 256, 32, True,
+                            torch.tensor([230, 256], dtype=torch.int32)),
+        "seam_noncausal": (1, 4, 1, 65, 200, 64, False, 127),
     }
     for i, (name, (b, hq, hkv, sq, skv, d, causal, kvl)) in enumerate(
             cases.items()):
@@ -667,9 +689,9 @@ def phase_flash(dev):
 
 
 def linrec_inputs(dev, b, h, t, d, seed, *, lo=-6.0, hi=3.0, layout="bhtd"):
-    """r, k, v normal; logw = -exp(U(lo, hi)), the model's decay range up
-    to strong decays (w = exp(logw) down to e^-20); u normal; a nonzero
-    state."""
+    """r, k, v normal; logw = -exp(U(lo, hi)), by default the model's decay
+    range up to strong decays (w = exp(logw) down to e^-20; the model's
+    whole range is lo = -20, hi = 10); u normal; a nonzero state."""
     gen = torch.Generator().manual_seed(seed)
     shape = (b, h, t, d) if layout == "bhtd" else (b, t, h, d)
     r, k, v = (torch.randn(shape, generator=gen) for _ in range(3))
@@ -680,25 +702,41 @@ def linrec_inputs(dev, b, h, t, d, seed, *, lo=-6.0, hi=3.0, layout="bhtd"):
 
 
 def phase_linrec(dev):
+    """The RWKV6 kernels (one call: chunk, state scan, inter) against the
+    chunked plain version: ragged T, both layouts, a carried state, the
+    model's whole decay range, a chunk whose decay is exactly 0, B = 2 at
+    T = 2048, and the main shape; there also the states the scan leaves in
+    the scratch against the chunk-parallel plain version's."""
+    from repro_torch.kernels.linrec import linrec as lk
     from repro_torch.kernels.linrec import ops
-    from repro_torch.kernels.linrec.ref import rwkv6_chunked_ref
+    from repro_torch.kernels.linrec.ref import (
+        rwkv6_chunk_parallel_ref,
+        rwkv6_chunked_ref,
+    )
     errs = {}
-    cases = {  # (b, h, t, d, layout)
-        "single_chunk": (1, 2, 32, 16, "bhtd"),
-        "ragged_70": (2, 3, 70, 16, "bhtd"),
-        "t_33_d32": (2, 2, 33, 32, "bthd"),
-        "ragged_1000_d64": (1, 4, 1000, 64, "bthd"),
-        "one_step": (3, 2, 1, 64, "bhtd"),
+    cases = {  # (b, h, t, d, layout, logw range)
+        "single_chunk": (1, 2, 32, 16, "bhtd", (-6.0, 3.0)),
+        "ragged_70": (2, 3, 70, 16, "bhtd", (-6.0, 3.0)),
+        "t_33_d32": (2, 2, 33, 32, "bthd", (-6.0, 3.0)),
+        "ragged_1000_d64": (1, 4, 1000, 64, "bthd", (-6.0, 3.0)),
+        "one_step": (3, 2, 1, 64, "bhtd", (-6.0, 3.0)),
+        "model_range_1000": (2, 4, 1000, 64, "bthd", (-20.0, 10.0)),
+        "b2_bthd_2048": (2, 40, 2048, 64, "bthd", (-6.0, 3.0)),
+        "zero_decay_chunk": (2, 3, 130, 64, "bhtd", (-20.0, 10.0)),
     }
-    for i, (name, (b, h, t, d, layout)) in enumerate(cases.items()):
-        r, k, v, logw, u, s0 = linrec_inputs(dev, b, h, t, d, i,
-                                             layout=layout)
+    for i, (name, (b, h, t, d, layout, (lo, hi))) in enumerate(cases.items()):
+        r, k, v, logw, u, s0 = linrec_inputs(dev, b, h, t, d, i, lo=lo,
+                                             hi=hi, layout=layout)
+        if name == "zero_decay_chunk":  # exp(sum logw) of chunk 1 is 0
+            logw[:, :, 32:64] = -float(np.exp(10.0))
         y, s = ops.rwkv6_linear_attention_logw(r, k, v, logw, u, s0,
                                                layout=layout)
         if layout == "bthd":
             r, k, v, logw, y = (x.transpose(1, 2) for x in (r, k, v, logw, y))
         wy, ws = rwkv6_chunked_ref(r, k, v, logw, u, s0)
         torch.cuda.synchronize()
+        if not (torch.isfinite(y).all() and torch.isfinite(s).all()):
+            raise AssertionError(f"linrec {name}: non-finite output")
         for label, a, b_ in (("y", y, wy), ("state", s, ws)):
             torch.testing.assert_close(
                 a, b_, **LINREC_TOL, msg=lambda m: f"linrec {name} {label}: {m}")
@@ -718,8 +756,8 @@ def phase_linrec(dev):
                                          layout="bthd")
     y, s = ops.rwkv6_linear_attention_logw(r, k, v, logw, u, s0,
                                            layout="bthd")
-    wy, ws = rwkv6_chunked_ref(*(x.transpose(1, 2) for x in (r, k, v, logw)),
-                               u, s0)
+    bhtd = [x.transpose(1, 2) for x in (r, k, v, logw)]
+    wy, ws = rwkv6_chunked_ref(*bhtd, u, s0)
     torch.cuda.synchronize()
     torch.testing.assert_close(y.transpose(1, 2), wy, **LINREC_TOL)
     torch.testing.assert_close(s, ws, **LINREC_TOL)
@@ -727,10 +765,27 @@ def phase_linrec(dev):
                                        (s - ws).abs().max()))
     if not torch.isfinite(y).all():
         raise AssertionError("linrec: non-finite output at the main shape")
+    # the states entering each chunk, as the scan leaves them in scratch
+    _, _, entering = lk.rwkv6_cuda(r, k, v, logw, u, s0, time_dim=1,
+                                   entering=True)
+    _, _, want = rwkv6_chunk_parallel_ref(*bhtd, u, s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(entering, want, **LINREC_TOL,
+                               msg=lambda m: f"linrec entering states: {m}")
+    errs["main_entering_states"] = float((entering - want).abs().max())
     emit("linrec", max_abs_err=errs, tol=LINREC_TOL,
-         main_shape=list(LINREC_MAIN), logw_range=[-float(np.exp(3.0)),
-                                                   -float(np.exp(-6.0))])
-    return errs["main"]
+         main_shape=list(LINREC_MAIN),
+         logw_range=[-float(np.exp(3.0)), -float(np.exp(-6.0))],
+         model_logw_range=[-float(np.exp(10.0)), -float(np.exp(-20.0))],
+         entering_states_shape=list(entering.shape))
+    return max(errs.values())
+
+
+def serve_prompt_lengths():
+    """The serve phases' prompt lengths (numpy seed 0) and the generator
+    that goes on to draw their tokens."""
+    rng = np.random.default_rng(0)
+    return rng.integers(PROMPT_MIN, PROMPT_MAX + 1, SERVE_REQUESTS), rng
 
 
 def serve(engine, requests):
@@ -774,8 +829,7 @@ def phase_serve(name, arch, dev, counted):
         torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    lens = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, SERVE_REQUESTS)
+    lens, rng = serve_prompt_lengths()
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
     reqs = [Request(i, p, NEW_TOKENS) for i, p in enumerate(prompts)]
@@ -853,7 +907,8 @@ def profile_serving(name, engine, reqs, stats, counted):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import Request
-    kernel = {"flash_attention": "flash_", "rwkv6": "rwkv6_kernel"}[counted]
+    # every kernel of the path: flash's four, RWKV6's three
+    kernel = {"flash_attention": "flash_", "rwkv6": "rwkv6_"}[counted]
     longest = max(reqs, key=lambda r: len(r.prompt))
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -882,7 +937,7 @@ def profile_serving(name, engine, reqs, stats, counted):
         by_name = {  # device seconds per step of each of the port's kernels
             part: sum(k[0] for k in kernels if part in k[2]) / 1e6 / n
             for part in (FLASH_PROFILE_NAMES if counted == "flash_attention"
-                         else (kernel,))}
+                         else RWKV6_PROFILE_NAMES)}
         out[label] = dict(
             unprofiled_s=real_s / n, device_busy_s=busy / n,
             device_busy_share=busy / real_s, kernel_device_s=own / n,
@@ -1088,16 +1143,45 @@ def timing_flash(dev, peak):
 
 
 def timing_linrec(dev, peak):
+    """The RWKV6 call (three kernels) and its plain version at the main
+    shape, and at a short prompt's length; then the call at each of
+    serve_rwkv's prompt lengths, summed over rwkv6-3b's layers: the RWKV6
+    device time of one serve run (one call per layer and request) and its
+    bound.  Bounds from the work."""
+    from repro_torch import configs
     from repro_torch.kernels.linrec import linrec as lk
     from repro_torch.kernels.linrec.ref import rwkv6_chunked_ref
-    b, h, t, d = LINREC_MAIN
-    r, k, v, logw, u, s0 = linrec_inputs(dev, b, h, t, d, 10, layout="bthd")
-    rt, kt, vt, lt = (x.transpose(1, 2) for x in (r, k, v, logw))
-    res = time_turns(
-        lambda: lk.rwkv6_cuda(r, k, v, logw, u, s0, time_dim=1),
-        lambda: rwkv6_chunked_ref(rt, kt, vt, lt, u, s0), plain_reps=3)
-    flops, nbytes = linrec_flops_bytes(b, h, t, d)
-    return res, bound(flops, nbytes, peak["fp32_flops"], peak), flops, nbytes
+    out = {}
+    for label, (b, h, t, d) in (("main", LINREC_MAIN),
+                                ("short", LINREC_SHORT)):
+        r, k, v, logw, u, s0 = linrec_inputs(dev, b, h, t, d, 10,
+                                             layout="bthd")
+        rt, kt, vt, lt = (x.transpose(1, 2) for x in (r, k, v, logw))
+        ms, plain_ms, kern_sets, plain_sets = time_turns(
+            lambda: lk.rwkv6_cuda(r, k, v, logw, u, s0, time_dim=1),
+            lambda: rwkv6_chunked_ref(rt, kt, vt, lt, u, s0), plain_reps=3)
+        flops, nbytes = linrec_flops_bytes(b, h, t, d)
+        ms_bound, by = bound(flops, nbytes, peak["fp32_flops"], peak)
+        out[label] = dict(shape=[b, h, t, d], ms=ms, plain_ms=plain_ms,
+                          kernel_ms=kern_sets, plain_ms_sets=plain_sets,
+                          bound_ms=ms_bound, bound_by=by, bound_flops=flops,
+                          bound_bytes=nbytes)
+    cfg = configs.get("rwkv6-3b")
+    h, d = cfg.rwkv_heads, cfg.rwkv_head_size
+    run_ms = run_bound = 0.0
+    for t in serve_prompt_lengths()[0].tolist():
+        r, k, v, logw, u, s0 = linrec_inputs(dev, 1, h, t, d, 10,
+                                             layout="bthd")
+        def call():
+            lk.rwkv6_cuda(r, k, v, logw, u, s0, time_dim=1)
+        call()
+        torch.cuda.synchronize()
+        run_ms += cfg.num_layers * median_ms(call, 10)
+        run_bound += cfg.num_layers * bound(
+            *linrec_flops_bytes(1, h, t, d), peak["fp32_flops"], peak)[0]
+    out["serve_run"] = dict(calls=cfg.num_layers * SERVE_REQUESTS,
+                            ms=run_ms, bound_ms=run_bound)
+    return out
 
 
 def phase_timing(dev, launches, errs):
@@ -1115,7 +1199,7 @@ def phase_timing(dev, launches, errs):
     full_flops = FLOPS_PER_TRIPLE * MAIN_P * MAIN_G * MAIN_T
     del f, w, cs
     fl = timing_flash(dev, peak)
-    lin, lin_bound, lflops, lbytes = timing_linrec(dev, peak)
+    lin = timing_linrec(dev, peak)
     emit("timing", peak=peak,
          commitment_sweep=dict(
              shape=[MAIN_P, MAIN_G, MAIN_T], kernel_ms=kern_sets,
@@ -1126,8 +1210,7 @@ def phase_timing(dev, launches, errs):
              simt=f"{FLASH_PREFILL} causal float32",
              decode_split=f"{FLASH_DECODE} cache {SERVE_CACHE} bfloat16"),
              **fl),
-         rwkv6=dict(shape=list(LINREC_MAIN), kernel_ms=lin[2],
-                    plain_ms=lin[3], bound_flops=lflops, bound_bytes=lbytes))
+         rwkv6=lin)
     flash_srcs = kernel_modules()["flash_attention"].SOURCES
     flash_mix = launches["flash_by_kernel"]
     pre = fl["prefill_tc"]
@@ -1177,12 +1260,17 @@ def phase_timing(dev, launches, errs):
             "replaces": "src/repro/kernels/linrec/linrec.py:92",
             "launches": launches["rwkv6"],
             "launches_per_serve": launches["rwkv6"],
-            "max_abs_err": errs["rwkv6"], "ms": lin[0], "plain_ms": lin[1],
-            "bound_ms": lin_bound[0], "bound_by": lin_bound[1],
-            "library_ms": None,
+            "max_abs_err": errs["rwkv6"], "ms": lin["main"]["ms"],
+            "plain_ms": lin["main"]["plain_ms"],
+            "bound_ms": lin["main"]["bound_ms"],
+            "bound_by": lin["main"]["bound_by"], "library_ms": None,
             "library_note": "no single PyTorch call computes the RWKV6 "
                             "recurrence",
             "shape": f"{LINREC_MAIN} float32",
+            "cuda_kernels": list(RWKV6_PROFILE_NAMES),
+            "short": {key: lin["short"][key] for key in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by")},
+            "per_serve_run": lin["serve_run"],
         },
     ]}), flush=True)
 

@@ -16,12 +16,15 @@ note says what bounds it on the card and what its design does about that:
 ``simt`` (``csrc/flash_attention.cu``)
     everything else, on the CUDA cores: float32 prefill (whose 2e-5
     tolerance bf16 tensor cores cannot meet) and bf16 with head dim 32.
+    A register-tiled SGEMM inside the online softmax: 64 query rows per
+    block, K/V tiles of 64 keys through a 2-stage cp.async ring, a 4 x 8
+    score and output micro-tile per thread.
 
 :func:`route` is the rule, by dtype, head dim and query length alone.  It
 is not a fallback: a CUDA tensor launches the routed kernel or the call
-raises (for example when a tensor is not 16-byte aligned for TMA).  All
-three are built at first launch by :mod:`repro_torch.kernels.build`, one
-``nvcc`` per source, in parallel.
+raises (for example when a tensor is not 16-byte aligned for TMA or the
+vector loads).  All three are built at first launch by
+:mod:`repro_torch.kernels.build`, one ``nvcc`` per source, in parallel.
 
 :func:`flash_attention_cuda` takes CUDA tensors only and raises on anything
 else; :mod:`ops` decides between it and the plain version by the device of
@@ -183,6 +186,9 @@ def flash_attention_cuda(
     elif name == "decode_split":
         for label, x in (("k", k), ("v", v)):
             _check_16b(label, x, seq_dim, "the decode loads 16-byte vectors")
+    else:
+        for label, x in (("q", q), ("k", k), ("v", v)):
+            _check_16b(label, x, seq_dim, "simt loads 16-byte vectors")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0 or hq == 0:
         return out

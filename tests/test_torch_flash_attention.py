@@ -68,6 +68,30 @@ def test_shapes_match_jax(b, hq, hkv, sq, skv, d):
     np.testing.assert_allclose(got, jref(jq, jk, jv, causal=True), **F32)
 
 
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,kv_len", [
+    (1, 4, 1, 65, 65, 64, True, None),       # one row and key past a tile
+    (2, 8, 2, 127, 127, 32, True, None),     # one short of two tiles
+    (1, 8, 2, 200, 200, 128, True, None),    # 3 tiles + 8 rows/keys
+    (1, 4, 1, 127, 200, 64, True, 190),      # kv_len below Skv, mid-tile
+    (1, 8, 2, 65, 127, 128, True, 100),
+    (2, 4, 1, 200, 256, 32, True, 230),
+    (1, 4, 1, 65, 200, 64, False, 127),      # non-causal, kv_len < Skv
+])
+def test_simt_tile_seams_match_jax(b, hq, hkv, sq, skv, d, causal, kv_len):
+    """f32 prefill, the simt route, at its tiles' seams (64 query rows, 64
+    keys): Sq and Skv not multiples of 64, kv_len below Skv, GQA group 4,
+    head dims 32, 64 and 128; against the JAX Pallas kernel (interpret
+    mode) and its reference."""
+    assert tker.route(torch.float32, d, sq) == "simt"
+    q, k, v = _qkv(sq * 7 + skv + d, b, hq, hkv, sq, skv, d)
+    got = _port(q, k, v, causal=causal, kv_len=kv_len)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    np.testing.assert_allclose(
+        got, jflash(jq, jk, jv, causal=causal, kv_len=kv_len), **F32)
+    np.testing.assert_allclose(
+        got, jref(jq, jk, jv, causal=causal, kv_len=kv_len), **F32)
+
+
 def test_noncausal_matches_jax():
     q, k, v = _qkv(1, 2, 4, 2, 100, 150, 64)
     got = _port(q, k, v, causal=False)

@@ -1,10 +1,17 @@
 """The PyTorch port's RWKV6 recurrence against the JAX package's.
 
 On the CPU the port's ``ops`` runs the chunked plain version (chunks of
-32, the kernel's algorithm); the JAX side runs its Pallas kernel in
-interpret mode and its step-by-step oracle.  The tolerance is the
-reference's own, 2e-3 (``tests/test_kernels.py``): float32 sums over a
-chunk taken in another order, and decays applied in log space.
+32); the JAX side runs its Pallas kernel in interpret mode and its
+step-by-step oracle.  ``rwkv6_chunk_parallel_ref`` is the algebra in the
+CUDA kernels' order (per-chunk terms, then the state scan, then the
+inter-chunk term).  The tolerance is the reference's own, 2e-3
+(``tests/test_kernels.py``): float32 sums over a chunk taken in another
+order, and decays applied in log space.
+
+Decays span the model's whole range, logw = -exp(U(-20, 10)) (the model
+clamps its raw decay to [-20, 10]).  The JAX functions take w, which they
+clip to 1e-30 before the log, so against them the port's plain versions
+get the same clipped log-decays.
 """
 
 import numpy as np
@@ -18,7 +25,11 @@ from repro.kernels.linrec.ops import rwkv6_linear_attention as jlin  # noqa: E40
 from repro.kernels.linrec.ops import rwkv6_oracle as joracle  # noqa: E402
 from repro_torch.kernels.linrec import linrec as tker  # noqa: E402
 from repro_torch.kernels.linrec import ops as tops  # noqa: E402
-from repro_torch.kernels.linrec.ref import rwkv6_ref  # noqa: E402
+from repro_torch.kernels.linrec.ref import (  # noqa: E402
+    rwkv6_chunk_parallel_ref,
+    rwkv6_chunked_ref,
+    rwkv6_ref,
+)
 
 TOL = dict(atol=2e-3, rtol=2e-3)
 
@@ -141,3 +152,84 @@ def test_chunked_plain_equals_step_plain():
     want_y, want_s = rwkv6_ref(r, k, v, w, u, s0)
     torch.testing.assert_close(y, want_y, **TOL)
     torch.testing.assert_close(s, want_s, **TOL)
+
+
+def _model_range(seed, b, h, t, d, lo=-20.0, hi=10.0):
+    """r, k, v, u normal, a nonzero state, logw = -exp(U(lo, hi)): at the
+    model's range half the decays are below e^-1 and some reach -e^10."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(b, h, t, d)).astype(np.float32)
+               for _ in range(3))
+    logw = (-np.exp(rng.uniform(lo, hi, (b, h, t, d)))).astype(np.float32)
+    u = rng.normal(size=(h, d)).astype(np.float32)
+    s0 = rng.normal(size=(b, h, d, d)).astype(np.float32)
+    return r, k, v, logw, u, s0
+
+
+@pytest.mark.parametrize("b,h,t,d", [
+    (1, 2, 33, 32),       # T = chunk + 1
+    (2, 3, 70, 16),       # ragged, B = 2
+    (2, 2, 1000, 64),     # 32 chunks, the last ragged
+])
+def test_chunk_parallel_matches_step_ref_and_jax(b, h, t, d):
+    """The chunk-parallel plain version at the model's decay range, B = 2
+    with a carried state: against the port's step loop on the same
+    decays, and against the JAX package's Pallas kernel (interpret mode)
+    and oracle on its clipped decays."""
+    r, k, v, logw, u, s0 = _model_range(t + d, b, h, t, d)
+    ty = _t(r, k, v, logw, u, s0)
+    y, s, entering = rwkv6_chunk_parallel_ref(*ty)
+    assert entering.shape == (b, h, -(-t // 32), d, d)
+    torch.testing.assert_close(entering[:, :, 0], ty[5], atol=0, rtol=0)
+    want_y, want_s = rwkv6_ref(*ty[:3], ty[3].exp(), *ty[4:])
+    torch.testing.assert_close(y, want_y, **TOL)
+    torch.testing.assert_close(s, want_s, **TOL)
+
+    w = np.exp(logw)
+    jargs = [jnp.asarray(x) for x in (r, k, v, w, u)]
+    jy, js = jlin(*jargs, state=jnp.asarray(s0))
+    oy, os_ = joracle(*jargs, state=jnp.asarray(s0))
+    clipped = torch.from_numpy(w).clamp(1e-30, 1.0).log()
+    y, s, _ = rwkv6_chunk_parallel_ref(*ty[:3], clipped, *ty[4:])
+    for want_y, want_s in ((jy, js), (oy, os_)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **TOL)
+        np.testing.assert_allclose(s.numpy(), np.asarray(want_s), **TOL)
+
+
+@pytest.mark.parametrize("t", [33, 70, 1000])
+def test_chunked_plain_at_model_decay_range(t):
+    """The CPU path (``ops``, the chunked plain version) at the model's
+    decay range equals the step loop and the chunk-parallel order.  Taking
+    each stretch's decay as a difference of prefix sums from the chunk's
+    start (as the JAX package does) errs up to 0.15 here: those sums reach
+    ~1e4, where a float32 ulp is ~1e-3."""
+    ty = _t(*_model_range(t, 2, 3, t, 64))
+    y, s = tops.rwkv6_linear_attention_logw(*ty)
+    want_y, want_s = rwkv6_ref(*ty[:3], ty[3].exp(), *ty[4:])
+    torch.testing.assert_close(y, want_y, **TOL)
+    torch.testing.assert_close(s, want_s, **TOL)
+    py, ps, _ = rwkv6_chunk_parallel_ref(*ty)
+    torch.testing.assert_close(y, py, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(s, ps, atol=1e-5, rtol=1e-5)
+
+
+def test_zero_decay_chunk_zeroes_the_carried_state():
+    """A whole chunk at logw = -e^10: its total decay exp(sum logw) is
+    exactly 0, so the scan must drop everything carried into it; the
+    output stays finite and the states after it do not depend on s0."""
+    r, k, v, logw, u, s0 = _t(*_model_range(11, 2, 3, 130, 64))
+    logw[:, :, 32:64] = -float(np.exp(10.0))
+    y, s, entering = rwkv6_chunk_parallel_ref(r, k, v, logw, u, s0)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    y2, s2, entering2 = rwkv6_chunk_parallel_ref(r, k, v, logw, u, 5 * s0)
+    torch.testing.assert_close(entering2[:, :, 2:], entering[:, :, 2:],
+                               atol=0, rtol=0)
+    torch.testing.assert_close(y2[:, :, 64:], y[:, :, 64:], atol=0, rtol=0)
+    torch.testing.assert_close(s2, s, atol=0, rtol=0)
+    want_y, want_s = rwkv6_ref(r, k, v, logw.exp(), u, s0)
+    torch.testing.assert_close(y, want_y, **TOL)
+    torch.testing.assert_close(s, want_s, **TOL)
+    cy, cs_ = rwkv6_chunked_ref(r, k, v, logw, u, s0)
+    torch.testing.assert_close(y, cy, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(s, cs_, atol=1e-5, rtol=1e-5)
+
