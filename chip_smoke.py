@@ -16,16 +16,25 @@ JSON line and raising on failure:
   build     nvcc build of the five kernel sources, one nvcc each, all at
             once (time, ptxas report)
   kernel    sweep kernel vs plain version on the card: ragged shapes, the
-            (T,)/(G,) cases, no weights, prefix masks, the main-path shape
-            8192 x 128 x 1344; batched launch == one launch per row block
+            (T,)/(G,) cases, no weights, prefix masks, the bucketed
+            kernel's edges (candidates unsorted, duplicated, all equal,
+            descending, equal to some f; zero-weight rows; G = 1; T = 1;
+            one row of three years; G = 4096), each also bit for bit
+            against the kernel's algebra in plain PyTorch
+            (ref.commitment_sweep_bucketed_ref); non-finite rows give NaN;
+            the main-path shape 8192 x 128 x 1344, its error against
+            float64 no larger than the plain version's; batched launch ==
+            one launch per row block, and a rerun == the first run, bit
+            for bit
   ties      the solvers' sorts on tied inputs, card vs CPU bit for bit
   fleet     the 1024-pool, 3-year synthetic fleet (seed 0)
   cpu       its first 16 pools replayed on the CPU (plain version) and on
             the card (kernel): totals, targets, tranche book vs carried
             stack, host syncs of the card replay; the first planner call on
             the card, so the timed plans below find CUDA initialized
-  plan      api.plan on the whole fleet with the grid solver: costs, wall
-            time, peak memory, sweep launches (the main path)
+  plan      api.plan on the whole fleet with the grid solver: costs (the
+            bill within rel 1e-4 of PLAN_BILL), wall time, peak memory,
+            sweep launches (the main path)
   quantile  the same fleet with the quantile solver (grid within 2%)
   profile   the grid plan under torch.profiler: device busy time, time by
             kernel (full table in build/chip_smoke/profile_grid_plan.txt), and
@@ -58,8 +67,9 @@ JSON line and raising on failure:
   serve_rwkv   the same for the full rwkv6-3b; RWKV6 launches (a main path)
   timing    each kernel's and its plain version's times at its main-path
             shape (flash: prefill_tc at the bf16 prefill, decode_split at
-            the bf16 decode, simt at the f32 prefill; RWKV6 also at a short
-            prompt's T = 128), library times,
+            the bf16 decode, simt at the f32 prefill, and at head dim 128
+            beside the library; RWKV6 also at a short prompt's T = 128),
+            library times,
             bounds, each flash wrapper's and library call's host time per
             call, then the kernel line {"kernels": [...]}
 
@@ -71,6 +81,7 @@ phase.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -90,6 +101,11 @@ NUM_POOLS, NUM_HOURS, HORIZON_WEEKS, NUM_GRID = 1024, 24 * 365 * 3, 8, 128
 MAIN_P, MAIN_T, MAIN_G = NUM_POOLS * HORIZON_WEEKS, HORIZON_WEEKS * 168, NUM_GRID
 EXPECTED_LAUNCHES = 234     # 117 replayed weeks x (rolling + one-shot)
 RTOL, ATOL, COST_RTOL = 2e-4, 1e-2, 1e-5
+# The grid plan's bill on that fleet as this script has printed it since
+# the planner's first port; a sweep change must keep it within BILL_RTOL.
+PLAN_BILL = {"total_cost": 4317372416.0, "one_shot_cost": 5832199168.0,
+             "hindsight_cost": 5018841088.0}
+BILL_RTOL = 1e-4
 PLAIN_CHUNK = 512           # rows per plain-version chunk at the main shape
 # Peak rates for the bound (NVIDIA data sheets, dense, at the full power
 # limit): FP32 on the CUDA cores, bf16 on the tensor cores, HBM bandwidth.
@@ -124,6 +140,8 @@ LINREC_TOL = dict(atol=2e-3, rtol=2e-3)
 # CPU parity tests against the JAX package)
 MODEL_TOL = {"stablelm-1.6b": 1e-4, "rwkv6-3b": 2e-3}
 FLOPS_PER_TRIPLE = 6        # sub, 2 max, 2 fma (2 flops each) per hour
+OPS_PER_HOUR = 6            # bucketed sweep: 2 subs, 4 muls of the terms
+OPS_PER_OUTPUT = 4          # its scan: sub, 2 muls, add per candidate
 # Spin before each timed run: ~2 ms at the H100's ~1.7 GHz clock
 HOST_COVER_CYCLES = 3_500_000
 
@@ -249,12 +267,58 @@ def phase_build():
          libraries=[str(lib.relative_to(ROOT)) for lib in libs], ptxas=ptxas)
 
 
+def sweep_edge_cases(dev):
+    """(f, cs, w) cases at the bucketed kernel's edges: candidates
+    unsorted, duplicated, all equal, descending (negative demand, as
+    amax(f) < 0 makes the grid), exactly equal to some hours' f; rows of
+    zero weight; G = 1, T = 1; one row of three years of hours (the fixed
+    point's range); G = 4096 (32 candidate tiles)."""
+    gen = torch.Generator().manual_seed(2)
+
+    def rnd(*shape, lo=0.0, hi=300.0):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen)
+
+    f, w = rnd(6, 500), rnd(6, 500, lo=0.0, hi=1.0)
+    grid = torch.linspace(0.0, 1.0, 50)
+    neg = -rnd(6, 500)
+    ties = f.clone()
+    ties[:, ::7] = 150.0
+    cases = {
+        "unsorted_candidates": (f, rnd(6, 50), w),
+        "duplicate_candidates": (
+            f, (torch.randint(0, 6, (6, 50), generator=gen) * 60.0), w),
+        "all_equal_candidates": (f, torch.full((6, 50), 120.0), w),
+        "descending_grid": (
+            neg, neg.amax(-1, keepdim=True) * grid[None], w),
+        "f_equals_candidate": (
+            ties, torch.tensor([0.0, 75.0, 150.0, 225.0, 300.0]).repeat(6, 1),
+            w),
+        "zero_weight_rows": (f, rnd(6, 50), w * (torch.arange(6) % 2)[:, None]),
+        "G_1": (f, rnd(6, 1), w),
+        "T_1": (f[:, :1], rnd(6, 50), w[:, :1]),
+        "one_row_3_years": (
+            rnd(1, NUM_HOURS), rnd(1, 128), rnd(1, NUM_HOURS, hi=1.0)),
+        "G_4096": (f[:4], f[:4].amax(-1, keepdim=True)
+                   * torch.linspace(0.0, 1.0, 4096)[None], w[:4]),
+    }
+    return {k: tuple(x.contiguous().to(dev) for x in v)
+            for k, v in cases.items()}
+
+
 def phase_kernel(dev):
     from repro_torch.kernels.commitment_sweep import ops
+    from repro_torch.kernels.commitment_sweep.ref import (
+        commitment_sweep_bucketed_ref,
+    )
     gen = torch.Generator().manual_seed(1)
 
     def rnd(*shape, lo=0.0, hi=300.0):
         return (lo + (hi - lo) * torch.rand(*shape, generator=gen)).to(dev)
+
+    def same(name, got, want):
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"{name}: kernel != bucketed plain version "
+                                 "bit for bit")
 
     p, g, t = 5, 37, 300
     f, cs = rnd(p, t), rnd(p, g)
@@ -275,12 +339,31 @@ def phase_kernel(dev):
             want = (want[0][0], want[1][0])
         torch.cuda.synchronize()
         results[name] = compare(name, got, want)
+    # The bucketed kernel's edges: against the brute-force plain version
+    # within the tolerance, against its own algebra bit for bit.
+    for name, (fi, ci, wi) in sweep_edge_cases(dev).items():
+        got = ops.commitment_sweep_over_under(fi, ci, wi)
+        torch.cuda.synchronize()
+        results[name] = compare(name, got, plain_chunked(fi, wi, ci, 1))
+        same(name, got, commitment_sweep_bucketed_ref(fi, wi, ci))
+    # a non-finite f or w makes its row NaN, never a quiet number
+    fi, ci, wi = rnd(3, 64), rnd(3, 9), rnd(3, 64, hi=1.0)
+    fi[0, 5], wi[2, 60] = float("nan"), float("inf")
+    got = ops.commitment_sweep_over_under(fi, ci, wi)
+    nan_rows = [bool(x[r].isnan().all()) for x in got for r in (0, 2)]
+    if not (all(nan_rows) and torch.isfinite(got[0][1]).all()
+            and torch.isfinite(got[1][1]).all()):
+        raise AssertionError("non-finite inputs: rows are not NaN")
 
     f, w, cs = main_shape_inputs(dev)
     got = ops.commitment_sweep_over_under(f, cs, w)
     want = plain_chunked(f, w, cs)
     torch.cuda.synchronize()
     err, rel = compare("main_shape", got, want)
+    same("main_shape", got, commitment_sweep_bucketed_ref(f, w, cs))
+    again = ops.commitment_sweep_over_under(f, cs, w)
+    if not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])):
+        raise AssertionError("the same sweep twice differs bit for bit")
     # float64 yardstick: how far each float32 sum is from the exact one
     exact_o = torch.cat([
         (w[i:i + 256, None, :].double() * torch.clamp(
@@ -292,9 +375,12 @@ def phase_kernel(dev):
                       / exact_o.abs().clamp_min(1.0)).max())
     plain_rel = float(((want[0][:1024].double() - exact_o).abs()
                        / exact_o.abs().clamp_min(1.0)).max())
+    if kern_rel > plain_rel:
+        raise AssertionError(f"kernel's error against float64 {kern_rel} > "
+                             f"the plain version's {plain_rel}")
 
     # Batched launch == one launch per row block, bit for bit (blocks of
-    # 1000 rows do not align with the kernel's 8-row tiles).
+    # 1000 rows do not align with the kernel's 8-row blocks).
     bit_exact = True
     for i in range(0, MAIN_P, 1000):
         o1, u1 = ops.commitment_sweep_over_under(
@@ -304,11 +390,12 @@ def phase_kernel(dev):
         bit_exact &= bool(torch.equal(u1, got[1][i:i + 1000]))
     if not bit_exact:
         raise AssertionError("batched sweep != per-block sweeps bit for bit")
-    emit("kernel", ragged={k: {"max_abs_err": v[0], "cost_rel_err": v[1]}
-                           for k, v in results.items()},
+    emit("kernel", cases={k: {"max_abs_err": v[0], "cost_rel_err": v[1]}
+                          for k, v in results.items()},
          main_shape=[MAIN_P, MAIN_G, MAIN_T], max_abs_err=err,
          cost_rel_err=rel, over_rel_err_vs_f64_kernel=kern_rel,
-         over_rel_err_vs_f64_plain=plain_rel, batched_equals_blocks=bit_exact)
+         over_rel_err_vs_f64_plain=plain_rel, batched_equals_blocks=bit_exact,
+         rerun_equals=True, equals_bucketed_plain=True, nan_rows=True)
     return err
 
 
@@ -388,10 +475,13 @@ def phase_plan(pools):
     if launches != EXPECTED_LAUNCHES:
         raise AssertionError(
             f"{launches} sweep launches, expected {EXPECTED_LAUNCHES}")
+    bill_rel = {k: abs(costs[k] - v) / v for k, v in PLAN_BILL.items()}
+    if max(bill_rel.values()) > BILL_RTOL:
+        raise AssertionError(f"the grid plan's bill moved: {bill_rel}")
     emit("plan", solver="grid", pools=NUM_POOLS, hours=NUM_HOURS,
          weeks_replayed=len(rep.weeks), wall_s=secs,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         sweep_launches=launches, **costs)
+         sweep_launches=launches, bill_rel=bill_rel, **costs)
     return rep, launches, secs
 
 
@@ -1098,22 +1188,24 @@ def timing_flash(dev, peak):
     """Each flash kernel at the main shape its route serves, with its
     plain version and scaled_dot_product_attention in the same call:
     prefill_tc at the bf16 prefill, decode_split at the bf16 decode, simt
-    at the same prefill in float32 (the reduced models' dtype); the bounds
+    at the same prefill in float32 (the reduced models' dtype) and at head
+    dim 128 (a shape no main path gives it, timed for ranking); the bounds
     from this run's inputs."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    b, h, s, d = FLASH_PREFILL
+    b, h, s, _ = FLASH_PREFILL
     lens = torch.full((b,), s, dtype=torch.int32, device=dev)
     out = {}
-    for name, dtype, elem, flops_peak in (
-            ("prefill_tc", torch.bfloat16, 2, peak["bf16_flops"]),
-            ("simt", torch.float32, 4, peak["fp32_flops"])):
+    for name, dtype, elem, flops_peak, d in (
+            ("prefill_tc", torch.bfloat16, 2, peak["bf16_flops"], 64),
+            ("simt", torch.float32, 4, peak["fp32_flops"], 64),
+            ("simt_d128", torch.float32, 4, peak["fp32_flops"], 128)):
         q, k, v = flash_inputs(dev, dtype, b, h, h, s, s, d, 20,
                                layout="bshd")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        assert fk.route(dtype, d, s) == name
+        assert fk.route(dtype, d, s) == name.removesuffix("_d128")
         flops, nbytes = flash_flops_bytes(b, h, s, [s] * b, d, elem, True)
         out[name] = flash_timed(
             lambda: fk.flash_attention_cuda(
@@ -1193,9 +1285,15 @@ def phase_timing(dev, launches, errs):
         lambda: ck.commitment_sweep_cuda(f, w, cs),
         lambda: plain_chunked(f, w, cs))
     nnz_w = float((w != 0).sum())
-    flops = FLOPS_PER_TRIPLE * MAIN_G * nnz_w      # work the masks need
+    # The bucketed work: per hour with w != 0 a binary search over G + 1
+    # buckets and its terms, per output a step of the scan.
+    ops = (nnz_w * (math.ceil(math.log2(MAIN_G + 1)) + OPS_PER_HOUR)
+           + OPS_PER_OUTPUT * MAIN_P * MAIN_G)
     nbytes = 4 * (f.numel() + w.numel() + cs.numel() + 2 * MAIN_P * MAIN_G)
-    sweep_bound = bound(flops, nbytes, peak["fp32_flops"], peak)
+    sweep_bound = bound(ops, nbytes, peak["fp32_flops"], peak)
+    # reference figures: the brute force's operations over the hours the
+    # masks keep, and over every (row, candidate, hour) triple
+    masked_flops = FLOPS_PER_TRIPLE * MAIN_G * nnz_w
     full_flops = FLOPS_PER_TRIPLE * MAIN_P * MAIN_G * MAIN_T
     del f, w, cs
     fl = timing_flash(dev, peak)
@@ -1203,11 +1301,15 @@ def phase_timing(dev, launches, errs):
     emit("timing", peak=peak,
          commitment_sweep=dict(
              shape=[MAIN_P, MAIN_G, MAIN_T], kernel_ms=kern_sets,
-             plain_ms=plain_sets, bound_flops=flops, bound_bytes=nbytes,
+             plain_ms=plain_sets, bound_ops=ops, bound_bytes=nbytes,
+             bound_ms=sweep_bound[0], bound_by=sweep_bound[1],
+             share_of_bound=sweep_bound[0] / ms,
+             bound_ms_masked_triples=1e3 * masked_flops / peak["fp32_flops"],
              bound_ms_all_triples=1e3 * full_flops / peak["fp32_flops"]),
          flash=dict(shapes=dict(
              prefill_tc=f"{FLASH_PREFILL} causal bfloat16",
              simt=f"{FLASH_PREFILL} causal float32",
+             simt_d128=f"{FLASH_PREFILL[:3] + (128,)} causal float32",
              decode_split=f"{FLASH_DECODE} cache {SERVE_CACHE} bfloat16"),
              **fl),
          rwkv6=lin)
@@ -1253,6 +1355,12 @@ def phase_timing(dev, launches, errs):
                     ("decode_split",
                      f"decode {FLASH_DECODE} cache {SERVE_CACHE} bf16"),
                     ("simt", f"prefill {FLASH_PREFILL} causal f32"))},
+            # simt at head dim 128, which no main path gives it: a shape
+            # timed for ranking, beside the library call
+            "simt_d128": dict(
+                shape=f"prefill {FLASH_PREFILL[:3] + (128,)} causal f32",
+                **{key: fl["simt_d128"][key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
         },
         {
             "name": "rwkv6", "route": "cuda",

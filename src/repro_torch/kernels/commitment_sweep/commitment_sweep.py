@@ -2,10 +2,15 @@
 
 The kernel (``csrc/commitment_sweep.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/commitment_sweep/commitment_sweep.py::commitment_sweep_kernel``.
-It is FP32 work on the CUDA cores (about 6 flops per row x candidate x hour
-triple), so it is bound by operations rather than by the bytes of ``f`` and
-``w``; the source's header note says how its design answers that and why
-its T sums do not depend on the row tiling.
+It does not compare every hour with every candidate, as the TPU kernel
+does: it sorts each row's candidates, drops each hour with a nonzero
+weight into the bucket between two neighbouring candidates by binary
+search, and takes over and under from per-bucket sums in one scan, so it
+is bound by reading ``f`` and ``w`` once.  Its sums are int64 fixed point,
+exact in any order: a rerun, a batched launch and a launch per row block
+agree bit for bit, and ``ref.commitment_sweep_bucketed_ref`` is the same
+algebra in plain PyTorch, bit for bit.  The source's header
+note gives the algebra.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes``, at the first launch,
@@ -27,7 +32,7 @@ from repro_torch.kernels import build as _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "commitment_sweep.cu"
 _INT_MAX = 2**31 - 1
-# Candidate tiles run on grid.y, which CUDA caps at 65535 blocks of 128.
+# Candidate tiles of 128 run on grid.y, which CUDA caps at 65535 blocks.
 _MAX_CANDIDATES = 65535 * 128
 
 #: Kernel launches made by :func:`commitment_sweep_cuda` in this process.
