@@ -36,6 +36,17 @@ JSON line and raising on failure:
             bill within rel 1e-4 of PLAN_BILL), wall time, peak memory,
             sweep launches (the main path)
   quantile  the same fleet with the quantile solver (grid within 2%)
+  one_shot  api.plan(PlanRequest(pools=fleet)), the default one-shot plan,
+            on the whole fleet (a main path): wall time, peak memory, sweep
+            launches (exactly 2: the pools' spend and the aggregate's),
+            host syncs (the same count as a 16-pool plan's), the bill
+            within rel 1e-4 of ONE_SHOT_BILL, zero widths off each pool's
+            cloud; on the first 16 pools the card against the CPU; the
+            spend's sweep launch against a launch per row block, bit for
+            bit; the batched forecaster fit alone by CUDA events beside
+            its bound; optimal_commitment_sweep at 8192 x 1344 against its
+            plain version; plan_commitment(solver="golden") on one pool,
+            card against the CPU
   profile   the grid plan under torch.profiler: device busy time, time by
             kernel (full table in build/chip_smoke/profile_grid_plan.txt), and
             the host-side tranche book timed alone
@@ -106,6 +117,19 @@ RTOL, ATOL, COST_RTOL = 2e-4, 1e-2, 1e-5
 PLAN_BILL = {"total_cost": 4317372416.0, "one_shot_cost": 5832199168.0,
              "hindsight_cost": 5018841088.0}
 BILL_RTOL = 1e-4
+# The one-shot plan: its sweep launches (the pools' spend, P rows, and the
+# aggregate's, one row), and its bill on that fleet as this script first
+# printed it: the pools' total, its committed part and the aggregate
+# plan's total.
+EXPECTED_ONE_SHOT_LAUNCHES = 2
+ONE_SHOT_BILL = {"total_cost": 452913383.2636407,
+                 "committed_cost": 402241631.9006088,
+                 "aggregate_cost": 439929577.2340426}
+ONE_SHOT_COSTS = ("total_cost", "committed_cost", "on_demand_cost",
+                  "aggregate_cost", "pooling_premium", "savings_vs_on_demand")
+CARD_CPU_RTOL = 1e-4     # one-shot costs card vs CPU, of the bill
+STACK_TOL = dict(rtol=0.03, atol=0.05)  # widths and levels, card vs CPU
+SWEEP_COST_BOUND = 1e-3     # grid+refine: C(c) <= C(c_exact) (1 + bound)
 PLAIN_CHUNK = 512           # rows per plain-version chunk at the main shape
 # Peak rates for the bound (NVIDIA data sheets, dense, at the full power
 # limit): FP32 on the CUDA cores, bf16 on the tensor cores, HBM bandwidth.
@@ -500,6 +524,18 @@ def phase_quantile(pools, grid_rep):
          grid_vs_quantile_rel=rel)
 
 
+def count_syncs(fn):
+    """(fn(), the host syncs it made), counted by CUDA's sync debug mode."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
 def phase_cpu(pools):
     from repro_torch.core.demand import PoolSet
     from repro_torch.core.replan import replan_fleet_pools
@@ -515,15 +551,8 @@ def phase_cpu(pools):
     # This is also the process's first planner call on the card, so its
     # time includes CUDA library initialization.
     t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            card = replan_fleet_pools(sub, **kw)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    card, syncs = count_syncs(lambda: replan_fleet_pools(sub, **kw))
     card_s = time.perf_counter() - t0
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
     if syncs >= len(card.weeks):
         raise AssertionError(
             f"{syncs} host syncs in a {len(card.weeks)}-week card replay: "
@@ -550,6 +579,179 @@ def phase_cpu(pools):
          total_rel=rel, card_replay_host_syncs=syncs,
          max_target_diff_cells=float((diff / cells).max()),
          ladder_matches_active=True)
+
+
+def fit_work(p, t, d, iters):
+    """Float32 operations and bytes of fit_batched on (P, T) histories with
+    D design columns: the shared gram, then per IRLS pass P weighted grams
+    (2 P T D^2), their right-hand sides and residuals (2 P T D each).
+    Bytes: the history read once, the coefficients written once."""
+    flops = 2 * t * d * d + 2 * p * t * d + iters * (
+        2 * p * t * d * d + 4 * p * t * d)
+    return flops, 4 * (p * t + p * d)
+
+
+def one_shot_rel(got, want):
+    """Each one-shot cost of ``got`` against ``want``, as a share of the
+    bill: the two totals (the pools' and the aggregate plan's) relative to
+    themselves, the committed and on-demand parts relative to the pools'
+    total, the premium and the savings, fractions of a bill, absolutely.
+    (On-demand alone is the area above the stack, ~1% of the bill; a
+    forecast that moves by 1e-5 moves it by ~3e-4 of itself.)"""
+    total = abs(want.total_cost)
+    scale = {"total_cost": total, "aggregate_cost": abs(want.aggregate_cost),
+             "committed_cost": total, "on_demand_cost": total,
+             "pooling_premium": 1.0, "savings_vs_on_demand": 1.0}
+    return {k: abs(getattr(got, k) - getattr(want, k)) / scale[k]
+            for k in ONE_SHOT_COSTS}
+
+
+def phase_one_shot(pools, dev):
+    """The default request, PlanRequest(pools=fleet): the one-shot plan."""
+    from repro_torch.core import commitment as cm
+    from repro_torch.core import forecast as fc
+    from repro_torch.core import planner as tpl
+    from repro_torch.core.api import PlanRequest, plan
+    from repro_torch.core.demand import PoolSet
+    from repro_torch.kernels.commitment_sweep import ops
+
+    # the first 16 pools: the card against the CPU, and a small plan's syncs
+    sub = PoolSet(keys=pools.keys[:16], demand=pools.demand[:16],
+                  configs=pools.configs[:16])
+    cpu = plan(PlanRequest(pools=sub), device="cpu")
+    # counted on a second call: the first in a process also initializes
+    # CUDA state, which synchronizes once
+    card16, _ = count_syncs(lambda: plan(PlanRequest(pools=sub)))
+    _, syncs16 = count_syncs(lambda: plan(PlanRequest(pools=sub)))
+    card_cpu_rel = one_shot_rel(card16, cpu)
+    if max(card_cpu_rel.values()) > CARD_CPU_RTOL:
+        raise AssertionError(f"one-shot card vs CPU totals: {card_cpu_rel}")
+    yhat_rel = float(np.abs(card16.forecasts / cpu.forecasts - 1.0).max())
+    np.testing.assert_array_equal(card16.widths > 0, cpu.widths > 0)
+    np.testing.assert_allclose(card16.widths, cpu.widths, **STACK_TOL)
+    np.testing.assert_allclose(card16.levels, cpu.levels, **STACK_TOL)
+
+    # the whole fleet: the main path
+    req = PlanRequest(pools=pools)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = plan(req)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()["commitment_sweep"]
+    peak = torch.cuda.max_memory_allocated()
+    if launches != EXPECTED_ONE_SHOT_LAUNCHES:
+        raise AssertionError(f"{launches} sweep launches in the one-shot "
+                             f"plan, expected {EXPECTED_ONE_SHOT_LAUNCHES}")
+    _, syncs = count_syncs(lambda: plan(req))
+    repeats = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        plan(req)
+        torch.cuda.synchronize()
+        repeats.append(time.perf_counter() - t0)
+    if syncs != syncs16:
+        raise AssertionError(f"host syncs grow with the pools: {syncs16} at "
+                             f"16 pools, {syncs} at {NUM_POOLS}")
+    costs = {k: getattr(res, k) for k in ONE_SHOT_COSTS}
+    if not all(np.isfinite(v) for v in costs.values()):
+        raise AssertionError(f"non-finite one-shot costs: {costs}")
+    if not (res.widths[~res.available] == 0.0).all():
+        raise AssertionError("widths bought off a pool's cloud")
+    if not math.isclose(res.total_cost,
+                        res.committed_cost + res.on_demand_cost,
+                        rel_tol=1e-12):
+        raise AssertionError("total != committed + on-demand")
+    bill_rel = {k: abs(getattr(res, k) - v) / abs(v)
+                for k, v in ONE_SHOT_BILL.items()}
+    if max(bill_rel.values()) > BILL_RTOL:
+        raise AssertionError(f"the one-shot bill moved: {bill_rel}")
+    per_pool_total = math.fsum(e.spend.total for e in res.per_pool)
+
+    # the spend's sweep: one launch over the pools == a launch per block
+    eval_h = HORIZON_WEEKS * 168
+    actual = torch.as_tensor(pools.demand[:, -eval_h:]).to(dev)
+    level = torch.as_tensor(res.widths).to(dev).sum(-1, keepdim=True)
+    got = ops.commitment_sweep_over_under(actual, level)
+    blocks_equal = all(
+        torch.equal(ops.commitment_sweep_over_under(
+            actual[i:i + 100], level[i:i + 100])[0], got[0][i:i + 100])
+        for i in range(0, NUM_POOLS, 100))
+    if not blocks_equal:
+        raise AssertionError("the spend's sweep != a launch per row block")
+    spend_err, spend_rel = compare(
+        "one_shot_spend", got,
+        plain_chunked(actual, torch.ones_like(actual), level))
+
+    # the batched fit alone, by CUDA events, beside its bound
+    hist = torch.as_tensor(pools.demand[:, :-eval_h]).to(dev)
+    model = fc.fit_batched(hist)
+    torch.cuda.synchronize()
+    fit_ms = median_ms(lambda: fc.fit_batched(hist), 5)
+    name = torch.cuda.get_device_name(0)
+    peaks = PEAKS["pcie" if "PCIe" in name else "sxm"]
+    fit_flops, fit_bytes = fit_work(*hist.shape, model.beta.shape[-1],
+                                    model.cfg.irls_iters)
+    fit_bound = bound(fit_flops, fit_bytes, peaks["fp32_flops"], peaks)
+    fit_shape = list(hist.shape) + [model.beta.shape[-1]]
+    del hist, model
+
+    # where the plan's time goes: device busy time and kernels by name
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        plan(req)
+        torch.cuda.synchronize()
+    prof_s = time.perf_counter() - t0
+    kernels = device_kernels(prof)
+    busy_s = sum(k[0] for k in kernels) / 1e6
+
+    # the grid+refine solver on the card against its plain version
+    f, _, _ = main_shape_inputs(dev)
+    c_card = ops.optimal_commitment_sweep(f)
+    c_plain = torch.cat([ops.optimal_commitment_sweep_oracle(f[i:i + 512])
+                         for i in range(0, MAIN_P, 512)])
+    exact = cm.commitment_cost(f, cm.optimal_commitment_quantile(f))
+    over_exact = {k: float((cm.commitment_cost(f, c) / exact).max() - 1.0)
+                  for k, c in (("card", c_card), ("plain", c_plain))}
+    if max(over_exact.values()) > SWEEP_COST_BOUND:
+        raise AssertionError(f"grid+refine above the exact cost: {over_exact}")
+    del f
+
+    # Algorithm 1's golden-section path on one pool, card vs CPU
+    hist0 = torch.as_tensor(pools.demand[0, :-eval_h])
+    g_card = tpl.plan_commitment(hist0.to(dev), solver="golden")
+    g_cpu = tpl.plan_commitment(hist0, solver="golden")
+    golden_rel = abs(g_card.commitment - g_cpu.commitment) / g_cpu.commitment
+    np.testing.assert_allclose(g_card.per_horizon_levels.cpu().numpy(),
+                               g_cpu.per_horizon_levels.numpy(), rtol=1e-3)
+    if golden_rel > 1e-3:
+        raise AssertionError(f"golden plan card vs CPU: rel {golden_rel}")
+
+    emit("one_shot", pools=NUM_POOLS, hours=NUM_HOURS,
+         horizon_weeks=HORIZON_WEEKS, wall_s=secs, wall_s_repeats=repeats,
+         max_memory_allocated=peak,
+         sweep_launches=launches, host_syncs=syncs, host_syncs_16=syncs16,
+         bill_rel=bill_rel, card_vs_cpu_16_rel=card_cpu_rel,
+         card_vs_cpu_16_forecast_rel=yhat_rel,
+         per_pool_total_rel=abs(per_pool_total - res.total_cost)
+         / res.total_cost,
+         spend_batched_equals_blocks=blocks_equal,
+         spend_max_abs_err=spend_err, spend_cost_rel_err=spend_rel,
+         fit_ms=fit_ms, fit_bound_ms=fit_bound[0], fit_bound_by=fit_bound[1],
+         fit_flops=fit_flops, fit_shape_p_t_d=fit_shape,
+         profiled_wall_s=prof_s, device_busy_s=busy_s,
+         device_events=sum(n for _, n, _ in kernels),
+         device_busy_share_of_profiled=busy_s / prof_s,
+         top_kernels=[[round(us / 1e3, 3), n, key[:80]]
+                      for us, n, key in kernels[:8]],
+         grid_refine_over_exact=over_exact,
+         golden_card_vs_cpu_rel=golden_rel, nvidia_smi=smi(), **costs)
+    return launches
 
 
 def device_kernels(prof):
@@ -605,6 +807,7 @@ def phase_profile(pools, rep, plan_s):
     ladder_s = time.perf_counter() - t0
     emit("profile", solver="grid", plan_wall_s=plan_s,
          profiled_wall_s=prof_s, device_busy_s=busy_s,
+         device_events=sum(n for _, n, _ in kernels),
          device_busy_share_of_profiled=busy_s / prof_s,
          sweep_device_s=sweep_s, ladder_book_host_s=ladder_s,
          top_kernels=[[round(us / 1e3, 3), n, key[:80]]
@@ -1328,6 +1531,8 @@ def phase_timing(dev, launches, errs):
                 "src/repro/kernels/commitment_sweep/commitment_sweep.py:64",
             "launches": launches["commitment_sweep"],
             "launches_per_plan": launches["commitment_sweep"],
+            "launches_per_one_shot_plan":
+                launches["commitment_sweep_one_shot"],
             "max_abs_err": errs["commitment_sweep"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": sweep_bound[0],
             "bound_by": sweep_bound[1], "library_ms": None,
@@ -1404,10 +1609,12 @@ def main() -> int:
     phase_cpu(pools)
     grid_rep, sweep_launches, plan_s = phase_plan(pools)
     phase_quantile(pools, grid_rep)
+    one_shot_launches = phase_one_shot(pools, dev)
     phase_profile(pools, grid_rep, plan_s)
     del pools, grid_rep
     phase_model_cpu(dev)
-    launches = {"commitment_sweep": sweep_launches}
+    launches = {"commitment_sweep": sweep_launches,
+                "commitment_sweep_one_shot": one_shot_launches}
     launches["flash_attention"], dense = phase_serve(
         "serve_dense", "stablelm-1.6b", dev, "flash_attention")
     launches["flash_by_kernel"] = dense["launches"]["flash_by_kernel"]

@@ -1,5 +1,5 @@
-"""Shaved Ice on PyTorch and CUDA: the rolling commitment planner for an
-NVIDIA Hopper card.
+"""Shaved Ice on PyTorch and CUDA: the one-shot and rolling commitment
+planners and the serving engine, for an NVIDIA Hopper card.
 
 This package mirrors ``src/repro`` module for module (``repro_torch.core.
 replan`` ports ``repro.core.replan``) and never imports it: the JAX package

@@ -1,11 +1,15 @@
-"""The rolling commitment planner on PyTorch.
+"""The commitment planner on PyTorch: one-shot and rolling.
 
   api        — PlanRequest front door, ``plan(request, device=None)``
-  demand     — synthetic demand traces and the PoolSet fleet container
-  forecast   — structural forecaster: prefix normal equations, ridge solves
-  ladder     — staggered tranches and the per-pool tranche book
-  planner    — Algorithm 1 steps 3-4 (prefix quantiles, monotone stack)
+  commitment — Eq. (1)'s cost and its quantile, golden and Brent solvers
+  demand     — synthetic demand traces, §2.2 statistics, the PoolSet fleet
+  forecast   — structural forecaster: the batched one-shot fit, prefix
+               normal equations, ridge solves
+  ladder     — staggered tranches, the per-pool tranche book, Fig. 9
+  planner    — Algorithm 1: plan_commitment, plan_portfolio, the one-shot
+               fleet plan, Fig. 8
   policy     — the weekly decision rules of the replay
-  portfolio  — purchase options, cost lines, exact and grid stack solvers
+  portfolio  — purchase options, cost lines, exact and grid stack solvers,
+               the real-dollar spend
   replan     — the rolling weekly replay, a loop over weeks on the device
 """

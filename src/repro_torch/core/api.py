@@ -11,10 +11,12 @@ The same fields and the same eager validation as the reference's
     report = plan(request)                 # on the card
     report = plan(request, device="cpu")   # plain versions on the CPU
 
-This slice ports ``mode="rolling"``.  ``mode="one_shot"`` and the band
-configs (``spot``, ``migration``, ``convertible``, ``scenarios``,
-``telemetry``), ``cadence="breach"`` and ``irls_carry=True`` are accepted
-at construction, as in the reference, and raise ``NotImplementedError``
+Both modes are ported: ``mode="one_shot"`` (the default) returns a
+:class:`repro_torch.core.planner.FleetPoolsPlan`, ``mode="rolling"`` a
+:class:`repro_torch.core.replan.RollingPlanReport`.  The band configs
+(``spot``, ``migration``, ``convertible``, ``scenarios``, ``telemetry``),
+``cadence="breach"`` and ``irls_carry=True`` are accepted at
+construction, as in the reference, and raise ``NotImplementedError``
 naming their ROADMAP item when planned.
 """
 
@@ -177,15 +179,26 @@ class PlanRequest:
 def plan(request: PlanRequest, *, device: "torch.device | str | None" = None):
     """Execute one :class:`PlanRequest` on ``device`` (``None`` = the card;
     without one, pass ``device="cpu"``).  Returns a
-    :class:`repro_torch.core.replan.RollingPlanReport`."""
+    :class:`repro_torch.core.planner.FleetPoolsPlan` for
+    ``mode="one_shot"``, a :class:`repro_torch.core.replan.RollingPlanReport`
+    for ``mode="rolling"``."""
     if not isinstance(request, PlanRequest):
         raise TypeError(
             f"plan() takes a PlanRequest, got {type(request).__name__}"
         )
     if request.mode == "one_shot":
-        raise NotImplementedError(
-            "mode='one_shot' is not ported yet (ROADMAP Queue 1, item 8: "
-            "the one-shot planner)"
+        from repro_torch.core import planner
+
+        return planner._plan_fleet_pools_one_shot(
+            request.pools, request.options,
+            horizon_weeks=request.horizon_weeks,
+            od_rate=request.od_rate,
+            term_weighting=request.term_weighting,
+            cfg=request.forecast,
+            spot=request.spot,
+            migration=request.migration,
+            convertible=request.convertible,
+            device=device,
         )
     from repro_torch.core import replan
 

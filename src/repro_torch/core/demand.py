@@ -1,5 +1,6 @@
 """Demand traces for cloud compute pools (paper §2): the calibrated
-synthetic generator and the (P, T) fleet container the planner consumes.
+synthetic generator, efficiency step-functions, the §2.2 statistics and
+the (P, T) fleet container the planner consumes.
 
 The deterministic profile (trend x diurnal/weekly cycle x holiday dip) is
 the reference's float32 arithmetic op for op.  The AR(1) noise draws from
@@ -16,6 +17,8 @@ import math
 
 import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 HOURS_PER_DAY = 24
 HOURS_PER_WEEK = 24 * 7
@@ -127,6 +130,82 @@ def synth_demand(
         ar = _ar1(eps, cfg.noise_sigma).to(torch.float32)
         demand = demand * (1.0 + ar)
     return torch.clamp(demand, min=0.0)
+
+
+def apply_efficiency_events(
+    demand: torch.Tensor,
+    event_hours,
+    event_gains,
+) -> torch.Tensor:
+    """Hardware/software efficiency step-functions (paper §2.3-§2.4): a gain
+    g at hour h multiplies demand at t >= h by 1/(1+g), on ``demand``'s
+    device."""
+    t = torch.arange(demand.shape[-1], dtype=torch.float32,
+                     device=demand.device)
+    scale = torch.ones_like(demand)
+    for h, g in zip(event_hours, event_gains):
+        step = (t >= h).to(demand.dtype)
+        scale = scale * (1.0 + step * (1.0 / (1.0 + g) - 1.0))
+    return demand * scale
+
+
+# Characterization statistics (paper §2.2, §3.3.1), on the input's device.
+
+def autocorrelation(x: torch.Tensor, lag: int) -> torch.Tensor:
+    """Pearson autocorrelation at ``lag`` (paper: lag-7 daily = 0.975)."""
+    a = x[..., :-lag] if lag else x
+    b = x[..., lag:]
+    a = a - a.mean(-1, keepdim=True)
+    b = b - b.mean(-1, keepdim=True)
+    denom = torch.sqrt((a * a).sum(-1) * (b * b).sum(-1))
+    return (a * b).sum(-1) / torch.clamp(denom, min=1e-12)
+
+
+def _periods(x: torch.Tensor, length: int) -> torch.Tensor:
+    """(..., N, length): x's whole periods of ``length`` samples."""
+    n = (x.shape[-1] // length) * length
+    return x[..., :n].reshape(*x.shape[:-1], -1, length)
+
+
+def hourly_to_daily(x: torch.Tensor) -> torch.Tensor:
+    return _periods(x, HOURS_PER_DAY).mean(-1)
+
+
+def weekly_peak_trough_ratio(x_hourly: torch.Tensor) -> torch.Tensor:
+    """Mean over weeks of (weekly max / weekly min) of daily demand."""
+    weeks = _periods(hourly_to_daily(x_hourly), 7)
+    return (weeks.amax(-1) / torch.clamp(weeks.amin(-1), min=1e-12)).mean(-1)
+
+
+def diurnal_peak_trough_ratio(x_hourly: torch.Tensor) -> torch.Tensor:
+    """Mean over days of (daily max hour / daily min hour)."""
+    days = _periods(x_hourly, HOURS_PER_DAY)
+    return (days.amax(-1) / torch.clamp(days.amin(-1), min=1e-12)).mean(-1)
+
+
+def week_over_week_growth(x_hourly: torch.Tensor) -> torch.Tensor:
+    """Weekly mean demand growth rates (paper Fig 5: 37% of weeks negative)."""
+    weekly = _periods(x_hourly, HOURS_PER_WEEK).mean(-1)
+    return weekly[..., 1:] / torch.clamp(weekly[..., :-1], min=1e-12) - 1.0
+
+
+def characterize(x_hourly, *, device: "torch.device | str | None" = None) -> dict:
+    """Full §2.2 characterization of a (T,) trace on ``device`` (``None`` =
+    the card), as plain floats."""
+    x = torch.as_tensor(np.asarray(x_hourly), dtype=torch.float32).to(
+        resolve_device(device))
+    daily = hourly_to_daily(x)
+    wow = week_over_week_growth(x)
+    years = x.shape[-1] / (HOURS_PER_DAY * DAYS_PER_YEAR)
+    total_growth = float(daily[-7:].mean() / daily[:7].mean())
+    return {
+        "lag7_daily_autocorr": float(autocorrelation(daily, 7)),
+        "weekly_ratio": float(weekly_peak_trough_ratio(x)),
+        "diurnal_ratio": float(diurnal_peak_trough_ratio(x)),
+        "neg_week_fraction": float((wow < 0).to(torch.float32).mean()),
+        "total_growth": total_growth,
+        "annual_growth": float(total_growth ** (1.0 / max(years, 1e-9)) - 1.0),
+    }
 
 
 # (cloud, region, machine_family) — the key the released dataset uses.

@@ -1,11 +1,14 @@
 """Structural time-series forecaster (paper §3.3.3, Prophet replacement):
-the prefix-refit half the rolling replay runs every week.
+the one-shot fit (:func:`fit`, :func:`fit_batched`) and the prefix refits
+the rolling replay runs every week.
 
     log y = beta . [1, t, relu(t - cp_1..K),            # piecewise trend
                     fourier_daily, fourier_weekly, fourier_yearly,
                     holiday_dummy]
 
-solved as ridge-regularized least squares through the normal equations.
+solved as ridge-regularized least squares through the normal equations,
+then reweighted by IRLS so that under-forecast hours (residual > 0) weigh
+``asym_weight`` times more, the paper's asymmetric error metric.
 With one fixed design matrix (time normalization and changepoints pinned
 to the full trace), the week-w normal equations are prefix sums of
 per-week blocks, so a weekly refit is one gather plus a (D, D) ridge solve.
@@ -75,6 +78,146 @@ def design_matrix(
     return torch.cat(cols, dim=-1)
 
 
+@dataclasses.dataclass
+class ForecastModel:
+    beta: torch.Tensor  # (D,), or (P, D) from fit_batched
+    t_max: float
+    cfg: ForecastConfig
+
+
+def _whiten(x: torch.Tensor, ridge: float):
+    """The preconditioner that the weighted ridge systems over the design
+    x (T, D) share: A = L^-T from the float64 Cholesky factor L of
+    X^T X + ridge I, Z = X A, the hourly outer products of Z's rows
+    (T, D*D), and the penalty ridge A^T A.
+
+    In beta = A gamma the system (X^T W X + ridge I) beta = X^T W y reads
+    (Z^T W Z + ridge A^T A) gamma = Z^T W y, the same estimator; for
+    weights in [1, asym] its eigenvalues lie in [1, asym].  The plain
+    normal equations do not: with the yearly terms on, X^T X + ridge I has
+    a condition number near 1e7, where float32 sums lose the fit."""
+    d = x.shape[-1]
+    x64 = x.to(torch.float64)
+    eye = torch.eye(d, dtype=torch.float64, device=x.device)
+    chol = torch.linalg.cholesky_ex(x64.T @ x64 + ridge * eye)[0]
+    a = torch.linalg.solve_triangular(chol.mT, eye, upper=True)
+    z = (x64 @ a).to(x.dtype)
+    outer = (z[:, :, None] * z[:, None, :]).reshape(-1, d * d)
+    return a, z, outer, (ridge * a.T @ a).to(x.dtype)
+
+
+def _solve_wls(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, ridge,
+               whitened=None):
+    """Weighted ridge least squares for a batch of rows sharing the design
+    x (T, D): targets y and weights w (P, T) -> beta (P, D), solved in the
+    whitened basis of :func:`_whiten` (``whitened``, when given, is its
+    result for x).
+
+    The P weighted grams are one matrix product, w (P, T) @ the hourly
+    outer products (T, D*D), so no (P, T, D) weighted design is formed."""
+    a, z, outer, pen = whitened if whitened is not None else _whiten(x, ridge)
+    d = z.shape[-1]
+    g = (w @ outer).reshape(-1, d, d) + pen
+    r = (w * y) @ z
+    gamma = torch.linalg.solve_ex(g, r[..., None])[0][..., 0]
+    return (gamma.to(torch.float64) @ a.T).to(x.dtype)
+
+
+def _irls(x, logy, beta, iters: int, cfg: ForecastConfig, whitened=None,
+          mask=None):
+    """``iters`` asymmetric IRLS passes from ``beta`` (P, D): each weighs
+    under-forecast hours ``cfg.asym_weight`` (times the 0/1 ``mask`` (T,),
+    when given) and re-solves, a full O(P T D^2) accumulation.
+    ``whitened`` is :func:`_whiten` of the (masked) design, when known."""
+    if iters == 0:
+        return beta
+    if whitened is None:
+        whitened = _whiten(x if mask is None else x * mask[:, None],
+                           cfg.ridge)
+    for _ in range(iters):
+        resid = logy - beta @ x.T                            # (P, T)
+        w = torch.where(resid > 0, cfg.asym_weight, 1.0)
+        if mask is not None:
+            w = w * mask
+        beta = _solve_wls(x, logy, w, cfg.ridge, whitened)
+    return beta
+
+
+def _fit(ys: torch.Tensor, cfg: ForecastConfig, t_max: float) -> torch.Tensor:
+    """beta (P, D) for histories ys (P, T): one unweighted ridge solve, whose
+    gram all rows share, then ``cfg.irls_iters`` IRLS passes, all in the
+    whitened basis of :func:`_whiten`."""
+    t = torch.arange(ys.shape[-1], dtype=torch.float32, device=ys.device)
+    x = design_matrix(t, cfg, t_max)
+    logy = torch.log(torch.clamp(ys, min=1e-6))
+    whitened = _whiten(x, cfg.ridge)
+    a, z, _, pen = whitened
+    gamma = torch.linalg.solve_ex(z.T @ z + pen, (logy @ z).T)[0].T
+    beta = (gamma.to(torch.float64) @ a.T).to(torch.float32)
+    return _irls(x, logy, beta, cfg.irls_iters, cfg, whitened)
+
+
+def _guarded(cfg: ForecastConfig, num_hours: int) -> ForecastConfig:
+    """The short-history guard: below ~1.2 years of history the yearly
+    Fourier terms are unidentifiable and extrapolate wildly, so they are
+    turned off (the guard Prophet applies)."""
+    if num_hours < 1.2 * HOURS_PER_YEAR and cfg.yearly_order:
+        return dataclasses.replace(cfg, yearly_order=0)
+    return cfg
+
+
+def fit(y: torch.Tensor, cfg: ForecastConfig = ForecastConfig()) -> ForecastModel:
+    """Fit on an hourly history ``y`` (T,), on its device; yearly terms off
+    below ~1.2 years of history."""
+    y = torch.as_tensor(y, dtype=torch.float32)
+    cfg = _guarded(cfg, y.shape[-1])
+    t_max = float(max(y.shape[-1] - 1, 1))
+    return ForecastModel(beta=_fit(y[None], cfg, t_max)[0], t_max=t_max,
+                         cfg=cfg)
+
+
+def fit_batched(
+    ys: torch.Tensor, cfg: ForecastConfig = ForecastConfig()
+) -> ForecastModel:
+    """:func:`fit` over a (P, T) pool batch in one pass (the reference's
+    vmap), with the same short-history guard."""
+    ys = torch.as_tensor(ys, dtype=torch.float32)
+    cfg = _guarded(cfg, ys.shape[-1])
+    t_max = float(max(ys.shape[-1] - 1, 1))
+    return ForecastModel(beta=_fit(ys, cfg, t_max), t_max=t_max, cfg=cfg)
+
+
+def predict(model: ForecastModel, t_hours: torch.Tensor) -> torch.Tensor:
+    """Predict demand at absolute hour indices ``t_hours`` (may be future)."""
+    x = design_matrix(t_hours.to(torch.float32), model.cfg, model.t_max)
+    return torch.exp(x @ model.beta)
+
+
+def predict_batched(model: ForecastModel, t_hours: torch.Tensor) -> torch.Tensor:
+    """(P, H) predictions of a :func:`fit_batched` model."""
+    x = design_matrix(t_hours.to(torch.float32), model.cfg, model.t_max)
+    return torch.exp(model.beta @ x.T)
+
+
+def forecast_horizon(
+    model: ForecastModel, t_start: int, num_hours: int
+) -> torch.Tensor:
+    """Forecast ``num_hours`` starting at absolute hour ``t_start``, on the
+    model's device (Step 1 of Algorithm 1)."""
+    t = t_start + torch.arange(num_hours, device=model.beta.device)
+    return predict(model, t)
+
+
+def weighted_mape(
+    y_true: torch.Tensor, y_pred: torch.Tensor, asym: float = 2.1
+) -> torch.Tensor:
+    """The paper's asymmetric error metric (footnote 2): under-forecast
+    errors (y_true > y_pred, i.e. we'd pay on-demand) cost ``asym`` x more."""
+    err = (y_true - y_pred) / torch.clamp(y_true, min=1e-9)
+    w = torch.where(err > 0, asym, 1.0)
+    return (w * err.abs()).mean(-1)
+
+
 def _ridge_solve(gram: torch.Tensor, rhs: torch.Tensor, ridge: float):
     """Solve (gram + ridge I) beta = rhs for one shared gram and a batch of
     right-hand sides rhs (P, D) -> (P, D)."""
@@ -123,9 +266,8 @@ def prefix_fit_state(
     num_weeks = ys.shape[-1] // period_hours
     t_hist = num_weeks * period_hours
     ys = ys[..., :t_hist]
-    guard_hours = t_hist if min_prefix_hours is None else min_prefix_hours
-    if guard_hours < 1.2 * HOURS_PER_YEAR and cfg.yearly_order:
-        cfg = dataclasses.replace(cfg, yearly_order=0)
+    cfg = _guarded(cfg, t_hist if min_prefix_hours is None
+                   else min_prefix_hours)
     t_max = float(max(t_hist - 1, 1))
     t_all = torch.arange(t_hist + horizon_hours, dtype=torch.float32, device=dev)
     x = design_matrix(t_all, cfg, t_max)
@@ -178,16 +320,7 @@ def irls_refine(
     xh = state.x[: state.num_hist_hours]
     t = torch.arange(state.num_hist_hours, device=xh.device)
     mask = (t < week * state.period_hours).to(xh.dtype)
-    eye = state.cfg.ridge * torch.eye(
-        xh.shape[-1], dtype=xh.dtype, device=xh.device
-    )
-    for _ in range(iters):
-        resid = state.logy - beta @ xh.T                     # (P, T)
-        w = torch.where(resid > 0, state.cfg.asym_weight, 1.0) * mask
-        g = torch.einsum("pt,td,te->pde", w, xh, xh)         # (P, D, D)
-        r = torch.einsum("pt,td->pd", w * state.logy, xh)
-        beta = torch.linalg.solve_ex(g + eye, r[..., None])[0][..., 0]
-    return beta
+    return _irls(xh, state.logy, beta, iters, state.cfg, mask=mask)
 
 
 def predict_from_beta(

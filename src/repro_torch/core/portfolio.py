@@ -15,6 +15,9 @@ Two solvers, both batched over a leading row axis (the reference vmaps):
   demand;
 * :func:`optimal_portfolio_grid` — the grid solver on the commitment
   sweep's over/under integrals; thresholds land on grid-cell edges.
+
+:func:`portfolio_spends` bills stacks in real dollars over an evaluation
+window, all rows in one sweep.
 """
 
 from __future__ import annotations
@@ -405,3 +408,118 @@ def handover_fractiles(
     mask = best[..., None, :] == torch.arange(k, device=dev)[:, None]
     hi = torch.where(mask, u, -1.0).amax(-1)              # (..., K)
     return torch.where(hi >= 0, hi, 0.0)
+
+
+@dataclasses.dataclass
+class PortfolioSpend:
+    """Real-dollar accounting of a stack over an evaluation window.
+
+    ``spot`` is the expected-rate bill of the demand above the spot floor
+    (0.0 on spot-free plans); ``spot_chip_hours`` the volume that rode
+    spot."""
+
+    committed: np.ndarray         # (K,) committed spend per option
+    on_demand: float
+    total: float
+    all_on_demand: float
+    savings_vs_on_demand: float
+    spot: float = 0.0
+    spot_chip_hours: float = 0.0
+
+
+def portfolio_spends(
+    f: torch.Tensor,
+    widths: torch.Tensor,
+    options: Sequence[PurchaseOption],
+    *,
+    od_rate: float = 2.1,
+    spot_rate: torch.Tensor | None = None,
+    spot_floor: torch.Tensor | None = None,
+    level_offset: torch.Tensor | None = None,
+) -> list[PortfolioSpend]:
+    """:func:`portfolio_spend` for P rows at once: f (P, T) demand and
+    widths (P, K) stacks on one device; ``spot_rate``, ``spot_floor`` and
+    ``level_offset`` are None or (P,).
+
+    The over-integrals sum_t max(f - level, 0) of all rows (and, with a
+    spot band, above each floor) are one commitment sweep: on the card one
+    kernel launch, whose order-free integer sums make it equal to a launch
+    per row, bit for bit.  The sums and widths then come to the host in one
+    copy, and the dollars are host float64 arithmetic, as in the
+    reference."""
+    num_rows, t = f.shape
+    level = widths.sum(-1)
+    if level_offset is not None:
+        level = level + torch.as_tensor(level_offset, dtype=f.dtype,
+                                        device=f.device)
+    cs = [level]
+    if spot_rate is not None:
+        floor = torch.as_tensor(spot_floor, dtype=f.dtype, device=f.device)
+        # A floor above the row's peak (an infinite one included) bills no
+        # spot; capping it there keeps the candidates finite for the sweep.
+        cs.append(torch.minimum(torch.maximum(floor, level), f.amax(-1)))
+    over, _ = sweep_ops.commitment_sweep_over_under(
+        f, torch.stack(cs, dim=-1)
+    )                                                     # (P, 1 or 2)
+    host = torch.cat(
+        [widths.to(f.dtype), over, f.sum(-1, keepdim=True)], dim=-1
+    ).cpu().numpy()
+    k = widths.shape[-1]
+    w_np, over_np, f_sum = host[:, :k], host[:, k:-1], host[:, -1]
+    rates = np.asarray([o.rate for o in options])
+    s_rate = (None if spot_rate is None
+              else torch.as_tensor(spot_rate).cpu().numpy())
+    out = []
+    for p in range(num_rows):
+        committed = rates * w_np[p] * t
+        over_p = float(over_np[p, 0])
+        spot_vol = spot_cost = 0.0
+        if s_rate is not None:
+            spot_vol = float(over_np[p, 1])
+            spot_cost = float(s_rate[p]) * spot_vol
+            over_p = max(over_p - spot_vol, 0.0)
+        od = od_rate * over_p
+        all_od = od_rate * float(f_sum[p])
+        total = float(committed.sum()) + od + spot_cost
+        out.append(PortfolioSpend(
+            committed=committed,
+            on_demand=od,
+            total=total,
+            all_on_demand=all_od,
+            # A pool can sit empty over the window (e.g. its training job
+            # ended): no demand means nothing to save on.
+            savings_vs_on_demand=1.0 - total / all_od if all_od > 0 else 0.0,
+            spot=spot_cost,
+            spot_chip_hours=spot_vol,
+        ))
+    return out
+
+
+def portfolio_spend(
+    f: torch.Tensor,
+    widths,
+    options: Sequence[PurchaseOption],
+    *,
+    od_rate: float = 2.1,
+    spot_rate: float | None = None,
+    spot_floor: float | None = None,
+    level_offset: float = 0.0,
+) -> PortfolioSpend:
+    """In-window dollars of one stack on demand f (T,): every active tranche
+    bills its committed rate for all hours; demand above the stack pays
+    on-demand, except that with a spot band (``spot_rate``/``spot_floor``)
+    demand above the floor bills at the effective spot rate instead.
+
+    ``level_offset`` lifts the serving level above the stack without
+    billing here (a convertible allocation re-pinned onto the pool).
+    Runs on ``f``'s device; one row of :func:`portfolio_spends`."""
+    widths = torch.as_tensor(widths, dtype=f.dtype, device=f.device)
+
+    def row(x):
+        return None if x is None else torch.tensor([x], dtype=torch.float64)
+
+    return portfolio_spends(
+        f[None], widths[None], options, od_rate=od_rate,
+        spot_rate=row(spot_rate), spot_floor=row(spot_floor),
+        level_offset=torch.tensor([level_offset], dtype=torch.float64),
+    )[0]

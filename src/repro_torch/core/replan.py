@@ -49,7 +49,12 @@ from repro_torch.core import ladder as ld
 from repro_torch.core import policy as pol
 from repro_torch.core import portfolio as pf
 from repro_torch.core.demand import HOURS_PER_WEEK
-from repro_torch.core.planner import _monotone_stack, _prefix_weighted_quantiles
+from repro_torch.core.planner import (
+    UNPORTED_BANDS,
+    _monotone_stack,
+    _prefix_weighted_quantiles,
+    reject_unported_bands,
+)
 from repro_torch.device import resolve_device
 
 pricing.validate_tables()
@@ -129,18 +134,7 @@ def _validate(total_weeks: int, start_weeks: int, cadence_weeks: int):
 def _reject_unported(**kw) -> None:
     """Raise ``NotImplementedError`` for every keyword set to anything but
     its disabled value whose subsystem the port does not have yet."""
-    items = {
-        "spot": "item 10: spot band",
-        "migration": "item 11: generation turnover and convertibles",
-        "convertible": "item 11: generation turnover and convertibles",
-        "scenarios": "item 12: scenario batching",
-        "telemetry": "item 14: telemetry emitters",
-    }
-    for name, item in items.items():
-        if kw[name] is not None and kw[name] is not False:
-            raise NotImplementedError(
-                f"{name}= is not ported yet (ROADMAP Queue 1, {item})"
-            )
+    reject_unported_bands(**{name: kw[name] for name in UNPORTED_BANDS})
     if kw["cadence"] != "weekly":
         if kw["cadence"] != "breach":
             raise ValueError(

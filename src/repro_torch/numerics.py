@@ -22,10 +22,21 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
+def _scalar(x, device) -> torch.Tensor:
+    """A 0-d float32 tensor of ``x``; a Python float becomes a device-side
+    fill, not a copy from the host."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return torch.full((), float(np.float32(x)), dtype=torch.float32,
+                      device=device)
+
+
 def linspace(
-    start: float, stop: float, num: int, *, device=None
+    start, stop, num: int, *, device=None
 ) -> torch.Tensor:
     """(num,) float32 evenly spaced from ``start`` to ``stop`` inclusive.
+    ``start`` and ``stop`` are Python floats or 0-d tensors on ``device``
+    (the tensor form reads nothing back to the host).
 
     The reference computes ``start * (1 - i/div) + stop * (i/div)``; its
     CPU compiler turns ``i/div`` into ``i * r`` with ``r`` the float32
@@ -37,18 +48,17 @@ def linspace(
     the [0, 1] grids every form reduces to ``i * r``; a traced
     ``jnp.linspace`` is folded by XLA without the contraction and may
     differ by an ulp from the eager one."""
+    a, b = _scalar(start, device), _scalar(stop, device)
     if num < 2:
-        return torch.full((num,), start, dtype=torch.float32, device=device)
+        return a.expand(num).clone()
     div = num - 1
-    recip = np.float32(1.0) / np.float32(div)
-    a, b = float(np.float32(start)), float(np.float32(stop))
+    recip = float(np.float32(1.0) / np.float32(div))
     i = torch.arange(div, dtype=torch.float32, device=device)
-    one_minus = 1 - i * float(recip)
-    b_r = torch.full_like(i, float(np.float32(b) * recip))
+    one_minus = 1 - i * recip
+    b_r = (b * recip).expand_as(i)
     head = torch.where(
         i == 1,
-        _fma(torch.full_like(i, a), one_minus, b_r),
+        _fma(a.expand_as(i), one_minus, b_r),
         _fma(b_r, i, a * one_minus),
     )
-    tail = torch.full((1,), b, dtype=torch.float32, device=device)
-    return torch.cat([head, tail])
+    return torch.cat([head, b.reshape(1)])

@@ -211,3 +211,60 @@ def test_monotone_stack_ties_exact():
         torch.from_numpy(terms), 8)
     np.testing.assert_array_equal(got_w.numpy(), np.asarray(want_w))
     np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
+
+
+# Real-dollar spend (``portfolio_spend``): committed dollars equal (float64
+# host arithmetic on the same float32 widths), the float32 over-integrals
+# and the dollars built on them within rel 1e-6 (sums in different orders).
+
+@pytest.mark.parametrize("kw", [
+    {},
+    {"level_offset": 7.5},
+    {"spot_rate": 0.6, "spot_floor": 150.0},
+    {"spot_rate": 0.6, "spot_floor": float("inf")},
+    {"spot_rate": 0.6, "spot_floor": 10.0},
+])
+def test_portfolio_spend_matches(kw):
+    opts = jpf.options_from_pricing()[:4]
+    f = _demand(1, 500, 9)[0]
+    widths = np.asarray([30.0, 0.0, 25.5, 12.25], np.float32)
+    want = jpf.portfolio_spend(jnp.asarray(f), widths, opts, od_rate=OD,
+                               **kw)
+    got = tpf.portfolio_spend(torch.from_numpy(f), widths,
+                              convert.options_from_reference(opts),
+                              od_rate=OD, **kw)
+    np.testing.assert_array_equal(got.committed, want.committed)
+    for field in ("on_demand", "total", "all_on_demand", "spot",
+                  "spot_chip_hours"):
+        assert getattr(got, field) == pytest.approx(
+            getattr(want, field), rel=1e-6, abs=1e-9), field
+    # 1 - total / all_on_demand: its absolute error is the ratio's relative
+    assert got.savings_vs_on_demand == pytest.approx(
+        want.savings_vs_on_demand, abs=1e-6)
+
+
+def test_portfolio_spend_of_an_empty_window():
+    opts = convert.options_from_reference(jpf.options_from_pricing()[:2])
+    got = tpf.portfolio_spend(torch.zeros(48), np.ones(2, np.float32), opts)
+    assert got.all_on_demand == 0.0 and got.on_demand == 0.0
+    assert got.savings_vs_on_demand == 0.0
+    assert got.total == pytest.approx(float(got.committed.sum()))
+
+
+def test_portfolio_spends_is_a_loop_of_portfolio_spend():
+    opts = convert.options_from_reference(jpf.options_from_pricing()[:3])
+    f = torch.from_numpy(_demand(5, 300, 2))
+    widths = torch.from_numpy(
+        np.random.default_rng(4).uniform(0, 40, (5, 3)).astype(np.float32))
+    rate = torch.tensor([0.5, 0.6, 0.7, 0.8, 0.9], dtype=torch.float64)
+    floor = torch.tensor([200.0, 120.0, 90.0, 1e9, 0.0])
+    batch = tpf.portfolio_spends(f, widths, opts, od_rate=OD,
+                                 spot_rate=rate, spot_floor=floor)
+    for i, spend in enumerate(batch):
+        solo = tpf.portfolio_spend(f[i], widths[i], opts, od_rate=OD,
+                                   spot_rate=float(rate[i]),
+                                   spot_floor=float(floor[i]))
+        np.testing.assert_array_equal(solo.committed, spend.committed)
+        for field in ("on_demand", "total", "spot", "spot_chip_hours"):
+            assert getattr(solo, field) == pytest.approx(
+                getattr(spend, field), rel=1e-6, abs=1e-9), field

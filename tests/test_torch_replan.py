@@ -17,6 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
+
 from repro.core import api as japi  # noqa: E402
 from repro.core import portfolio as jpf  # noqa: E402
 from repro.core import replan as jrp  # noqa: E402
@@ -171,6 +173,57 @@ def test_ladder_book_equals_per_pool_loop():
                                   jbook.option_widths(17 * WK, 4))
 
 
+def test_plan_purchases_and_expirations_equal_reference():
+    """The single-option ladder and its expiration profile: host numpy on
+    both sides, equal."""
+    from repro.core import ladder as jld
+    from repro_torch.core import ladder as tld
+
+    targets = np.array([10.0, 12.0, 8.0, 14.0, 14.0, 3.0, 9.5])
+    for period, term in ((5, 100), (5, 7), (WK, 3 * WK)):
+        got = tld.plan_purchases(targets, period_hours=period,
+                                 term_hours=term)
+        want = jld.plan_purchases(targets, period_hours=period,
+                                  term_hours=term)
+        for field in ("start", "term", "amount", "option"):
+            np.testing.assert_array_equal(getattr(got, field),
+                                          getattr(want, field))
+        n = len(targets) * period + term
+        np.testing.assert_array_equal(tld.expiration_profile(got, n),
+                                      jld.expiration_profile(want, n))
+    more = tld.plan_purchases(targets[:2], existing=got)
+    np.testing.assert_array_equal(
+        more.amount, jld.plan_purchases(targets[:2], existing=want).amount)
+
+
+@pytest.mark.parametrize("a", [2.1, 1.6])
+def test_ladder_vs_flat_matches_reference(a):
+    """Fig 9: flat level and both spends within rel 1e-5 (float32 sums in
+    other orders), the weekly costs one evaluation over (W, 168) rows."""
+    from repro.core import commitment as jcm
+    from repro.core import demand as jdm
+    from repro.core import ladder as jld
+    from repro_torch.core import ladder as tld
+
+    demand = np.array(jdm.synth_demand(
+        WK * 5, jdm.DemandConfig(annual_growth=0.0, noise_sigma=0.0)))
+    demand[WK * 2:WK * 3] *= 0.92
+    weekly = np.array([float(jcm.optimal_commitment_quantile(
+        jnp.asarray(demand[w * WK:(w + 1) * WK]), a)) for w in range(4)])
+    want = jld.ladder_vs_flat(demand, weekly, a=a)
+    got = tld.ladder_vs_flat(demand, weekly, a=a, device="cpu")
+    assert sorted(got) == sorted(want)
+    assert got["flat_level"] == want["flat_level"]
+    for key in ("flat_spend", "laddered_spend"):
+        assert got[key] == pytest.approx(want[key], rel=1e-5), key
+    assert got["savings_frac"] == pytest.approx(want["savings_frac"],
+                                                abs=1e-5)
+    assert 0.0 < got["savings_frac"] < 0.10
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            tld.ladder_vs_flat(demand, weekly, a=a)
+
+
 def test_tranches_roll_off(reports):
     """With term-weighted lines the 4-week SKUs are bought, and some of
     them expire inside the window (the stack drops without a sale)."""
@@ -255,8 +308,11 @@ def test_unported_keywords_raise(fleet, kw):
 
 def test_unported_modes_raise_on_plan(fleet):
     tpools = fleet[2]
-    with pytest.raises(NotImplementedError, match="one_shot"):
-        tapi.plan(tapi.PlanRequest(pools=tpools), device="cpu")
+    for kw, item in (({"spot": True}, "item 10"),
+                     ({"migration": True}, "item 11"),
+                     ({"convertible": True}, "item 11")):
+        with pytest.raises(NotImplementedError, match=item):
+            tapi.plan(tapi.PlanRequest(pools=tpools, **kw), device="cpu")
     req = tapi.PlanRequest(pools=tpools, mode="rolling",
                            rolling=tapi.RollingConfig(cadence="breach"))
     with pytest.raises(NotImplementedError, match="breach"):
