@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths on the card — the rolling commitment
-planner, and the serving engine on the published stablelm-1.6b and
-rwkv6-3b — and checks each of their kernels (commitment sweep, flash
-attention, RWKV6 recurrence) against its plain PyTorch version.  Flash
+Drives the port's paths on the card — the commitment planner in both
+modes, without and with the spot band and its Monte-Carlo replay, and the
+serving engine on the published stablelm-1.6b and rwkv6-3b — and checks
+each of their kernels (commitment sweep, revocation walk, flash attention,
+RWKV6 recurrence) against its plain PyTorch version.  Flash
 attention is three CUDA kernels, routed by dtype, head dim and query rows
 (``flash_attention.route``): a tensor-core bf16 prefill (``prefill_tc``),
 a split-KV decode (``decode_split``) and the SIMT kernel (``simt``: f32
@@ -13,7 +14,7 @@ prefill, bf16 with head dim 32).  Phases, in this order, each printing one
 JSON line and raising on failure:
 
   device    card name and power limit, torch and CUDA versions
-  build     nvcc build of the five kernel sources, one nvcc each, all at
+  build     nvcc build of the six kernel sources, one nvcc each, all at
             once (time, ptxas report)
   kernel    sweep kernel vs plain version on the card: ragged shapes, the
             (T,)/(G,) cases, no weights, prefix masks, the bucketed
@@ -47,6 +48,16 @@ JSON line and raising on failure:
             its bound; optimal_commitment_sweep at 8192 x 1344 against its
             plain version; plan_commitment(solver="golden") on one pool,
             card against the CPU
+  spot      the spot band on the same fleet (a main path): api.plan
+            rolling with the grid solver and spot=True (sweep launches 234,
+            as without spot: the floors come from sorts; its total below
+            phase plan's; the bill within rel 1e-4 of SPOT_BILL), the
+            one-shot plan with spot=True (2 sweep launches, its bill within
+            rel 1e-4 of SPOT_ONE_SHOT_BILL), both modes on the first 16
+            pools card vs CPU, and replay_spot_plan of the rolling report
+            over 32 revocation draws (one walk launch; availability meets
+            its 0.95 target, realized cost within 10% of planned); wall
+            times and peak memory
   profile   the grid plan under torch.profiler: device busy time, time by
             kernel (full table in build/chip_smoke/profile_grid_plan.txt), and
             the host-side tranche book timed alone
@@ -66,6 +77,11 @@ JSON line and raising on failure:
             T = 2048, and (1, 40, 2048, 64), where the states entering the
             chunks (the scan's scratch) are also held against the
             chunk-parallel plain version
+  walk      revocation-walk kernel vs its plain per-hour loop on the card:
+            T = 1, ragged T and lanes, all-available and all-revoked
+            starts, hazard 0 with recovery 1, and the main shape (32 draws
+            x 1024 pools x 117 weeks of hours); states and interruptions
+            bit for bit, prices within 1e-6, a rerun bit for bit
   model_cpu both reduced float32 configs served on the CPU (plain
             versions) and on the card (kernels): tokens equal, logits
             close; flash decode on decode_split, f32 prefill on simt
@@ -79,7 +95,8 @@ JSON line and raising on failure:
   timing    each kernel's and its plain version's times at its main-path
             shape (flash: prefill_tc at the bf16 prefill, decode_split at
             the bf16 decode, simt at the f32 prefill, and at head dim 128
-            beside the library; RWKV6 also at a short prompt's T = 128),
+            beside the library; RWKV6 also at a short prompt's T = 128;
+            the revocation walk at its main shape),
             library times,
             bounds, each flash wrapper's and library call's host time per
             call, then the kernel line {"kernels": [...]}
@@ -128,6 +145,26 @@ ONE_SHOT_BILL = {"total_cost": 452913383.2636407,
 ONE_SHOT_COSTS = ("total_cost", "committed_cost", "on_demand_cost",
                   "aggregate_cost", "pooling_premium", "savings_vs_on_demand")
 CARD_CPU_RTOL = 1e-4     # one-shot costs card vs CPU, of the bill
+# The spot band on that fleet: the rolling grid plan's and the one-shot
+# plan's bills with spot=True as this script first printed them.
+SPOT_BILL = {"total_cost": 3942802368.0, "one_shot_cost": 5440932352.0,
+             "hindsight_cost": 5018841088.0, "spot_cost": 765553088.0}
+SPOT_ONE_SHOT_BILL = {"total_cost": 417067461.5701953,
+                      "committed_cost": 324499680.31017286,
+                      "spot_cost": 83008230.7904413,
+                      "aggregate_cost": 411927335.9105216}
+SPOT_TARGET = 0.95           # SpotConfig().availability_target
+SPOT_REPLAY_DRAWS = 32
+SPOT_REALIZED_RTOL = 0.10    # realized vs planned cost of the replay
+EXPECTED_WALK_LAUNCHES = 1   # one walk per replay
+# The revocation walk's main shape: the replay's draws x pools x hours
+# (the 117 replayed weeks of the grid plan); prices within WALK_PRICE_TOL
+# of the plain version, states bit for bit.
+WALK_MAIN = (SPOT_REPLAY_DRAWS, NUM_POOLS, 117 * 168)
+WALK_PRICE_TOL = 1e-6
+# operations per lane-hour: 3 compares, a select, a sub, 3 muls, 2 adds,
+# the clip's max and min
+WALK_OPS = 12
 STACK_TOL = dict(rtol=0.03, atol=0.05)  # widths and levels, card vs CPU
 SWEEP_COST_BOUND = 1e-3     # grid+refine: C(c) <= C(c_exact) (1 + bound)
 PLAIN_CHUNK = 512           # rows per plain-version chunk at the main shape
@@ -247,7 +284,9 @@ def kernel_modules():
     from repro_torch.kernels.commitment_sweep import commitment_sweep as ck
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.linrec import linrec as lk
-    return {"commitment_sweep": ck, "flash_attention": fk, "rwkv6": lk}
+    from repro_torch.kernels.revocation_walk import revocation_walk as wk
+    return {"commitment_sweep": ck, "flash_attention": fk, "rwkv6": lk,
+            "revocation_walk": wk}
 
 
 def reset_launches():
@@ -271,7 +310,8 @@ def kernel_sources():
     return {"commitment_sweep": mods["commitment_sweep"].SOURCE,
             **{f"flash_{k}": src for k, src in
                mods["flash_attention"].SOURCES.items()},
-            "rwkv6": mods["rwkv6"].SOURCE}
+            "rwkv6": mods["rwkv6"].SOURCE,
+            "revocation_walk": mods["revocation_walk"].SOURCE}
 
 
 def phase_build():
@@ -699,16 +739,7 @@ def phase_one_shot(pools, dev):
     del hist, model
 
     # where the plan's time goes: device busy time and kernels by name
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        plan(req)
-        torch.cuda.synchronize()
-    prof_s = time.perf_counter() - t0
-    kernels = device_kernels(prof)
-    busy_s = sum(k[0] for k in kernels) / 1e6
+    prof_summary, _ = profiled(lambda: plan(req))
 
     # the grid+refine solver on the card against its plain version
     f, _, _ = main_shape_inputs(dev)
@@ -743,15 +774,137 @@ def phase_one_shot(pools, dev):
          spend_batched_equals_blocks=blocks_equal,
          spend_max_abs_err=spend_err, spend_cost_rel_err=spend_rel,
          fit_ms=fit_ms, fit_bound_ms=fit_bound[0], fit_bound_by=fit_bound[1],
-         fit_flops=fit_flops, fit_shape_p_t_d=fit_shape,
-         profiled_wall_s=prof_s, device_busy_s=busy_s,
-         device_events=sum(n for _, n, _ in kernels),
-         device_busy_share_of_profiled=busy_s / prof_s,
-         top_kernels=[[round(us / 1e3, 3), n, key[:80]]
-                      for us, n, key in kernels[:8]],
+         fit_flops=fit_flops, fit_shape_p_t_d=fit_shape, **prof_summary,
          grid_refine_over_exact=over_exact,
          golden_card_vs_cpu_rel=golden_rel, nvidia_smi=smi(), **costs)
     return launches
+
+
+def phase_spot(pools, grid_rep):
+    """The spot band on the whole fleet: the rolling grid plan and the
+    one-shot plan with spot=True (the main path, launches counted from 0
+    around each), both modes on the first 16 pools card against the CPU,
+    then the rolling report replayed against 32 revocation draws."""
+    from repro_torch.capacity.simulator import replay_spot_plan
+    from repro_torch.core.api import PlanRequest, RollingConfig, plan
+    from repro_torch.core.demand import PoolSet
+    out = {}
+
+    def timed(fn, counted):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return (res, secs, read_launches()[counted],
+                torch.cuda.max_memory_allocated())
+
+    rolling = RollingConfig(solver="grid", num_grid=NUM_GRID)
+    rep, secs, launches, peak = timed(lambda: plan(PlanRequest(
+        pools=pools, mode="rolling", rolling=rolling, spot=True)),
+        "commitment_sweep")
+    costs = dict(total_cost=rep.total_cost, one_shot_cost=rep.one_shot_cost,
+                 hindsight_cost=rep.hindsight_cost,
+                 spot_cost=float(rep.spot_cost.sum()))
+    if not all(np.isfinite(v) and v > 0 for v in costs.values()):
+        raise AssertionError(f"non-finite or non-positive costs: {costs}")
+    if launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"{launches} sweep launches in the spot plan, "
+                             f"expected {EXPECTED_LAUNCHES}")
+    if not rep.total_cost < grid_rep.total_cost:
+        raise AssertionError(
+            f"spot total {rep.total_cost} not below the spot-free "
+            f"{grid_rep.total_cost}")
+    if not (rep.spot_floor >= rep.active.sum(-1) - 1e-3).all():
+        raise AssertionError("a spot floor below the committed stack top")
+    out["bill_rel"] = {k: abs(costs[k] - v) / v
+                       for k, v in SPOT_BILL.items()}
+    if max(out["bill_rel"].values()) > BILL_RTOL:
+        raise AssertionError(f"the spot plan's bill moved: "
+                             f"{out['bill_rel']}")
+    out.update(rolling_wall_s=secs, rolling_max_memory_allocated=peak,
+               rolling_sweep_launches=launches,
+               rolling_vs_spot_free=rep.total_cost / grid_rep.total_cost,
+               rolling=costs)
+
+    one, secs, launches, peak = timed(
+        lambda: plan(PlanRequest(pools=pools, spot=True)),
+        "commitment_sweep")
+    one_costs = {k: getattr(one, k) for k in ONE_SHOT_COSTS + ("spot_cost",)}
+    if not all(np.isfinite(v) for v in one_costs.values()):
+        raise AssertionError(f"non-finite one-shot costs: {one_costs}")
+    if launches != EXPECTED_ONE_SHOT_LAUNCHES:
+        raise AssertionError(f"{launches} sweep launches in the one-shot "
+                             f"spot plan, expected "
+                             f"{EXPECTED_ONE_SHOT_LAUNCHES}")
+    out["one_shot_bill_rel"] = {k: abs(one_costs[k] - v) / abs(v)
+                                for k, v in SPOT_ONE_SHOT_BILL.items()}
+    if max(out["one_shot_bill_rel"].values()) > BILL_RTOL:
+        raise AssertionError(f"the one-shot spot bill moved: "
+                             f"{out['one_shot_bill_rel']}")
+    out.update(one_shot_wall_s=secs, one_shot_max_memory_allocated=peak,
+               one_shot_sweep_launches=launches, one_shot=one_costs)
+
+    # the first 16 pools, card against CPU, as shares of the CPU bill
+    sub = PoolSet(keys=pools.keys[:16], demand=pools.demand[:16],
+                  configs=pools.configs[:16])
+    card_cpu = {}
+    for mode, fields, req in (
+            ("rolling", ("total_cost", "one_shot_cost"),
+             PlanRequest(pools=sub, mode="rolling", rolling=rolling,
+                         spot=True)),
+            ("one_shot", ("total_cost", "committed_cost", "on_demand_cost"),
+             PlanRequest(pools=sub, spot=True))):
+        cpu, card = plan(req, device="cpu"), plan(req)
+        bill = abs(cpu.total_cost)
+        rel = {k: abs(getattr(card, k) - getattr(cpu, k)) / bill
+               for k in fields}
+        rel["spot_cost"] = abs(float(np.sum(card.spot_cost))
+                               - float(np.sum(cpu.spot_cost))) / bill
+        if max(rel.values()) > CARD_CPU_RTOL:
+            raise AssertionError(f"spot {mode} card vs CPU: {rel}")
+        card_cpu[mode] = rel
+    out["card_vs_cpu_16_rel"] = card_cpu
+
+    # the Monte-Carlo replay of the rolling plan: the walk on the card
+    rr, secs, walk_launches, peak = timed(
+        lambda: replay_spot_plan(pools, rep, num_draws=SPOT_REPLAY_DRAWS),
+        "revocation_walk")
+    realized_rel = abs(rr.realized_cost - rr.planned_cost) / rr.planned_cost
+    if walk_launches != EXPECTED_WALK_LAUNCHES:
+        raise AssertionError(f"{walk_launches} walk launches in the replay")
+    if not (rr.meets_target and rr.fleet_availability >= SPOT_TARGET):
+        raise AssertionError(
+            f"replay misses its target: min pool availability "
+            f"{float(rr.mean_availability.min())}, fleet "
+            f"{rr.fleet_availability}")
+    if realized_rel > SPOT_REALIZED_RTOL:
+        raise AssertionError(f"realized cost {realized_rel} from planned")
+
+    # where the time goes: the spot plan and the replay under the profiler
+    for label, fn in (
+            ("rolling_profile", lambda: plan(PlanRequest(
+                pools=pools, mode="rolling", rolling=rolling, spot=True))),
+            ("replay_profile", lambda: replay_spot_plan(
+                pools, rep, num_draws=SPOT_REPLAY_DRAWS))):
+        out[label] = profiled(fn)[0]
+    emit("spot", pools=NUM_POOLS, hours=NUM_HOURS, solver="grid",
+         replay=dict(draws=rr.num_draws, wall_s=secs,
+                     max_memory_allocated=peak, walk_launches=walk_launches,
+                     meets_target=rr.meets_target,
+                     min_pool_availability=float(rr.mean_availability.min()),
+                     fleet_availability=rr.fleet_availability,
+                     planned_cost=rr.planned_cost,
+                     realized_cost=rr.realized_cost,
+                     realized_vs_planned_rel=realized_rel,
+                     realized_spot_cost=rr.realized_spot_cost,
+                     fallback_on_demand_cost=rr.fallback_on_demand_cost,
+                     requeue_cost=rr.requeue_cost,
+                     shortfall_chip_hours=rr.shortfall_chip_hours),
+         nvidia_smi=smi(), **out)
+    return walk_launches
 
 
 def device_kernels(prof):
@@ -769,25 +922,38 @@ def device_kernels(prof):
     return sorted(kernels, reverse=True)
 
 
-def phase_profile(pools, rep, plan_s):
-    """Where the plan's time goes: the grid plan again under
-    torch.profiler (device time by kernel, device busy share), and the
-    host-side tranche book timed alone on the plan's own targets."""
+def profiled(fn):
+    """fn() once under torch.profiler: (summary, kernels), the summary
+    the profiled wall seconds, device busy seconds and events and the top
+    device kernels (ms, count, name); kernels as device_kernels gives
+    them."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core import ladder as ld
-    from repro_torch.core.api import PlanRequest, RollingConfig, plan
-    req = PlanRequest(pools=pools, mode="rolling",
-                      rolling=RollingConfig(solver="grid", num_grid=NUM_GRID))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        plan(req)
+        fn()
         torch.cuda.synchronize()
-    prof_s = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
     kernels = device_kernels(prof)
-    busy_s = sum(k[0] for k in kernels) / 1e6
+    busy = sum(k[0] for k in kernels) / 1e6
+    return dict(profiled_wall_s=wall, device_busy_s=busy,
+                device_events=sum(n for _, n, _ in kernels),
+                device_busy_share_of_profiled=busy / wall,
+                top_kernels=[[round(us / 1e3, 3), n, key[:80]]
+                             for us, n, key in kernels[:8]]), kernels
+
+
+def phase_profile(pools, rep, plan_s):
+    """Where the plan's time goes: the grid plan again under
+    torch.profiler (device time by kernel, device busy share), and the
+    host-side tranche book timed alone on the plan's own targets."""
+    from repro_torch.core import ladder as ld
+    from repro_torch.core.api import PlanRequest, RollingConfig, plan
+    req = PlanRequest(pools=pools, mode="rolling",
+                      rolling=RollingConfig(solver="grid", num_grid=NUM_GRID))
+    summary, kernels = profiled(lambda: plan(req))
+    prof_s, busy_s = summary["profiled_wall_s"], summary["device_busy_s"]
     sweep_s = sum(k[0] for k in kernels if "sweep_kernel" in k[2]) / 1e6
     lines = [f"{us / 1e3:12.3f} ms {n:8d}x  {key}" for us, n, key in kernels]
     out = ROOT / "build" / "chip_smoke"
@@ -806,12 +972,7 @@ def phase_profile(pools, rep, plan_s):
     ld.plan_pool_portfolio_purchases(full, terms, rep.keys)
     ladder_s = time.perf_counter() - t0
     emit("profile", solver="grid", plan_wall_s=plan_s,
-         profiled_wall_s=prof_s, device_busy_s=busy_s,
-         device_events=sum(n for _, n, _ in kernels),
-         device_busy_share_of_profiled=busy_s / prof_s,
-         sweep_device_s=sweep_s, ladder_book_host_s=ladder_s,
-         top_kernels=[[round(us / 1e3, 3), n, key[:80]]
-                      for us, n, key in kernels[:8]])
+         sweep_device_s=sweep_s, ladder_book_host_s=ladder_s, **summary)
 
 
 def median_ms(fn, reps, cover=True):
@@ -1071,6 +1232,69 @@ def phase_linrec(dev):
          logw_range=[-float(np.exp(3.0)), -float(np.exp(-6.0))],
          model_logw_range=[-float(np.exp(10.0)), -float(np.exp(-20.0))],
          entering_states_shape=list(entering.shape))
+    return max(errs.values())
+
+
+def walk_inputs(dev, n, p, t, seed, clouds=None):
+    """Revocation parameters for ``p`` pools on the synthetic fleet's
+    clouds (aws, azure, gcp in turn) and the noise of ``n`` draws over
+    ``t`` hours, drawn on the card from a seeded generator."""
+    from repro_torch.capacity import preemption as pe
+    clouds = clouds or [("aws", "azure", "gcp")[i % 3] for i in range(p)]
+    params = pe.params_for_clouds(clouds, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return params, pe.draw_noise(params, t, n, gen)
+
+
+def phase_walk(dev):
+    """The revocation-walk kernel against its plain per-hour loop, both on
+    the card: one hour; ragged hours (not a multiple of the kernel's
+    unroll) over ragged lanes (not a multiple of its block); every lane
+    starting available and every lane starting revoked; hazard 0 with
+    recovery 1; the main shape.  States and interruptions bit for bit,
+    prices within WALK_PRICE_TOL, and a rerun equal to the first run."""
+    from repro_torch.capacity import preemption as pe
+    cases = {  # (draws, pools, hours, start, params override)
+        "one_hour": (3, 5, 1, None, None),
+        "ragged": (3, 37, 1001, None, None),
+        "all_available": (2, 70, 333, 1.0, None),
+        "all_revoked": (2, 70, 333, 0.0, None),
+        "hazard0_recovery1": (4, 33, 200, None, (0.0, 1.0)),
+        "main": WALK_MAIN + (None, None),
+    }
+    errs = {}
+    for i, (name, (n, p, t, start, rates)) in enumerate(cases.items()):
+        params, (avail0, us, zs) = walk_inputs(dev, n, p, t, 30 + i)
+        if start is not None:
+            avail0 = torch.full_like(avail0, start)
+        if rates is not None:
+            params = pe.PreemptionParams(
+                torch.full_like(params.hazard, rates[0]),
+                torch.full_like(params.recovery, rates[1]),
+                params.discount, params.price_band)
+        got = pe.revocation_walk(params, avail0, us, zs)
+        again = pe.revocation_walk(params, avail0, us, zs)
+        want = pe.revocation_walk_loop(params, avail0, us, zs)
+        torch.cuda.synchronize()
+        for field in ("available", "interrupted", "price"):
+            a, b = getattr(got, field), getattr(again, field)
+            if not torch.equal(a, b):
+                raise AssertionError(f"walk {name}: rerun differs ({field})")
+        for field in ("available", "interrupted"):
+            if not torch.equal(getattr(got, field), getattr(want, field)):
+                raise AssertionError(
+                    f"walk {name}: {field} differs from the plain version")
+        err = float((got.price - want.price).abs().max())
+        if not err <= WALK_PRICE_TOL:
+            raise AssertionError(f"walk {name}: price error {err}")
+        if rates is not None and not bool(got.available.all()):
+            raise AssertionError(f"walk {name}: revoked with hazard 0")
+        errs[name] = err
+        del got, again, want, avail0, us, zs
+    emit("walk", max_abs_price_err=errs, price_tol=WALK_PRICE_TOL,
+         states_bit_for_bit=True, rerun_bit_for_bit=True,
+         main_shape_n_p_t=list(WALK_MAIN))
     return max(errs.values())
 
 
@@ -1479,6 +1703,27 @@ def timing_linrec(dev, peak):
     return out
 
 
+def timing_walk(dev, peak):
+    """The revocation walk and its plain per-hour loop at the main shape
+    (one plain run a turn: it is ~20 launches an hour); the bound is the
+    larger of its bytes (us and zs read, three outputs written, avail0 and
+    the parameters) and its WALK_OPS float32 operations per lane-hour."""
+    from repro_torch.capacity import preemption as pe
+    n, p, t = WALK_MAIN
+    params, (avail0, us, zs) = walk_inputs(dev, n, p, t, 40)
+    ms, plain_ms, kern_sets, plain_sets = time_turns(
+        lambda: pe.revocation_walk(params, avail0, us, zs),
+        lambda: pe.revocation_walk_loop(params, avail0, us, zs),
+        plain_reps=1)
+    nbytes = 4 * (5 * n * p * t + n * p + 3 * p)
+    ms_bound, by = bound(WALK_OPS * n * p * t, nbytes, peak["fp32_flops"],
+                         peak)
+    return dict(shape_n_p_t=[n, p, t], ms=ms, plain_ms=plain_ms,
+                kernel_ms=kern_sets, plain_ms_sets=plain_sets,
+                bound_ms=ms_bound, bound_by=by, bound_bytes=nbytes,
+                bound_ops=WALK_OPS * n * p * t, share_of_bound=ms_bound / ms)
+
+
 def phase_timing(dev, launches, errs):
     from repro_torch.kernels.commitment_sweep import commitment_sweep as ck
     name = torch.cuda.get_device_name(0)
@@ -1501,6 +1746,7 @@ def phase_timing(dev, launches, errs):
     del f, w, cs
     fl = timing_flash(dev, peak)
     lin = timing_linrec(dev, peak)
+    walk = timing_walk(dev, peak)
     emit("timing", peak=peak,
          commitment_sweep=dict(
              shape=[MAIN_P, MAIN_G, MAIN_T], kernel_ms=kern_sets,
@@ -1515,7 +1761,7 @@ def phase_timing(dev, launches, errs):
              simt_d128=f"{FLASH_PREFILL[:3] + (128,)} causal float32",
              decode_split=f"{FLASH_DECODE} cache {SERVE_CACHE} bfloat16"),
              **fl),
-         rwkv6=lin)
+         rwkv6=lin, revocation_walk=walk)
     flash_srcs = kernel_modules()["flash_attention"].SOURCES
     flash_mix = launches["flash_by_kernel"]
     pre = fl["prefill_tc"]
@@ -1585,6 +1831,21 @@ def phase_timing(dev, launches, errs):
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by")},
             "per_serve_run": lin["serve_run"],
         },
+        {
+            "name": "revocation_walk", "route": "cuda",
+            "source": "src/repro_torch/kernels/revocation_walk/csrc/"
+                      "revocation_walk.cu",
+            "replaces": "src/repro/capacity/preemption.py:190",
+            "replaces_note": "the lax.scan over hours of the revocation "
+                             "walk, not a Pallas kernel",
+            "launches": launches["revocation_walk"],
+            "launches_per_spot_replay": launches["revocation_walk"],
+            "max_abs_err": errs["revocation_walk"], "ms": walk["ms"],
+            "plain_ms": walk["plain_ms"], "bound_ms": walk["bound_ms"],
+            "bound_by": walk["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes the walk",
+            "shape": f"N, P, T = {WALK_MAIN} float32",
+        },
     ]}), flush=True)
 
 
@@ -1600,6 +1861,7 @@ def main() -> int:
     phase_ties(dev)
     errs["flash_attention"] = phase_flash(dev)
     errs["rwkv6"] = phase_linrec(dev)
+    errs["revocation_walk"] = phase_walk(dev)
     from repro_torch.data import traces
     t0 = time.perf_counter()
     pools = traces.synthetic_pool_set(
@@ -1610,11 +1872,13 @@ def main() -> int:
     grid_rep, sweep_launches, plan_s = phase_plan(pools)
     phase_quantile(pools, grid_rep)
     one_shot_launches = phase_one_shot(pools, dev)
+    walk_launches = phase_spot(pools, grid_rep)
     phase_profile(pools, grid_rep, plan_s)
     del pools, grid_rep
     phase_model_cpu(dev)
     launches = {"commitment_sweep": sweep_launches,
-                "commitment_sweep_one_shot": one_shot_launches}
+                "commitment_sweep_one_shot": one_shot_launches,
+                "revocation_walk": walk_launches}
     launches["flash_attention"], dense = phase_serve(
         "serve_dense", "stablelm-1.6b", dev, "flash_attention")
     launches["flash_by_kernel"] = dense["launches"]["flash_by_kernel"]

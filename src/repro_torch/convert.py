@@ -1,10 +1,11 @@
-"""Carry a fleet, its purchase options and a model's parameters across from
-the JAX package.
+"""Carry a fleet, its purchase options, its spot lines and a model's
+parameters across from the JAX package.
 
 The functions are duck-typed: they read plain fields (``keys``,
 ``demand``, ``configs`` of a pool set; ``name``, ``cloud``, ``rate``,
-``term_weeks``, ``convertible`` of a purchase option) as numpy arrays and
-Python values, so they need no import of the reference package.  The
+``term_weeks``, ``convertible`` of a purchase option; the arrays of spot
+lines and revocation parameters) as numpy arrays and Python values, so
+they need no import of the reference package.  The
 parity tests use them so that both packages plan the very same fleet.
 """
 
@@ -15,8 +16,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.capacity import preemption as pe
 from repro_torch.core import demand as dm
 from repro_torch.core import portfolio as pf
+from repro_torch.core import spot as sp
 
 
 def pool_set_from_reference(ref) -> dm.PoolSet:
@@ -45,6 +48,28 @@ def options_from_reference(ref_opts) -> list[pf.PurchaseOption]:
         )
         for o in ref_opts
     ]
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, np.float32), device=device)
+
+
+def preemption_params_from_reference(ref, device=None) -> pe.PreemptionParams:
+    """The port's PreemptionParams holding ``ref``'s (P,) arrays."""
+    return pe.PreemptionParams(*(
+        _f32(getattr(ref, f.name), device)
+        for f in dataclasses.fields(pe.PreemptionParams)))
+
+
+def spot_lines_from_reference(ref, device=None) -> sp.SpotLines:
+    """The port's SpotLines holding ``ref``'s (P,) arrays and parameters,
+    so both packages can plan on identical lines (simulated ones too)."""
+    return sp.SpotLines(
+        rate=_f32(ref.rate, device), cap=_f32(ref.cap, device),
+        market_rate=_f32(ref.market_rate, device),
+        availability=_f32(ref.availability, device),
+        params=preemption_params_from_reference(ref.params, device),
+    )
 
 
 def _flatten(node, prefix=""):

@@ -13,10 +13,11 @@ The same fields and the same eager validation as the reference's
 
 Both modes are ported: ``mode="one_shot"`` (the default) returns a
 :class:`repro_torch.core.planner.FleetPoolsPlan`, ``mode="rolling"`` a
-:class:`repro_torch.core.replan.RollingPlanReport`.  The band configs
-(``spot``, ``migration``, ``convertible``, ``scenarios``, ``telemetry``),
-``cadence="breach"`` and ``irls_carry=True`` are accepted at
-construction, as in the reference, and raise ``NotImplementedError``
+:class:`repro_torch.core.replan.RollingPlanReport`; ``spot=`` (None, a
+bool or a :class:`repro_torch.core.spot.SpotConfig`) runs in both.  The
+other band configs (``migration``, ``convertible``, ``scenarios``,
+``telemetry``), ``cadence="breach"`` and ``irls_carry=True`` are accepted
+at construction, as in the reference, and raise ``NotImplementedError``
 naming their ROADMAP item when planned.
 """
 
@@ -29,6 +30,7 @@ import torch
 
 from repro_torch.core import forecast as fc
 from repro_torch.core import policy as pol
+from repro_torch.core import spot as spot_mod
 
 __all__ = ["PlanRequest", "RollingConfig", "plan"]
 
@@ -150,6 +152,12 @@ class PlanRequest:
                 "forecast= takes a ForecastConfig, got "
                 f"{type(self.forecast).__name__}"
             )
+        if self.spot is not None and not isinstance(self.spot, bool):
+            if not isinstance(self.spot, spot_mod.SpotConfig):
+                raise TypeError(
+                    "spot= takes a SpotConfig, bool, or None, got "
+                    f"{type(self.spot).__name__}"
+                )
         known = tuple(pol.POLICIES) + pol.UNPORTED_POLICIES
         if isinstance(self.policy, str) and self.policy not in known:
             raise ValueError(

@@ -228,6 +228,58 @@ def plan_pool_portfolio_purchases(
     return PoolLadderBook(keys=keys, ladders=tuple(ladders))
 
 
+def weekly_spot_ladder(
+    peaks: np.ndarray,
+    *,
+    start_week: int = 0,
+    period_hours: int = HOURS_PER_WEEK,
+) -> Ladder:
+    """Spot capacity as a tranche schedule: one 1-period tranche per week.
+
+    Spot holds no term: it is re-decided every period and never carried,
+    so in ladder vocabulary it is the degenerate ladder whose every tranche
+    expires the period it was bought (the fast half of the rolling
+    replay's capacity split; committed tranches are the slow half).
+    ``peaks`` (W,) is the peak spot chip usage per period; zero weeks buy
+    no tranche.  An audit view: the book's active width at any hour of
+    week w is that week's spot exposure."""
+    peaks = np.asarray(peaks, np.float64)
+    weeks = np.flatnonzero(peaks > PURCHASE_EPS)
+    return Ladder(
+        start=(start_week + weeks) * period_hours,
+        term=np.full(weeks.shape, period_hours, int),
+        amount=peaks[weeks],
+    )
+
+
+def spot_ladder_book(
+    weekly_peaks: np.ndarray,
+    keys,
+    *,
+    start_week: int = 0,
+    period_hours: int = HOURS_PER_WEEK,
+) -> PoolLadderBook:
+    """Per-pool spot audit book from (S weeks, P pools) peak spot usage:
+    the spot counterpart of the committed book the rolling replay
+    returns."""
+    weekly_peaks = np.asarray(weekly_peaks)
+    keys = tuple(tuple(k) for k in keys)
+    if weekly_peaks.shape[1] != len(keys):
+        raise ValueError(
+            f"{len(keys)} keys for {weekly_peaks.shape[1]} peak columns"
+        )
+    return PoolLadderBook(
+        keys=keys,
+        ladders=tuple(
+            weekly_spot_ladder(
+                weekly_peaks[:, p], start_week=start_week,
+                period_hours=period_hours,
+            )
+            for p in range(len(keys))
+        ),
+    )
+
+
 def ladder_vs_flat(
     demand: np.ndarray,
     weekly_targets: np.ndarray,

@@ -35,6 +35,7 @@ from repro_torch.core import demand as dm
 from repro_torch.core import forecast as fc
 from repro_torch.core import ladder as ld
 from repro_torch.core import portfolio as pf
+from repro_torch.core import spot as spot_mod
 from repro_torch.core.demand import HOURS_PER_WEEK
 from repro_torch.device import resolve_device
 
@@ -42,7 +43,6 @@ pricing.validate_tables()
 
 #: Keywords whose subsystem the port does not have yet, by ROADMAP item.
 UNPORTED_BANDS = {
-    "spot": "item 10: spot band",
     "migration": "item 11: generation turnover and convertibles",
     "convertible": "item 11: generation turnover and convertibles",
     "scenarios": "item 12: scenario batching",
@@ -81,6 +81,44 @@ def _prefix_weighted_quantiles(
     return torch.gather(
         sorted_y[:, None, :].expand(-1, num_w, -1), -1, idx
     )
+
+
+def _prefix_spot_floors(
+    yhat: torch.Tensor, w_hours: torch.Tensor, cap: torch.Tensor
+) -> torch.Tensor:
+    """Spot floor levels (P, W): on each pool's horizon prefix yhat[p, :w],
+    the smallest forecast level whose above-floor volume fits the
+    chance-constraint cap, sum_t max(yhat_t - floor, 0) <= cap[p] *
+    sum_t yhat_t.  One sort per pool for all horizons, as in
+    :func:`_prefix_weighted_quantiles`; the floor snaps up to an observed
+    level, so the cap is never exceeded.  yhat (P, H), cap (P,)."""
+    order = torch.argsort(yhat, dim=-1, stable=True)
+    sorted_y = torch.gather(yhat, -1, order)[:, None, :]        # (P, 1, H)
+    valid = (order[:, None, :] < w_hours[None, :, None]).to(yhat.dtype)
+    v = sorted_y * valid                                         # (P, W, H)
+    suf = torch.flip(torch.cumsum(torch.flip(v, [-1]), -1), [-1])
+    cnt = torch.flip(torch.cumsum(torch.flip(valid, [-1]), -1), [-1])
+    # volume above level sorted_y[i] over the prefix hours, nonincreasing
+    # in i: the first index inside the cap is the lowest floor (index 0,
+    # as an argmax of all-False, when none is)
+    va = (suf - v) - sorted_y * (cnt - valid)
+    inside = va <= cap[:, None, None] * suf[..., :1]
+    h = yhat.shape[-1]
+    idx = torch.where(inside, torch.arange(h, device=yhat.device), h)
+    idx = idx.amin(-1)
+    idx = torch.where(idx >= h, 0, idx)
+    return torch.gather(sorted_y[:, 0], -1, idx)
+
+
+def _spot_floors(yhat, w_hours, u_env, cap) -> torch.Tensor:
+    """Per-horizon spot floors (P, W) on forecasts yhat (P, H): the higher
+    of the envelope entry (the u_env-quantile of each prefix; below it a
+    commitment prices better than spot) and the chance-constraint volume
+    bound; +inf where the cap is 0, so an uneconomic spot market is never
+    routed to."""
+    env = _prefix_weighted_quantiles(yhat, w_hours, u_env[:, None])[..., 0]
+    floors = torch.maximum(env, _prefix_spot_floors(yhat, w_hours, cap))
+    return torch.where(cap[:, None] > 0, floors, torch.inf)
 
 
 def _monotone_stack(
@@ -272,9 +310,12 @@ class FleetPoolsPlan:
     ``pooling_premium`` is sum-of-pool-plan cost over the cost of one plan
     on the pooled (aggregate) trace, minus 1: the pooling benefit an
     aggregate planner overstates, since commitments cannot move across
-    clouds and SKUs.  The spot, migration and convertible fields keep the
-    reference's layout and stay None or 0.0 until those bands are ported
-    (ROADMAP Queue 1, items 10 and 11)."""
+    clouds and SKUs.  With a spot band, ``spot_lines`` holds the per-pool
+    :class:`~repro_torch.core.spot.SpotLines`, ``spot_floor`` (P,) the
+    full-window floors and ``spot_cost`` the spot bill, which
+    ``total_cost`` includes.  The migration and convertible fields keep
+    the reference's layout and stay None or 0.0 until those bands are
+    ported (ROADMAP Queue 1, item 11)."""
 
     keys: tuple[dm.PoolKey, ...]
     options: list[pf.PurchaseOption]
@@ -420,13 +461,18 @@ def _plan_fleet_pools_one_shot(
     and fleet-total, beside one plan on the pooled trace for the
     pooling-premium diagnostic.
 
-    The pools' spend is one commitment-sweep launch over the P rows, the
-    aggregate's one more; the results come to the host in a fixed number
-    of copies, however many pools there are.  ``spot``, ``migration`` and
-    ``convertible`` raise ``NotImplementedError`` naming their ROADMAP
-    item."""
-    reject_unported_bands(spot=spot, migration=migration,
-                          convertible=convertible)
+    ``spot`` (True or a :class:`~repro_torch.core.spot.SpotConfig`) adds
+    the spot band: per-horizon floors (the envelope entry against the
+    chance-constraint volume cap) truncate each pool's committed stack,
+    and demand above the full-window floor bills at the pool's effective
+    spot rate; the aggregate baseline gets the demand-weighted spot line.
+
+    The pools' spend is one commitment-sweep launch over the P rows (with
+    spot: the level and the floor of each row), the aggregate's one more;
+    the results come to the host in a fixed number of copies, however many
+    pools there are.  ``migration`` and ``convertible`` raise
+    ``NotImplementedError`` naming their ROADMAP item."""
+    reject_unported_bands(migration=migration, convertible=convertible)
     dev = resolve_device(device)
     options = options if options is not None else pf.options_from_pricing()
     od = od_rate if od_rate is not None else pricing.on_demand_premium()
@@ -453,12 +499,28 @@ def _plan_fleet_pools_one_shot(
 
     # Steps 3-4, per-pool fractiles riding along.
     per_horizon = _prefix_weighted_quantiles(yhat, w_hours, qs)   # (P, W, K)
+
+    # Spot band: capacity above each horizon's floor is cheaper to serve
+    # from risk-priced preemptible supply than to commit to or buy on
+    # demand, so the floors truncate the committed stack.
+    sp_res = spot_mod.resolve_spot(spot, pools.clouds, od_rate=od,
+                                   device=dev)
+    spot_rate = spot_floor = None
+    if sp_res is not None:
+        s_lines = sp_res[1]
+        u_env = spot_mod.spot_entry_fractile(al_p, be_p, s_lines.rate,
+                                             od_rate=od)          # (P,)
+        floors = _spot_floors(yhat, w_hours, u_env, s_lines.cap)  # (P, W)
+        per_horizon = torch.minimum(per_horizon, floors[..., None])
+        spot_rate, spot_floor = s_lines.rate, floors[:, -1]
+
     term_weeks = torch.tensor([o.term_weeks for o in options], device=dev)
     widths, levels = _monotone_stack(
         per_horizon, qs, term_weeks, horizon_weeks
     )                                                             # (P, K)
 
-    spends = pf.portfolio_spends(actual, widths, options, od_rate=od)
+    spends = pf.portfolio_spends(actual, widths, options, od_rate=od,
+                                 spot_rate=spot_rate, spot_floor=spot_floor)
     widths_np, levels_np, qs_np, per_h_np, yhat_np = _to_host(
         widths, levels, qs, per_horizon, yhat
     )
@@ -491,8 +553,14 @@ def _plan_fleet_pools_one_shot(
         hist.sum(0), options, num_horizons=horizon_weeks, od_rate=od,
         term_weighting=term_weighting, cfg=cfg,
     )
+    agg_widths, agg_rate, agg_floor = agg_res.widths, None, None
+    if sp_res is not None:
+        agg_widths, agg_rate, agg_floor = _aggregate_spot(
+            agg_res, hist, s_lines, options, term_weeks, w_hours,
+            horizon_weeks, od, term_weighting)
     agg_spend = pf.portfolio_spends(
-        actual.sum(0)[None], agg_res.widths[None], options, od_rate=od
+        actual.sum(0)[None], agg_widths[None], options, od_rate=od,
+        spot_rate=agg_rate, spot_floor=agg_floor,
     )[0]
 
     return FleetPoolsPlan(
@@ -517,8 +585,36 @@ def _plan_fleet_pools_one_shot(
         pooling_premium=(
             total / agg_spend.total - 1.0 if agg_spend.total > 0 else 0.0
         ),
+        spot_lines=s_lines if sp_res is not None else None,
+        spot_floor=(None if spot_floor is None
+                    else spot_floor.cpu().numpy()),
         spot_cost=spot_cost,
     )
+
+
+def _aggregate_spot(agg_res, hist, s_lines, options, term_weeks, w_hours,
+                    horizon_weeks, od, term_weighting):
+    """The aggregate baseline's spot band, so the pooling premium isolates
+    the pooling effect: the demand-weighted mean of the per-pool lines
+    (pooled capacity has no single cloud; float64 sums cast to float32),
+    floors from the pooled forecast, the committed stack truncated the same
+    way.  Returns (widths (K,), rate (1,), floor (1,)); the floor is +inf
+    when the pooled cap is 0."""
+    dev = hist.device
+    share = hist.sum(-1).double()
+    share = share / torch.clamp(share.sum(), min=1e-9)
+    rate = (s_lines.rate.double() * share).sum().float()
+    cap = (s_lines.cap.double() * share).sum().float()
+    al, be = pf.option_lines(options, term_weighting=term_weighting,
+                             device=dev)
+    u_env = spot_mod.spot_entry_fractile(al, be, rate, od_rate=od)
+    floors = _spot_floors(agg_res.forecast[None], w_hours, u_env[None],
+                          cap[None])[0]                           # (W,)
+    per_h = torch.minimum(agg_res.per_horizon_levels, floors[:, None])
+    widths, _ = _monotone_stack(per_h[None], agg_res.fractiles[None],
+                                term_weeks, horizon_weeks)
+    # With cap 0 the floors are +inf and leave the stack as it was.
+    return widths[0], rate[None], floors[-1:]
 
 
 def compare_horizons(

@@ -6,7 +6,7 @@ buy only the increments, bill the week.  A policy is two phases:
 ``setup(ctx)`` runs once per replay and returns ``(pstate0, decide)``;
 ``decide`` is called once per week:
 
-    pstate, Decision(targets, yhat, is_decision)
+    pstate, Decision(targets, floor, yhat, is_decision)
         = decide(pstate, Observation(week, active))
 
 Ported so far:
@@ -58,7 +58,7 @@ class PolicyContext:
     state: fc.PrefixFitState
     solve_fn: Callable           # (state, week) -> beta  (scan or loop)
     irls_iters: int = 0
-    # yhat (P, Wh*168) -> targets (P, K)
+    # yhat (P, Wh*168) -> (targets (P, K), spot floor (P,) | None)
     targets_for: Callable | None = None
 
     @property
@@ -77,6 +77,7 @@ class Decision(NamedTuple):
     """Per-week outputs of ``decide``."""
 
     targets: torch.Tensor         # (P, K) absolute stack widths to hold
+    floor: torch.Tensor | None    # (P,) spot floor (forecasting + spot only)
     yhat: torch.Tensor | None     # (P, H) forecast (None = non-forecasting)
     is_decision: bool             # may this week buy?
 
@@ -85,6 +86,8 @@ class Policy:
     """Base policy: subclass and implement :meth:`setup`."""
 
     name: str = "policy"
+    #: produces a forecast (yhat), which the spot band keys on
+    forecasting: bool = False
 
     def setup(self, ctx: PolicyContext) -> tuple[Any, Callable]:
         raise NotImplementedError
@@ -104,6 +107,7 @@ class RollingPortfolioPolicy(Policy):
     for the target stack."""
 
     name = "rolling_portfolio"
+    forecasting = True
 
     def setup(self, ctx: PolicyContext):
         def decide(pstate, obs: Observation):
@@ -113,8 +117,9 @@ class RollingPortfolioPolicy(Policy):
             yhat = fc.predict_from_beta(
                 ctx.state, beta, w * HOURS_PER_WEEK, ctx.horizon_hours
             )
+            targets, floor = ctx.targets_for(yhat)
             return pstate, Decision(
-                ctx.targets_for(yhat), yhat, self._is_decision(ctx, w)
+                targets, floor, yhat, self._is_decision(ctx, w)
             )
 
         return (), decide
@@ -148,7 +153,7 @@ class HindsightPolicy(Policy):
         ).widths                                               # (P, K)
 
         def decide(pstate, obs: Observation):
-            return pstate, Decision(widths, None, True)
+            return pstate, Decision(widths, None, None, True)
 
         return (), decide
 

@@ -144,6 +144,10 @@ class PortfolioPlan:
     widths: torch.Tensor       # (..., K) band widths, >= 0
     total: torch.Tensor        # (...,)   stack top = on-demand threshold
     cost: torch.Tensor         # (...,)   objective value (cost-line dollars)
+    # spot band (None on spot-free solves): demand above ``spot_floor``
+    # (>= total) rides spot; ``spot_frac`` of the demand volume does
+    spot_floor: torch.Tensor | None = None   # (...,)
+    spot_frac: torch.Tensor | None = None    # (...,)
 
 
 def _stack_heights(
@@ -215,6 +219,8 @@ def optimal_portfolio_stack(
     betas: torch.Tensor,
     *,
     od_rate: float = 2.1,
+    spot_rate: torch.Tensor | float | None = None,
+    spot_cap: torch.Tensor | float | None = None,
 ) -> PortfolioPlan:
     """Exact minimizer of the stacked cost-line objective.  f (..., T).
 
@@ -222,7 +228,17 @@ def optimal_portfolio_stack(
     f (R, T) — the batch the reference writes as a vmap.  The envelope is
     demand independent, so it is computed once per distinct line set (a
     fleet has one per cloud) and gathered onto the rows; per-row
-    thresholds are gathers into sorted demand."""
+    thresholds are gathers into sorted demand.
+
+    ``spot_rate``/``spot_cap`` (scalars or per row) add the spot line
+    alpha = spot_rate, beta = 0 under the chance-constraint cap on the
+    demand-volume fraction routed to spot (``core.spot``).  Spot takes the
+    top of the demand distribution down to a floor: the higher of the
+    envelope entry (where spot stops undercutting the winning line) and
+    the volume bound (the lowest band edge whose above-volume fits the
+    cap).  Committed bands above the floor are truncated; on-demand covers
+    (stack top, floor].  With ``spot_rate=None`` the solve is the
+    spot-free one, bit for bit."""
     t = f.shape[-1]
     k = alphas.shape[-1]
     dev = f.device
@@ -254,6 +270,10 @@ def optimal_portfolio_stack(
         sorted_f, dim=-1, prepend=torch.zeros_like(sorted_f[..., :1])
     )
     covered = opt >= 0
+    if spot_rate is not None:
+        return _stack_with_spot(
+            f, sorted_f, h, covered, has, lo, hi, line_best, od_rate,
+            spot_rate, spot_cap)
 
     tops = gather(torch.clamp(hi, min=0))
     bottoms = torch.where(
@@ -275,6 +295,76 @@ def optimal_portfolio_stack(
         widths=widths.expand(shape),
         total=total,
         cost=cost,
+    )
+
+
+def _stack_with_spot(f, sorted_f, h, covered, has, lo, hi, line_best,
+                     od_rate, spot_rate, spot_cap):
+    """The spot half of :func:`optimal_portfolio_stack`: the floor band
+    index per row, the committed bands truncated below it, and the
+    three-way cost (committed lines below the floor, on-demand between the
+    stack top and the floor, spot above)."""
+    t = f.shape[-1]
+    lead = f.shape[:-1]
+    k = has.shape[-1]
+    dev = f.device
+    bands = torch.arange(t, device=dev)
+    jf = bands.to(torch.float32)
+    sr = torch.as_tensor(spot_rate, dtype=torch.float32, device=dev)
+    sc = torch.as_tensor(1.0 if spot_cap is None else spot_cap,
+                         dtype=torch.float32, device=dev)
+    sr_row = sr.expand(lead) if sr.dim() else sr
+    # Envelope bound: spot wins the top-contiguous run of bands where its
+    # line undercuts the winner (strictly, so a rate tie keeps no spot).
+    spot_better = (sr_row[..., None] * (t - jf)) < line_best
+    all_above = torch.flip(
+        torch.cumprod(torch.flip(spot_better.to(torch.int32), [-1]), -1),
+        [-1])
+    j_env = t - all_above.sum(-1)                  # first band of the run
+    # Volume bound: vb[j] = spot volume with the floor at band j's bottom
+    # (level sorted_f[j-1]); the first j inside the cap is the lowest
+    # admissible floor.
+    total_vol = sorted_f.sum(-1)
+    suffix = torch.flip(torch.cumsum(torch.flip(sorted_f, [-1]), -1), [-1])
+    above_cnt = (t - 1 - bands).to(f.dtype)
+    va = (suffix - sorted_f) - above_cnt * sorted_f
+    vb = torch.cat([total_vol[..., None], va[..., :-1]], -1)
+    feasible = vb <= sc[..., None] * total_vol[..., None]
+    j_vol = torch.where(feasible, bands, t).amin(-1)
+    j_floor = torch.maximum(torch.broadcast_to(j_env, lead), j_vol)
+
+    floor = torch.where(
+        j_floor > 0,
+        torch.gather(sorted_f, -1,
+                     torch.clamp(j_floor - 1, 0, t - 1)[..., None])[..., 0],
+        0.0)
+    spot_vol = torch.where(
+        j_floor >= t, 0.0,
+        torch.gather(vb, -1, torch.clamp(j_floor, 0, t - 1)[..., None])[
+            ..., 0])
+
+    # Committed bands truncate at the floor: their tops gather per row.
+    hi2 = torch.minimum(hi, j_floor[..., None] - 1)            # (..., K)
+    lo_r = lo.expand(*lead, k)
+    has2 = has & (lo_r <= hi2)
+    tops = torch.gather(sorted_f, -1, torch.clamp(hi2, 0, t - 1))
+    bottoms = torch.where(
+        lo_r > 0,
+        torch.gather(sorted_f, -1, torch.clamp(lo_r - 1, 0, t - 1)),
+        torch.zeros((), dtype=f.dtype, device=dev))
+    widths = torch.where(has2, tops - bottoms, 0.0)
+    heights = _stack_heights(has2, lo_r, widths, t + 1)
+
+    below = bands < j_floor[..., None]
+    cost_committed = (h * line_best * covered * below).sum(-1)
+    total = widths.sum(-1)
+    over = torch.clamp(f - total[..., None], min=0.0).sum(-1)
+    od_vol = torch.clamp(over - spot_vol, min=0.0)
+    cost = cost_committed + od_rate * od_vol + sr * spot_vol
+    return PortfolioPlan(
+        levels=heights, widths=widths, total=total, cost=cost,
+        spot_floor=torch.maximum(floor, total),
+        spot_frac=spot_vol / torch.clamp(total_vol, min=1e-9),
     )
 
 
@@ -311,6 +401,8 @@ def optimal_portfolio_grid(
     num_grid: int = 256,
     use_kernel: bool = False,
     weights: torch.Tensor | None = None,
+    spot_rate: torch.Tensor | float | None = None,
+    spot_cap: torch.Tensor | float | None = None,
 ) -> PortfolioPlan:
     """Grid solver on the over/under sweep.
 
@@ -327,7 +419,13 @@ def optimal_portfolio_grid(
 
     ``alphas``/``betas`` may be (K,) shared lines or (P, K) per-row lines.
     ``weights`` (P, T) masks or reweights hours — a 0/1 prefix mask turns
-    the sweep into Algorithm 1's per-horizon prefix solve."""
+    the sweep into Algorithm 1's per-horizon prefix solve.
+
+    ``spot_rate``/``spot_cap`` (scalars or (P,)) add the chance-constrained
+    spot line (see :func:`optimal_portfolio_stack`): cells where spot
+    undercuts the winning line flip to spot from the top down while their
+    running used volume stays inside cap x total volume; the floor lands
+    on a cell edge."""
     del use_kernel  # the device decides; see the docstring
     squeeze = f.dim() == 1
     if squeeze:
@@ -357,8 +455,26 @@ def optimal_portfolio_grid(
     )  # (P, K+1, G-1); index 0 = on-demand (first wins ties)
     best = torch.argmin(cell_cost, dim=1) - 1            # (P, G-1)
 
+    spot_win = None
+    if spot_rate is not None:
+        sr = torch.as_tensor(spot_rate, dtype=torch.float32,
+                             device=dev).expand(p)
+        sc = torch.as_tensor(1.0 if spot_cap is None else spot_cap,
+                             dtype=torch.float32, device=dev).expand(p)
+        base_cost = cell_cost.amin(dim=1)                # (P, G-1)
+        spot_cell = sr[:, None] * used
+        elig = spot_cell < base_cost
+        # Eligible volume at and above each cell; spot takes the top cells
+        # whose running volume fits the chance-constraint cap.
+        rev_cum = torch.flip(
+            torch.cumsum(torch.flip(elig * used, [-1]), -1), [-1])
+        total_vol = over[:, :1]                          # level 0: all f
+        spot_win = elig & (rev_cum <= sc[:, None] * total_vol)
+
     cells = torch.arange(num_grid - 1, device=dev)
     mask = best[:, None, :] == torch.arange(k, device=dev)[None, :, None]
+    if spot_win is not None:
+        mask = mask & ~spot_win[:, None, :]
     has = mask.any(-1)
     hi = torch.where(mask, cells[None, None, :], -1).amax(-1)    # (P, K)
     lo = torch.where(mask, cells[None, None, :], num_grid).amin(-1)
@@ -366,16 +482,28 @@ def optimal_portfolio_grid(
     bottoms = torch.gather(cs, -1, torch.clamp(lo, 0, num_grid - 1))
     widths = torch.where(has, tops - bottoms, 0.0)
     heights = _stack_heights(has, lo, widths, num_grid)
-    cost = cell_cost.amin(dim=1).sum(-1)
+
+    spot_floor = spot_frac = None
+    if spot_win is None:
+        cost = cell_cost.amin(dim=1).sum(-1)
+    else:
+        cost = torch.where(spot_win, spot_cell, base_cost).sum(-1)
+        spot_vol = (spot_win * used).sum(-1)
+        lo_spot = torch.where(spot_win, cells, num_grid - 1).amin(
+            -1, keepdim=True)
+        spot_floor = torch.maximum(
+            torch.gather(cs, -1, lo_spot)[:, 0], widths.sum(-1))
+        spot_frac = spot_vol / torch.clamp(total_vol[:, 0], min=1e-9)
 
     plan = PortfolioPlan(
-        levels=heights, widths=widths, total=widths.sum(-1), cost=cost
+        levels=heights, widths=widths, total=widths.sum(-1), cost=cost,
+        spot_floor=spot_floor, spot_frac=spot_frac,
     )
     if squeeze:
-        plan = PortfolioPlan(
-            levels=plan.levels[0], widths=plan.widths[0],
-            total=plan.total[0], cost=plan.cost[0],
-        )
+        plan = PortfolioPlan(*(
+            None if x is None else x[0]
+            for x in (plan.levels, plan.widths, plan.total, plan.cost,
+                      plan.spot_floor, plan.spot_frac)))
     return plan
 
 

@@ -12,7 +12,9 @@ is already committed (commitments are added any week and only expire):
         on decision weeks (every ``cadence_weeks``): buy, per pool per
             option, the increment that lifts the active width to target
         bill the week: every active tranche at its committed rate,
-            demand above the stack top at the on-demand rate
+            demand above the stack top at the on-demand rate (with a spot
+            band: on-demand up to the week's spot floor, the effective
+            spot rate above it)
 
 The reference runs this as one ``lax.scan``.  Here it is a Python loop over
 weeks that carries ``(active (P, K), rolloff (P, K, W), pstate)`` as tensors
@@ -30,8 +32,15 @@ independent implementation the reference's python-loop replay is).
 
 The report compares three operating points on the same evaluation window:
 the rolling replay; the one-shot baseline (the same replay with a single
-decision week); and hindsight (the optimal constant stack on the realized
-demand, short tranches repurchased back-to-back).
+decision week, with the same spot band); and hindsight (the optimal
+constant stack on the realized demand, short tranches repurchased
+back-to-back; commitments only).
+
+``spot=`` adds the spot band, the fast half of the capacity split: every
+week the forecast's per-horizon spot floors (the envelope entry against
+the chance-constraint volume cap, sorts and gathers only) truncate the
+per-horizon committed levels, and the horizon-1 floor is that week's
+spot decision, never carried.
 """
 
 from __future__ import annotations
@@ -48,11 +57,13 @@ from repro_torch.core import forecast as fc
 from repro_torch.core import ladder as ld
 from repro_torch.core import policy as pol
 from repro_torch.core import portfolio as pf
+from repro_torch.core import spot as spot_mod
 from repro_torch.core.demand import HOURS_PER_WEEK
 from repro_torch.core.planner import (
     UNPORTED_BANDS,
     _monotone_stack,
     _prefix_weighted_quantiles,
+    _spot_floors,
     reject_unported_bands,
 )
 from repro_torch.device import resolve_device
@@ -93,6 +104,16 @@ class RollingPlanReport:
     hindsight_weekly_cost: np.ndarray | None = None   # (S,)
     hindsight_cost: float | None = None
     regret_vs_hindsight: float | None = None
+    # Spot band (None on spot-free replays): re-decided every week from
+    # that week's forecast, no tranche, no term.  ``spot_floor`` is clamped
+    # to the committed stack top; demand above it bills at the effective
+    # spot rate, between stack top and floor at on-demand.
+    spot_config: "spot_mod.SpotConfig | None" = None
+    spot_lines: "spot_mod.SpotLines | None" = None
+    spot_floor: np.ndarray | None = None              # (S, P) weekly floors
+    spot_cost: np.ndarray | None = None               # (S, P) weekly spend
+    spot_volume: np.ndarray | None = None             # (S, P) chip-hours
+    spot_ladders: ld.PoolLadderBook | None = None     # 1-week audit tranches
     # Which policy drove the weekly decisions (``core.policy``), and the
     # weeks on which it could buy.
     policy_name: str = "rolling_portfolio"
@@ -101,7 +122,10 @@ class RollingPlanReport:
     @property
     def weekly_cost(self) -> np.ndarray:
         """(S,) fleet-total spend per week."""
-        return (self.committed_cost + self.on_demand_cost).sum(-1)
+        total = self.committed_cost + self.on_demand_cost
+        if self.spot_cost is not None:
+            total = total + self.spot_cost
+        return total.sum(-1)
 
     def summary(self) -> dict:
         out = {
@@ -112,6 +136,9 @@ class RollingPlanReport:
         }
         if self.decision_mask is not None:
             out["decision_weeks"] = int(self.decision_mask.sum())
+        if self.spot_cost is not None:
+            out["spot_cost"] = float(self.spot_cost.sum())
+            out["spot_chip_hours"] = float(self.spot_volume.sum())
         if self.one_shot_cost is not None:
             out["one_shot_cost"] = self.one_shot_cost
             out["savings_vs_one_shot"] = self.savings_vs_one_shot
@@ -192,14 +219,16 @@ def replan_fleet_pools(
     on the card the grid solver always runs the CUDA kernel (see
     ``portfolio.optimal_portfolio_grid``).
 
-    ``spot``, ``migration``, ``convertible``, ``scenarios``, ``telemetry``,
-    ``cadence="breach"`` and ``irls_carry=True`` belong to subsystems the
-    port does not have yet; setting any of them raises
+    ``spot`` (True, a :class:`~repro_torch.core.spot.SpotConfig` or a
+    (SpotConfig, SpotLines) pair) adds the spot band; it needs a
+    forecasting policy.  ``migration``, ``convertible``, ``scenarios``,
+    ``telemetry``, ``cadence="breach"`` and ``irls_carry=True`` belong to
+    subsystems the port does not have yet; setting any of them raises
     ``NotImplementedError`` naming the ROADMAP item.  ``breach_band`` and
     ``breach_tolerance`` only matter under ``cadence="breach"``."""
     del use_kernel, breach_band, breach_tolerance
     _reject_unported(
-        spot=spot, migration=migration, convertible=convertible,
+        migration=migration, convertible=convertible,
         scenarios=scenarios, telemetry=telemetry, cadence=cadence,
         irls_carry=irls_carry,
     )
@@ -233,6 +262,17 @@ def replan_fleet_pools(
         device=dev,
     )
     qs = pf.handover_fractiles(al_p, be_p, od_rate=od)       # (P, K)
+    sp_res = spot_mod.resolve_spot(spot, clouds, od_rate=od, device=dev)
+    if sp_res is not None:
+        if not pcy.forecasting:
+            raise ValueError(
+                f"policy {pcy.name!r} does not forecast, but the spot band "
+                "keys on the weekly forecast; use a forecasting policy or "
+                "disable the band"
+            )
+        s_cfg, s_lines = sp_res
+        u_env = spot_mod.spot_entry_fractile(al_p, be_p, s_lines.rate,
+                                             od_rate=od)      # (P,)
     rates = torch.tensor(
         [o.rate for o in options], dtype=torch.float32, device=dev
     )
@@ -268,13 +308,20 @@ def replan_fleet_pools(
     def targets_for(yhat):
         """Algorithm 1 steps 2-4 on one week's forecast: per-horizon prefix
         thresholds -> min within each option's term -> monotone stack
-        widths (P, K)."""
+        widths (P, K).  With spot, the per-horizon levels truncate at the
+        spot floors first, and the horizon-1 floor (P,) rides along as
+        the week's spot decision (None without spot)."""
         if solver == "grid":
             per_h = grid_prefix_levels(yhat)
         else:
             per_h = _prefix_weighted_quantiles(yhat, w_hours, qs)
+        floor = None
+        if sp_res is not None:
+            floors = _spot_floors(yhat, w_hours, u_env, s_lines.cap)
+            per_h = torch.minimum(per_h, floors[..., None])
+            floor = floors[:, 0]
         widths, _ = _monotone_stack(per_h, qs, term_weeks, horizon_weeks)
-        return widths
+        return widths, floor
 
     def replay(cadence_wk: int, solve_fn, step_policy: pol.Policy):
         """One pass over the evaluation weeks; returns the per-week outputs
@@ -290,10 +337,7 @@ def replan_fleet_pools(
         pstate, decide = step_policy.setup(ctx)
         active = torch.zeros((num_pools, num_opts), device=dev)
         rolloff = torch.zeros((num_pools, num_opts, sched_len), device=dev)
-        outs: dict[str, list] = {
-            k: [] for k in
-            ("target", "inc", "active", "committed", "od", "util")
-        }
+        outs: dict[str, list] = {}
         is_dec = []
         for w in range(start_weeks, total_weeks):
             # 1. tranches whose term ends at week w roll off the stack
@@ -312,7 +356,9 @@ def replan_fleet_pools(
             # one (option, column) cell, so the add has no collisions.
             rolloff[:, opt_idx, w + term_weeks] += inc
             # 5. bill the week: committed rates regardless of use, the
-            # shortfall above the stack top at the on-demand rate
+            # shortfall above the stack top at the on-demand rate; with a
+            # spot band, on-demand only up to the floor and the effective
+            # spot rate above it
             d = demand_wk[:, w]                                # (P, 168)
             level = active.sum(-1)
             committed = (rates * active).sum(-1) * HOURS_PER_WEEK
@@ -320,13 +366,23 @@ def replan_fleet_pools(
             util = torch.where(
                 level > 0, used / (level * HOURS_PER_WEEK), 0.0
             )
-            over = torch.clamp(d - level[:, None], min=0.0).sum(-1)
-            for key, val in (
-                ("target", widths), ("inc", inc), ("active", active),
-                ("committed", committed), ("od", od * over),
-                ("util", util),
-            ):
-                outs[key].append(val)
+            vals = {"target": widths, "inc": inc, "active": active,
+                    "committed": committed, "util": util}
+            if sp_res is None:
+                over = torch.clamp(d - level[:, None], min=0.0).sum(-1)
+            else:
+                fl = torch.maximum(dec.floor, level)
+                over = torch.clamp(
+                    torch.minimum(d, fl[:, None]) - level[:, None], min=0.0
+                ).sum(-1)
+                spot_over = torch.clamp(d - fl[:, None], min=0.0)
+                spot_vol = spot_over.sum(-1)
+                vals.update(floor=fl, spot_vol=spot_vol,
+                            spot=s_lines.rate * spot_vol,
+                            spot_peak=spot_over.amax(-1))
+            vals["od"] = od * over
+            for key, val in vals.items():
+                outs.setdefault(key, []).append(val)
             is_dec.append(bool(dec.is_decision))
         ys = {k: torch.stack(v).cpu().numpy() for k, v in outs.items()}
         return ys, np.asarray(is_dec, bool)
@@ -349,6 +405,8 @@ def replan_fleet_pools(
     )
 
     total = float(ys["committed"].sum() + ys["od"].sum())
+    if sp_res is not None:
+        total += float(ys["spot"].sum())
     eval_np = demand_np[:, start_weeks * HOURS_PER_WEEK:]
     all_od = od * float(eval_np.sum())
     report = RollingPlanReport(
@@ -371,13 +429,27 @@ def replan_fleet_pools(
         policy_name=pcy.name,
         decision_mask=dec,
     )
+    if sp_res is not None:
+        report.spot_config = s_cfg
+        report.spot_lines = s_lines
+        report.spot_floor = ys["floor"]
+        report.spot_cost = ys["spot"]
+        report.spot_volume = ys["spot_vol"]
+        # The fast half of the split as a tranche book: every spot tranche
+        # lasts exactly one week, sized at the week's peak spot usage.
+        report.spot_ladders = ld.spot_ladder_book(
+            ys["spot_peak"], pools.keys, start_week=start_weeks,
+        )
     if not compare:
         return report
 
-    # One-shot baseline: identical replay, single decision week, always the
-    # standard rolling policy on the prefix-sum refit.
+    # One-shot baseline: identical replay (the same spot band, if any),
+    # single decision week, always the standard rolling policy on the
+    # prefix-sum refit.
     one, _ = replay(0, fc.solve_prefix, pol.RollingPortfolioPolicy())
     one_weekly = (one["committed"] + one["od"]).sum(-1)
+    if sp_res is not None:
+        one_weekly = one_weekly + one["spot"].sum(-1)
     report.one_shot_weekly_cost = one_weekly
     report.one_shot_cost = float(one_weekly.sum())
     report.savings_vs_one_shot = (

@@ -95,18 +95,17 @@ def _float64_forecasts(hist, num_hours, cfg=jfc.ForecastConfig()):
     return np.exp(beta @ xf.T)
 
 
-@pytest.fixture(scope="module", params=sorted(FLEETS))
-def plans(request):
+def _plan_both(name, spot=None):
     """(name, JAX fleet, port fleet, reference plan, port plan).  On the
     yearly fleet the reference plan runs on the port's forecasts."""
-    num_pools, weeks = FLEETS[request.param]
+    num_pools, weeks = FLEETS[name]
     jpools = jtr.synthetic_pool_set(num_pools=num_pools,
                                     num_hours=weeks * WK)
     tpools = convert.pool_set_from_reference(jpools)
-    tres = tapi.plan(tapi.PlanRequest(pools=tpools, horizon_weeks=HORIZON),
-                     device="cpu")
+    tres = tapi.plan(tapi.PlanRequest(pools=tpools, horizon_weeks=HORIZON,
+                                      spot=spot), device="cpu")
     with pytest.MonkeyPatch.context() as mp:
-        if request.param == "yearly":
+        if name == "yearly":
             hist = torch.from_numpy(tpools.demand[:, :-HORIZON * WK])
             agg = tfc.fit(hist.sum(0))
             agg_yhat = tfc.forecast_horizon(agg, hist.shape[-1],
@@ -116,8 +115,13 @@ def plans(request):
             mp.setattr(jfc, "forecast_horizon",
                        lambda model, t0, n: jnp.asarray(agg_yhat))
         jres = japi.plan(japi.PlanRequest(pools=jpools,
-                                          horizon_weeks=HORIZON))
-    return request.param, jpools, tpools, jres, tres
+                                          horizon_weeks=HORIZON, spot=spot))
+    return name, jpools, tpools, jres, tres
+
+
+@pytest.fixture(scope="module", params=sorted(FLEETS))
+def plans(request):
+    return _plan_both(request.param)
 
 
 def test_returns_a_fleet_plan_of_the_reference_layout(plans):
@@ -398,10 +402,91 @@ def test_compare_horizons(horizons, eval_weeks):
 
 def test_unported_bands_name_their_item(plans):
     tpools = plans[2]
-    for kw, item in (({"spot": True}, "item 10"),
-                     ({"migration": True}, "item 11"),
+    for kw, item in (({"migration": True}, "item 11"),
                      ({"convertible": True}, "item 11")):
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             with pytest.raises(NotImplementedError, match=item):
                 tpl._plan_fleet_pools_one_shot(tpools, device="cpu", **kw)
+
+
+# The spot band in the one-shot plan (spot=True), on the same two fleets:
+# the short one against the reference's own pipeline, the yearly one
+# against the reference fed the port's forecasts.  Floors are order
+# statistics of the forecast, so they are held like the stack's levels;
+# the bill within the costs' rel 1e-3.
+@pytest.fixture(scope="module", params=sorted(FLEETS))
+def spot_plans(request):
+    return _plan_both(request.param, spot=True)
+
+
+@pytest.mark.parametrize("field", COSTS + ("spot_cost",))
+def test_spot_costs(spot_plans, field):
+    _, _, _, jres, tres = spot_plans
+    assert getattr(tres, field) == pytest.approx(getattr(jres, field),
+                                                 rel=COST_REL)
+
+
+def test_spot_floors_widths_and_lines(spot_plans):
+    _, _, _, jres, tres = spot_plans
+    np.testing.assert_allclose(tres.spot_floor, np.asarray(jres.spot_floor),
+                               **STACK_TOL)
+    np.testing.assert_allclose(tres.widths, jres.widths, **STACK_TOL)
+    np.testing.assert_allclose(tres.per_horizon_levels,
+                               jres.per_horizon_levels, **STACK_TOL)
+    for name in ("rate", "cap", "market_rate", "availability"):
+        np.testing.assert_allclose(getattr(tres.spot_lines, name).numpy(),
+                                   np.asarray(getattr(jres.spot_lines, name)),
+                                   rtol=0, atol=1e-6)
+    for jp, tp in zip(jres.per_pool, tres.per_pool):
+        assert tp.spend.spot == pytest.approx(jp.spend.spot, rel=COST_REL,
+                                              abs=1e-6)
+
+
+def test_spot_plan_accounting(spot_plans):
+    """The reference's TestOneShotSpot: the bill adds up, spot is bought,
+    and a cheaper top band never grows the committed stack."""
+    _, _, tpools, _, res = spot_plans
+    assert res.spot_floor.shape == (tpools.num_pools,)
+    assert res.spot_cost > 0
+    assert res.total_cost == pytest.approx(
+        res.committed_cost + res.on_demand_cost + res.spot_cost, rel=1e-12)
+    base = tapi.plan(tapi.PlanRequest(pools=tpools, horizon_weeks=HORIZON),
+                     device="cpu")
+    assert res.widths.sum() <= base.widths.sum() + 1e-4
+    assert (res.spot_floor >= res.widths.sum(-1) - 1e-4).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_prefix_spot_floors_snap_to_reference_levels(seed):
+    """Per-horizon spot floors on random forecasts.  A floor snaps to an
+    observed forecast level, the first whose above-volume fits the cap; a
+    float32 suffix sum taken in another order can move it to the
+    neighbouring sorted level.  So each port floor equals the reference's
+    or a neighbour of it in the sorted forecast, and the volumes above
+    the floors agree at rel 1e-4."""
+    rng = np.random.default_rng(seed)
+    yhat = rng.gamma(3.0, 20.0, (6, 4 * WK)).astype(np.float32)
+    cap = rng.uniform(0.0, 0.6, 6).astype(np.float32)
+    w_hours = np.arange(1, 5) * WK
+    want = np.asarray(jax.vmap(jpl._prefix_spot_floors,
+                               in_axes=(0, None, 0))(
+        jnp.asarray(yhat), jnp.asarray(w_hours), jnp.asarray(cap)))
+    got = tpl._prefix_spot_floors(torch.from_numpy(yhat),
+                                  torch.from_numpy(w_hours),
+                                  torch.from_numpy(cap)).numpy()
+    assert got.shape == want.shape == (6, 4)
+    for p in range(6):
+        levels = np.sort(yhat[p])
+        for w in range(4):
+            i = np.searchsorted(levels, want[p, w])
+            near = levels[max(i - 1, 0):i + 2]
+            assert got[p, w] in near, (p, w)
+
+    def above(floors):
+        return sum(float(np.maximum(yhat[p, :w_hours[w]] - floors[p, w],
+                                    0.0).sum())
+                   for p in range(6) for w in range(4))
+
+    assert above(got) == pytest.approx(above(want), rel=1e-4)
+

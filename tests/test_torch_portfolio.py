@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.capacity import pricing as jpricing  # noqa: E402
 from repro.core import planner as jpl  # noqa: E402
 from repro.core import portfolio as jpf  # noqa: E402
+from repro.core import spot as jsp  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.capacity import pricing as tpricing  # noqa: E402
 from repro_torch.core import planner as tpl  # noqa: E402
@@ -268,3 +269,101 @@ def test_portfolio_spends_is_a_loop_of_portfolio_spend():
         for field in ("on_demand", "total", "spot", "spot_chip_hours"):
             assert getattr(solo, field) == pytest.approx(
                 getattr(spend, field), rel=1e-6, abs=1e-9), field
+
+
+# The spot band in both solvers, on the inputs of the reference's
+# tests/test_spot.py::TestStackSolverSpot (gamma demand, seed 7, 4 x 600,
+# Table-2 lines at term_weighting 1).  The exact solver's floor is a
+# gather into sorted demand and its volume bound a suffix sum: widths,
+# levels, totals and floors equal the reference's, costs and spot
+# fractions within rel 1e-5 (float32 sums in another order).  The grid
+# solver's cells come from the sweep, which sums in another order too.
+SPOT_CASES = {
+    "rate1_cap03": (1.0, 0.3),
+    "cap0": (1.0, 0.0),
+    "od_rate": (2.1, 1.0),
+    "above_od": (2.5, 1.0),
+    "idle_heavy": ("max_alpha_x1.3", 1.0),
+    "pool_lines": ("lines", "lines"),
+}
+
+
+def _spot_inputs(case):
+    f = np.random.default_rng(7).gamma(2.0, 50.0, (4, 600)).astype(
+        np.float32)
+    (al_j, be_j), (al_t, be_t) = _lines(1.0)
+    rate, cap = SPOT_CASES[case]
+    if rate == "lines":
+        lines = jsp.pool_spot_lines(("aws", "azure", "gcp", "aws"),
+                                    od_rate=2.1)
+        rate, cap = np.asarray(lines.rate), np.asarray(lines.cap)
+    elif rate == "max_alpha_x1.3":
+        rate = float(jnp.max(al_j)) * 1.3
+    rate_j = jnp.broadcast_to(jnp.asarray(rate, jnp.float32), (4,))
+    cap_j = jnp.broadcast_to(jnp.asarray(cap, jnp.float32), (4,))
+    return f, (al_j, be_j, rate_j, cap_j), (
+        al_t, be_t, torch.tensor(np.asarray(rate_j)),
+        torch.tensor(np.asarray(cap_j)))
+
+
+def _assert_spot_plan_close(got, want, rtol):
+    for field in ("levels", "widths", "total", "spot_floor"):
+        np.testing.assert_allclose(
+            getattr(got, field).numpy(), np.asarray(getattr(want, field)),
+            rtol=rtol, atol=1e-3, err_msg=field)
+    for field in ("cost", "spot_frac"):
+        np.testing.assert_allclose(
+            getattr(got, field).numpy(), np.asarray(getattr(want, field)),
+            rtol=1e-5, atol=1e-6, err_msg=field)
+
+
+@pytest.mark.parametrize("case", sorted(SPOT_CASES))
+def test_stack_solver_with_spot(case):
+    f, (al_j, be_j, r_j, c_j), (al_t, be_t, r_t, c_t) = _spot_inputs(case)
+    want = jax.vmap(lambda x, r, c: jpf.optimal_portfolio_stack(
+        x, al_j, be_j, spot_rate=r, spot_cap=c))(jnp.asarray(f), r_j, c_j)
+    got = tpf.optimal_portfolio_stack(torch.from_numpy(f), al_t, be_t,
+                                      spot_rate=r_t, spot_cap=c_t)
+    _assert_spot_plan_close(got, want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", sorted(SPOT_CASES))
+def test_grid_solver_with_spot(case):
+    f, (al_j, be_j, r_j, c_j), (al_t, be_t, r_t, c_t) = _spot_inputs(case)
+    want = jpf.optimal_portfolio_grid(jnp.asarray(f), al_j, be_j,
+                                      num_grid=512, spot_rate=r_j,
+                                      spot_cap=c_j)
+    got = tpf.optimal_portfolio_grid(torch.from_numpy(f), al_t, be_t,
+                                     num_grid=512, spot_rate=r_t,
+                                     spot_cap=c_t)
+    _assert_spot_plan_close(got, want, rtol=1e-6)
+
+
+def test_spot_cap_zero_and_none_leave_the_solvers_unchanged():
+    """cap 0 gives the spot-free stack bit for bit (the reference's
+    test_cap_zero_is_bit_identical_to_base); spot_rate=None is the
+    spot-free program in both solvers."""
+    f = torch.from_numpy(_spot_inputs("cap0")[0])
+    _, (al_t, be_t) = _lines(1.0)
+    base = tpf.optimal_portfolio_stack(f, al_t, be_t)
+    capped = tpf.optimal_portfolio_stack(f, al_t, be_t, spot_rate=1.0,
+                                         spot_cap=0.0)
+    assert torch.equal(capped.cost, base.cost)
+    assert torch.equal(capped.widths, base.widths)
+    assert float(capped.spot_frac.abs().max()) == 0.0
+    assert base.spot_floor is None and base.spot_frac is None
+    a = tpf.optimal_portfolio_grid(f, al_t, be_t, num_grid=64)
+    b = tpf.optimal_portfolio_grid(f, al_t, be_t, num_grid=64,
+                                   spot_rate=None)
+    assert torch.equal(a.cost, b.cost) and b.spot_floor is None
+
+
+def test_one_row_solves_with_spot_squeeze():
+    f = torch.from_numpy(_spot_inputs("rate1_cap03")[0])
+    _, (al_t, be_t) = _lines(1.0)
+    for solve in (tpf.optimal_portfolio_stack, tpf.optimal_portfolio_grid):
+        batch = solve(f, al_t, be_t, spot_rate=1.0, spot_cap=0.3)
+        one = solve(f[1], al_t, be_t, spot_rate=1.0, spot_cap=0.3)
+        assert one.spot_floor.dim() == 0 and one.widths.dim() == 1
+        torch.testing.assert_close(one.spot_floor, batch.spot_floor[1])
+        torch.testing.assert_close(one.spot_frac, batch.spot_frac[1])

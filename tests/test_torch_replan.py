@@ -24,6 +24,7 @@ from repro.core import portfolio as jpf  # noqa: E402
 from repro.core import replan as jrp  # noqa: E402
 from repro.data import traces as jtr  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.capacity import pricing as tpr  # noqa: E402
 from repro_torch.core import api as tapi  # noqa: E402
 from repro_torch.core import forecast as tfc  # noqa: E402
 from repro_torch.core import replan as trp  # noqa: E402
@@ -295,8 +296,9 @@ def test_request_fields_match_reference():
 
 
 @pytest.mark.parametrize("kw", [
-    {"spot": True}, {"migration": True}, {"convertible": True},
-    {"scenarios": 2}, {"telemetry": True}, {"irls_carry": True},
+    {"spot": True, "scenarios": 2}, {"migration": True},
+    {"convertible": True}, {"scenarios": 2}, {"telemetry": True},
+    {"irls_carry": True},
     {"cadence": "breach"}, {"policy": "deterministic_hedge"},
     {"policy": "randomized_hedge"},
 ])
@@ -308,8 +310,7 @@ def test_unported_keywords_raise(fleet, kw):
 
 def test_unported_modes_raise_on_plan(fleet):
     tpools = fleet[2]
-    for kw, item in (({"spot": True}, "item 10"),
-                     ({"migration": True}, "item 11"),
+    for kw, item in (({"migration": True}, "item 11"),
                      ({"convertible": True}, "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             tapi.plan(tapi.PlanRequest(pools=tpools, **kw), device="cpu")
@@ -317,9 +318,6 @@ def test_unported_modes_raise_on_plan(fleet):
                            rolling=tapi.RollingConfig(cadence="breach"))
     with pytest.raises(NotImplementedError, match="breach"):
         tapi.plan(req, device="cpu")
-    with pytest.raises(NotImplementedError, match="spot"):
-        tapi.plan(tapi.PlanRequest(pools=tpools, mode="rolling", spot=True),
-                  device="cpu")
 
 
 def test_no_silent_cpu(fleet):
@@ -344,3 +342,145 @@ def test_validation(fleet):
     with pytest.raises(ValueError, match="rolling"):
         tapi.PlanRequest(pools=tpools, rolling=tapi.RollingConfig(
             solver="grid"))
+
+
+# The rolling replay with the spot band (spot=True), on the reference's
+# tests/test_spot.py::TestRollingSpot fleet: 3 pools x 30 weeks, cadence 2,
+# start 8, horizon 4; both solvers, both backends, compare=True.  Totals
+# within rel 1e-3 and the per-week floors and stacks within rtol 1e-3 /
+# atol 1e-2, the tolerances above.  Each week's three-way bill (committed,
+# on-demand between the stack top and the floor, spot above the floor)
+# within rtol 1e-3, or 1e-3 of that week's pool bill: the on-demand band
+# between a stack top and a floor can be a few chip-hours, so its
+# relative error is large where its dollars are not.
+SPOT_KW = dict(cadence_weeks=2, start_weeks=8, horizon_weeks=4,
+               compare=True, num_grid=NUM_GRID, spot=True)
+
+
+@pytest.fixture(scope="module")
+def spot_fleet():
+    jpools = jtr.synthetic_pool_set(num_pools=3, num_hours=30 * WK)
+    return jpools, convert.pool_set_from_reference(jpools)
+
+
+@pytest.fixture(scope="module", params=[
+    ("quantile", "scan"), ("quantile", "loop"), ("grid", "scan"),
+    ("grid", "loop")], ids=lambda p: "-".join(p))
+def spot_reports(request, spot_fleet):
+    jpools, tpools = spot_fleet
+    solver, backend = request.param
+    kw = dict(SPOT_KW, solver=solver, backend=backend)
+    return (jrp.replan_fleet_pools(jpools, **kw),
+            trp.replan_fleet_pools(tpools, device="cpu", **kw))
+
+
+def test_spot_replay_costs_match(spot_reports):
+    jrep, trep = spot_reports
+    for field in COSTS:
+        assert getattr(trep, field) == pytest.approx(
+            getattr(jrep, field), rel=1e-3), field
+    js, ts = jrep.summary(), trep.summary()
+    assert sorted(ts) == sorted(js)
+    for key in ("spot_cost", "spot_chip_hours", "total_cost"):
+        assert ts[key] == pytest.approx(js[key], rel=1e-3), key
+
+
+def test_spot_replay_floors_and_three_way_bill(spot_reports):
+    jrep, trep = spot_reports
+    for field in ("spot_floor", "active", "targets"):
+        np.testing.assert_allclose(getattr(trep, field),
+                                   getattr(jrep, field), rtol=1e-3,
+                                   atol=1e-2, err_msg=field)
+    pool_bill = jrep.committed_cost + jrep.on_demand_cost + jrep.spot_cost
+    for field in ("committed_cost", "on_demand_cost", "spot_cost",
+                  "spot_volume"):
+        got, want = getattr(trep, field), getattr(jrep, field)
+        assert got.shape == want.shape == jrep.spot_floor.shape
+        assert (np.abs(got - want)
+                <= 1e-3 * np.abs(want) + 1e-3 * pool_bill).all(), field
+    np.testing.assert_allclose(trep.weekly_cost, jrep.weekly_cost,
+                               rtol=1e-3)
+    np.testing.assert_allclose(trep.spot_lines.rate.numpy(),
+                               np.asarray(jrep.spot_lines.rate), atol=1e-6)
+
+
+def test_spot_replay_accounting(spot_fleet, spot_reports):
+    """The reference's TestRollingSpot checks, on the port's report: the
+    bill adds up, floors sit at or above the stack top, and one week's
+    three-way bill re-derived from the reported floor."""
+    _, tpools = spot_fleet
+    _, rep = spot_reports
+    want = float(rep.committed_cost.sum() + rep.on_demand_cost.sum()
+                 + rep.spot_cost.sum())
+    assert rep.total_cost == pytest.approx(want, rel=1e-6)
+    assert rep.weekly_cost.sum() == pytest.approx(want, rel=1e-6)
+    assert (rep.spot_floor >= rep.active.sum(-1) - 1e-4).all()
+    i = len(rep.weeks) // 2
+    w = int(rep.weeks[i])
+    d = tpools.demand[:, w * WK:(w + 1) * WK]
+    level = rep.active[i].sum(-1)[:, None]
+    fl = rep.spot_floor[i][:, None]
+    od = tpr.on_demand_premium()
+    np.testing.assert_allclose(
+        rep.on_demand_cost[i],
+        od * np.maximum(np.minimum(d, fl) - level, 0.0).sum(-1), rtol=1e-4)
+    np.testing.assert_allclose(
+        rep.spot_cost[i],
+        rep.spot_lines.rate.numpy() * np.maximum(d - fl, 0.0).sum(-1),
+        rtol=1e-4)
+
+
+def test_spot_lowers_the_rolling_bill(spot_fleet):
+    _, tpools = spot_fleet
+    kw = dict(SPOT_KW, compare=False)
+    spot = trp.replan_fleet_pools(tpools, device="cpu", **kw)
+    kw.pop("spot")
+    base = trp.replan_fleet_pools(tpools, device="cpu", **kw)
+    assert spot.total_cost < base.total_cost
+    assert base.spot_floor is None and base.spot_ladders is None
+    with pytest.raises(ValueError, match="does not forecast"):
+        trp.replan_fleet_pools(tpools, device="cpu", policy="hindsight",
+                               **dict(SPOT_KW, compare=False))
+
+
+def test_spot_ladder_is_one_week_tranches(spot_fleet, spot_reports):
+    """Every spot tranche lasts exactly one week, sized at that week's
+    realized peak spot usage (demand above the week's floor)."""
+    _, tpools = spot_fleet
+    _, rep = spot_reports
+    total = 0
+    for p, lad in enumerate(rep.spot_ladders.ladders):
+        total += len(lad.amount)
+        assert (lad.term == WK).all()
+        for start, amount in zip(lad.start, lad.amount):
+            w = start // WK
+            i = int(w - rep.start_weeks)
+            d = tpools.demand[p, w * WK:(w + 1) * WK]
+            peak = np.maximum(d - rep.spot_floor[i, p], 0.0).max()
+            assert amount == pytest.approx(float(peak), rel=1e-5)
+    assert total > 0
+
+
+def test_spot_ladder_helpers_equal_reference():
+    from repro.core import ladder as jld
+
+    from repro_torch.core import ladder as tld
+    peaks = np.array([5.0, 0.0, 3.0, 1e-12, 7.25])
+    want = jld.weekly_spot_ladder(peaks, start_week=10)
+    got = tld.weekly_spot_ladder(peaks, start_week=10)
+    for field in ("start", "term", "amount", "option"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field))
+    assert got.active_width(10 * WK) == 5.0
+    assert got.active_width(11 * WK) == 0.0
+    assert got.active_width(12 * WK + 167) == 3.0
+    keys = [("aws", "r", "a"), ("gcp", "r", "b")]
+    grid = np.abs(np.random.default_rng(1).normal(size=(6, 2)))
+    book = tld.spot_ladder_book(grid, keys, start_week=3)
+    ref = jld.spot_ladder_book(grid, keys, start_week=3)
+    assert book.keys == ref.keys
+    for a, b in zip(book.ladders, ref.ladders):
+        np.testing.assert_array_equal(a.start, b.start)
+        np.testing.assert_array_equal(a.amount, b.amount)
+    with pytest.raises(ValueError, match="keys"):
+        tld.spot_ladder_book(np.zeros((4, 3)), [("aws", "r", "m")])
