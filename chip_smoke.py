@@ -3,10 +3,12 @@
     python3 chip_smoke.py
 
 Drives the port's paths on the card — the commitment planner in both
-modes, without and with the spot band and its Monte-Carlo replay, and the
-serving engine on the published stablelm-1.6b and rwkv6-3b — and checks
-each of their kernels (commitment sweep, revocation walk, flash attention,
-RWKV6 recurrence) against its plain PyTorch version.  Flash
+modes, without and with the spot band and its Monte-Carlo replay, with
+the migration and convertible bands on a fleet in generation turnover,
+and the serving engine on the published stablelm-1.6b and rwkv6-3b — and
+checks each of their kernels (commitment sweep, revocation walk,
+generation turnover, flash attention, RWKV6 recurrence) against its plain
+PyTorch version.  Flash
 attention is three CUDA kernels, routed by dtype, head dim and query rows
 (``flash_attention.route``): a tensor-core bf16 prefill (``prefill_tc``),
 a split-KV decode (``decode_split``) and the SIMT kernel (``simt``: f32
@@ -14,7 +16,7 @@ prefill, bf16 with head dim 32).  Phases, in this order, each printing one
 JSON line and raising on failure:
 
   device    card name and power limit, torch and CUDA versions
-  build     nvcc build of the six kernel sources, one nvcc each, all at
+  build     nvcc build of the seven kernel sources, one nvcc each, all at
             once (time, ptxas report)
   kernel    sweep kernel vs plain version on the card: ragged shapes, the
             (T,)/(G,) cases, no weights, prefix masks, the bucketed
@@ -28,6 +30,13 @@ JSON line and raising on failure:
             one launch per row block, and a rerun == the first run, bit
             for bit
   ties      the solvers' sorts on tied inputs, card vs CPU bit for bit
+  turnover  generation-turnover kernel vs its plain version on the card:
+            T = 1, ragged T, a fleet with no edges (pure deflation), edges
+            at the first and last pool, and the main shape 1024 pools x
+            26,280 hours, bit for bit, with volume conserved and a rerun
+            bit for bit; the kernel against the per-hour loop
+            (migrate_demand_loop) at 1024 x 4,096 hours, bit for bit; the
+            kernel's, the plain version's and the loop's times
   fleet     the 1024-pool, 3-year synthetic fleet (seed 0)
   cpu       its first 16 pools replayed on the CPU (plain version) and on
             the card (kernel): totals, targets, tranche book vs carried
@@ -58,6 +67,21 @@ JSON line and raising on failure:
             over 32 revocation draws (one walk launch; availability meets
             its 0.95 target, realized cost within 10% of planned); wall
             times and peak memory
+  migration the turnover fleet (1024 pools in 512 old/successor pairs, 128
+            regions, 3 clouds, seed 0) synthesized on the card (one
+            turnover launch, a main path), then api.plan rolling with the
+            grid solver and migration=True, convertible=True (468 sweep
+            launches: pool rows and cloud rows each replayed week of both
+            replays; the bill within rel 1e-4 of MIGRATION_BILL), the
+            one-shot plan with both bands (2 sweep launches, its bill
+            within rel 1e-4 of MIGRATION_ONE_SHOT_BILL), and the
+            migration-blind rolling grid plan (234) on the same fleet;
+            wall times, peak memory, the aware-vs-blind margin (printed);
+            both modes on the 16 pools of regions 0 and 1 (whole pairs,
+            all three clouds) card vs CPU; the one-shot plan on a fleet
+            that buys a convertible band (the planted two-edge table, 1024
+            pools x 30 weeks): card vs CPU, the band nonzero, the bill
+            within rel 1e-4 of PLANTED_ONE_SHOT_BILL
   profile   the grid plan under torch.profiler: device busy time, time by
             kernel (full table in build/chip_smoke/profile_grid_plan.txt), and
             the host-side tranche book timed alone
@@ -96,7 +120,8 @@ JSON line and raising on failure:
             shape (flash: prefill_tc at the bf16 prefill, decode_split at
             the bf16 decode, simt at the f32 prefill, and at head dim 128
             beside the library; RWKV6 also at a short prompt's T = 128;
-            the revocation walk at its main shape),
+            the revocation walk at its main shape; the turnover kernel's
+            from phase turnover),
             library times,
             bounds, each flash wrapper's and library call's host time per
             call, then the kernel line {"kernels": [...]}
@@ -168,6 +193,40 @@ WALK_OPS = 12
 STACK_TOL = dict(rtol=0.03, atol=0.05)  # widths and levels, card vs CPU
 SWEEP_COST_BOUND = 1e-3     # grid+refine: C(c) <= C(c_exact) (1 + bound)
 PLAIN_CHUNK = 512           # rows per plain-version chunk at the main shape
+# Generation turnover: the kernel's main shape is the turnover fleet's
+# (P, T); the per-hour loop oracle runs on its first TURNOVER_LOOP_HOURS.
+# Float32 operations, counting an expf as one: per (edge, hour) t - mid,
+# the rate's product, the sigmoid's expf, add and divide, the move's
+# product, the source's sub, the gain's product, the successor's add and
+# the two outputs' deflator products; per lone (pool, hour) the deflator's
+# product; per hour the deflator's product and expf.
+TURNOVER_LOOP_HOURS = 4096
+TURNOVER_PAIR_OPS = 11
+TURNOVER_HOUR_OPS = 2
+TURNOVER_VOLUME_RTOL = 1e-4   # perf-adjusted volume, the reference's bound
+# The migration and convertible bands on the turnover fleet: sweep launches
+# of the aware rolling grid plan (pool rows and cloud rows, each replayed
+# week of the rolling and the one-shot replay), of the blind one, and the
+# bills as this script first printed them.
+EXPECTED_MIGRATION_LAUNCHES = 468
+EXPECTED_TURNOVER_LAUNCHES = 1   # the fleet's synthesis
+MIGRATION_BILL = {"total_cost": 2187169220.0, "one_shot_cost": 2926051328.0,
+                  "hindsight_cost": 2391582720.0,
+                  "convertible_cost": 9718212.0}
+MIGRATION_ONE_SHOT_BILL = {"total_cost": 131127077.20286283,
+                           "committed_cost": 117252783.51498042,
+                           "aggregate_cost": 126406127.60638298}
+MIGRATION_REGIONS = ("region_0", "region_1")   # the card-vs-CPU subset
+# The one-shot convertible band where it is nonzero: the full-width fleet
+# over 30 weeks with the reference's planted two-edge table (its
+# tests/test_generations.py fixture: aws C6i -> C7i from week 8 over 12
+# weeks, gcp N2 -> N4 from week 16 over 10), a 4-week horizon; the bill as
+# this script first printed it.
+PLANTED_GENERATIONS = (("aws", "C6i", "C7i", 8, 12.0, 0.25),
+                       ("gcp", "N2-Standard", "N4-Standard", 16, 10.0, 0.50))
+PLANTED_WEEKS, PLANTED_HORIZON_WEEKS = 30, 4
+PLANTED_ONE_SHOT_BILL = {"total_cost": 31999601.274787903,
+                         "conv_cost": 246545.78058510643}
 # Peak rates for the bound (NVIDIA data sheets, dense, at the full power
 # limit): FP32 on the CUDA cores, bf16 on the tensor cores, HBM bandwidth.
 PEAKS = {
@@ -207,8 +266,15 @@ OPS_PER_OUTPUT = 4          # its scan: sub, 2 muls, add per candidate
 HOST_COVER_CYCLES = 3_500_000
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started
+    (``elapsed_s``), so a run's time can be split by phase."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - _START}),
+          flush=True)
 
 
 def smi() -> str:
@@ -283,10 +349,13 @@ def phase_device():
 def kernel_modules():
     from repro_torch.kernels.commitment_sweep import commitment_sweep as ck
     from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.generation_turnover import (
+        generation_turnover as gk,
+    )
     from repro_torch.kernels.linrec import linrec as lk
     from repro_torch.kernels.revocation_walk import revocation_walk as wk
     return {"commitment_sweep": ck, "flash_attention": fk, "rwkv6": lk,
-            "revocation_walk": wk}
+            "revocation_walk": wk, "generation_turnover": gk}
 
 
 def reset_launches():
@@ -311,7 +380,8 @@ def kernel_sources():
             **{f"flash_{k}": src for k, src in
                mods["flash_attention"].SOURCES.items()},
             "rwkv6": mods["rwkv6"].SOURCE,
-            "revocation_walk": mods["revocation_walk"].SOURCE}
+            "revocation_walk": mods["revocation_walk"].SOURCE,
+            "generation_turnover": mods["generation_turnover"].SOURCE}
 
 
 def phase_build():
@@ -780,6 +850,20 @@ def phase_one_shot(pools, dev):
     return launches
 
 
+def timed(fn, counted):
+    """(fn(), wall seconds, launches of kernel ``counted`` in it, peak
+    memory), with every launch count set to 0 just before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (res, secs, read_launches()[counted],
+            torch.cuda.max_memory_allocated())
+
+
 def phase_spot(pools, grid_rep):
     """The spot band on the whole fleet: the rolling grid plan and the
     one-shot plan with spot=True (the main path, launches counted from 0
@@ -789,18 +873,6 @@ def phase_spot(pools, grid_rep):
     from repro_torch.core.api import PlanRequest, RollingConfig, plan
     from repro_torch.core.demand import PoolSet
     out = {}
-
-    def timed(fn, counted):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        return (res, secs, read_launches()[counted],
-                torch.cuda.max_memory_allocated())
-
     rolling = RollingConfig(solver="grid", num_grid=NUM_GRID)
     rep, secs, launches, peak = timed(lambda: plan(PlanRequest(
         pools=pools, mode="rolling", rolling=rolling, spot=True)),
@@ -905,6 +977,178 @@ def phase_spot(pools, grid_rep):
                      shortfall_chip_hours=rr.shortfall_chip_hours),
          nvidia_smi=smi(), **out)
     return walk_launches
+
+
+def phase_migration(grid_rep):
+    """The migration and convertible bands (a main path): the turnover
+    fleet synthesized on the card through the turnover kernel (launches
+    counted from 0 around it), the rolling grid plan and the one-shot plan
+    with migration=True and convertible=True, and the migration-blind
+    rolling grid plan on the same fleet (sweep launches counted from 0
+    around each); then both modes on the 16 pools of MIGRATION_REGIONS,
+    card against the CPU.  Returns (turnover launches, sweep launches of
+    the aware rolling plan)."""
+    from repro_torch.capacity import generations as gn
+    from repro_torch.core.api import PlanRequest, RollingConfig, plan
+    from repro_torch.core.demand import PoolSet
+    from repro_torch.data import traces
+    pools, synth_s, turnover_launches, _ = timed(
+        lambda: traces.synthetic_pool_set(
+            num_pools=NUM_POOLS, num_hours=NUM_HOURS, seed=0,
+            migration=True),
+        "generation_turnover")
+    if turnover_launches != EXPECTED_TURNOVER_LAUNCHES:
+        raise AssertionError(
+            f"{turnover_launches} turnover launches synthesizing the fleet")
+    edges = gn.migration_edges(pools.keys)
+    regions = {k[1] for k in pools.keys}
+    clouds = sorted({k[0] for k in pools.keys})
+    if (edges.num_edges, len(regions), len(clouds)) != (
+            NUM_POOLS // 2, NUM_POOLS // 8, 3):
+        raise AssertionError(
+            f"turnover fleet: {edges.num_edges} edges, {len(regions)} "
+            f"regions, clouds {clouds}")
+    if not (np.isfinite(pools.demand).all() and (pools.demand >= 0).all()):
+        raise AssertionError("turnover fleet: non-finite or negative demand")
+    out = dict(fleet=dict(pools=NUM_POOLS, hours=NUM_HOURS,
+                          edges=edges.num_edges, regions=len(regions),
+                          clouds=clouds, synth_s=synth_s,
+                          turnover_launches=turnover_launches))
+
+    rolling = RollingConfig(solver="grid", num_grid=NUM_GRID)
+    bands = dict(migration=True, convertible=True)
+    rep, secs, launches, peak = timed(lambda: plan(PlanRequest(
+        pools=pools, mode="rolling", rolling=rolling, **bands)),
+        "commitment_sweep")
+    costs = dict(total_cost=rep.total_cost, one_shot_cost=rep.one_shot_cost,
+                 hindsight_cost=rep.hindsight_cost,
+                 convertible_cost=float(rep.conv_committed_cost.sum()))
+    if not all(np.isfinite(v) and v > 0 for v in costs.values()):
+        raise AssertionError(f"non-finite or non-positive costs: {costs}")
+    if launches != EXPECTED_MIGRATION_LAUNCHES:
+        raise AssertionError(f"{launches} sweep launches in the migration "
+                             f"plan, expected {EXPECTED_MIGRATION_LAUNCHES}")
+    k = len(rep.options)
+    for i, w in enumerate(rep.weeks):
+        np.testing.assert_allclose(
+            rep.ladders.option_widths(int(w) * 168, k), rep.active[i],
+            rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(
+            rep.conv_ladders.option_widths(int(w) * 168,
+                                           len(rep.conv_options)),
+            rep.conv_active[i], rtol=1e-4, atol=1e-3)
+    out["bill_rel"] = {kk: abs(costs[kk] - v) / v
+                       for kk, v in MIGRATION_BILL.items()}
+    if max(out["bill_rel"].values()) > BILL_RTOL:
+        raise AssertionError(f"the migration plan's bill moved: "
+                             f"{out['bill_rel']}")
+    out.update(rolling_wall_s=secs, rolling_max_memory_allocated=peak,
+               rolling_sweep_launches=launches, rolling=costs,
+               convertible_final_width=float(rep.conv_active[-1].sum()))
+
+    one, secs, one_launches, peak = timed(
+        lambda: plan(PlanRequest(pools=pools, **bands)), "commitment_sweep")
+    one_costs = {kk: getattr(one, kk) for kk in ONE_SHOT_COSTS
+                 + ("conv_cost",)}
+    if not all(np.isfinite(v) for v in one_costs.values()):
+        raise AssertionError(f"non-finite one-shot costs: {one_costs}")
+    if one_launches != EXPECTED_ONE_SHOT_LAUNCHES:
+        raise AssertionError(f"{one_launches} sweep launches in the "
+                             "one-shot migration plan")
+    out["one_shot_bill_rel"] = {
+        kk: abs(one_costs[kk] - v) / abs(v)
+        for kk, v in MIGRATION_ONE_SHOT_BILL.items()}
+    if max(out["one_shot_bill_rel"].values()) > BILL_RTOL:
+        raise AssertionError(f"the one-shot migration bill moved: "
+                             f"{out['one_shot_bill_rel']}")
+    out.update(one_shot_wall_s=secs, one_shot_max_memory_allocated=peak,
+               one_shot_sweep_launches=one_launches, one_shot=one_costs,
+               one_shot_conv_width=float(one.conv_widths.sum()),
+               one_shot_conv_alloc=float(one.conv_alloc.sum()))
+
+    blind, secs, blind_launches, peak = timed(lambda: plan(PlanRequest(
+        pools=pools, mode="rolling", rolling=rolling)), "commitment_sweep")
+    if blind_launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"{blind_launches} sweep launches in the "
+                             "blind plan")
+    out.update(blind_wall_s=secs, blind_max_memory_allocated=peak,
+               blind_sweep_launches=blind_launches,
+               blind_total_cost=blind.total_cost,
+               aware_vs_blind_margin=1.0 - rep.total_cost / blind.total_cost,
+               aware_vs_blind_wall_s=out["rolling_wall_s"] - secs,
+               turnover_fleet_vs_grid_fleet_bill=(
+                   blind.total_cost / grid_rep.total_cost))
+
+    # the 16 pools of two regions (whole pairs, all three clouds), card
+    # against CPU, as shares of the CPU bill
+    keep = [i for i, key in enumerate(pools.keys)
+            if key[1] in MIGRATION_REGIONS]
+    sub = PoolSet(keys=tuple(pools.keys[i] for i in keep),
+                  demand=pools.demand[keep],
+                  configs=tuple(pools.configs[i] for i in keep))
+    card_cpu = {}
+    for mode, fields, conv, req in (
+            ("rolling", ("total_cost", "one_shot_cost"),
+             lambda r: float(r.conv_committed_cost.sum()),
+             PlanRequest(pools=sub, mode="rolling", rolling=rolling,
+                         **bands)),
+            ("one_shot", ("total_cost", "committed_cost", "on_demand_cost"),
+             lambda r: r.conv_cost,
+             PlanRequest(pools=sub, **bands))):
+        cpu, card = plan(req, device="cpu"), plan(req)
+        bill = abs(cpu.total_cost)
+        rel = {kk: abs(getattr(card, kk) - getattr(cpu, kk)) / bill
+               for kk in fields}
+        rel["convertible_cost"] = abs(conv(card) - conv(cpu)) / bill
+        if max(rel.values()) > CARD_CPU_RTOL:
+            raise AssertionError(f"migration {mode} card vs CPU: {rel}")
+        card_cpu[mode] = rel
+    out["card_vs_cpu_16_rel"] = dict(pools=len(keep), **card_cpu)
+    out["planted_one_shot"] = planted_one_shot()
+    emit("migration", solver="grid", nvidia_smi=smi(), **out)
+    return turnover_launches, launches
+
+
+def planted_one_shot():
+    """The one-shot plan's convertible band where the fleet buys one: the
+    planted two-edge table on NUM_POOLS pools over PLANTED_WEEKS, card
+    against CPU (costs as shares of the CPU bill, the cloud bands and their
+    allocation within the stack tolerance), a nonzero band, and the bill
+    within rel 1e-4 of PLANTED_ONE_SHOT_BILL."""
+    from repro_torch.capacity import generations as gn
+    from repro_torch.capacity import pricing
+    from repro_torch.core.api import PlanRequest, plan
+    from repro_torch.data import traces
+    plant = gn.MigrationConfig(generations=tuple(
+        pricing.Generation(*g) for g in PLANTED_GENERATIONS))
+    pools = traces.synthetic_pool_set(
+        num_pools=NUM_POOLS, num_hours=PLANTED_WEEKS * 168, seed=3,
+        migration=plant)
+    req = PlanRequest(pools=pools, horizon_weeks=PLANTED_HORIZON_WEEKS,
+                      migration=plant, convertible=True)
+    cpu, card = plan(req, device="cpu"), plan(req)
+    if not card.conv_cost > 0.0:
+        raise AssertionError("planted fleet: the one-shot plan bought no "
+                             "convertible band")
+    bill = abs(cpu.total_cost)
+    rel = {k: abs(getattr(card, k) - getattr(cpu, k)) / bill
+           for k in ("total_cost", "committed_cost", "on_demand_cost",
+                     "conv_cost")}
+    if max(rel.values()) > CARD_CPU_RTOL:
+        raise AssertionError(f"planted one-shot card vs CPU: {rel}")
+    np.testing.assert_allclose(card.conv_widths, cpu.conv_widths,
+                               **STACK_TOL)
+    np.testing.assert_allclose(card.conv_alloc, cpu.conv_alloc, **STACK_TOL)
+    bill_rel = {k: abs(getattr(card, k) - v) / abs(v)
+                for k, v in PLANTED_ONE_SHOT_BILL.items()}
+    if max(bill_rel.values()) > BILL_RTOL:
+        raise AssertionError(f"the planted one-shot bill moved: {bill_rel}")
+    return dict(pools=NUM_POOLS, weeks=PLANTED_WEEKS,
+                edges=card.migration_edges.num_edges,
+                conv_cost=card.conv_cost, total_cost=card.total_cost,
+                conv_widths=card.conv_widths.sum(-1).tolist(),
+                conv_clouds=list(card.conv_clouds),
+                card_vs_cpu_rel=rel, bill_rel=bill_rel)
 
 
 def device_kernels(prof):
@@ -1296,6 +1540,127 @@ def phase_walk(dev):
          states_bit_for_bit=True, rerun_bit_for_bit=True,
          main_shape_n_p_t=list(WALK_MAIN))
     return max(errs.values())
+
+
+def turnover_args(base, edges):
+    """The kernel wrapper's arguments for ``edges`` on base (P, T), with
+    the unit table ops builds, so a timed call is the launch alone."""
+    from repro_torch.capacity import generations as gn
+    from repro_torch.kernels.generation_turnover import ops
+    unit_rows, unit_edge = ops.units(base.shape[0], edges.src.tolist(),
+                                     edges.dst.tolist(), base.device)
+    return (base, unit_rows, unit_edge,
+            edges.inv_gain, edges.midpoint_hours, edges.rate_per_hour,
+            gn._sw_log(gn.MigrationConfig().software_efficiency_per_year))
+
+
+def phase_turnover(dev, base):
+    """The generation-turnover kernel against its plain version, both on
+    the card: one hour; ragged hours over a turnover fleet of 14 pools; a
+    fleet with no edges (pure deflation); edges at the first and last
+    pool; the main shape, ``base`` (the turnover fleet before turnover),
+    with its perf-adjusted volume conserved and a rerun equal to the first
+    run; and the kernel against the per-hour loop on the main shape's
+    first TURNOVER_LOOP_HOURS.  Bit for bit throughout.  Returns (max abs
+    error, timing)."""
+    from repro_torch.capacity import generations as gn
+    from repro_torch.data import traces
+    from repro_torch.kernels.generation_turnover import generation_turnover as gk
+    from repro_torch.kernels.generation_turnover.ref import turnover_ref
+    cfg = gn.MigrationConfig()
+    sw_log = gn._sw_log(cfg.software_efficiency_per_year)
+
+    def fleet_case(pools):
+        edges = gn.migration_edges(pools.keys, cfg, device=dev)
+        return torch.from_numpy(pools.demand).to(dev), edges
+
+    gen = torch.Generator().manual_seed(50)
+    ends = torch.rand(6, 513, generator=gen).mul(200.0).to(dev)
+    first_last = (ends, gn.MigrationEdges(
+        src=torch.tensor([5], device=dev), dst=torch.tensor([0], device=dev),
+        uplift=torch.tensor([0.25], device=dev),
+        inv_gain=1.0 / (1.0 + torch.tensor([0.25], device=dev)),
+        midpoint_hours=torch.tensor([256.0], device=dev),
+        rate_per_hour=torch.tensor([0.02], device=dev)))
+    cases = {
+        "one_hour": fleet_case(traces.synthetic_base_pool_set(
+            num_pools=8, num_hours=1, seed=1)),
+        "ragged": fleet_case(traces.synthetic_base_pool_set(
+            num_pools=14, num_hours=1001, seed=2)),
+        "no_edges": fleet_case(traces.synthetic_pool_set(
+            num_pools=5, num_hours=777, seed=3)),
+        "first_last": first_last,
+        "main": fleet_case(base),
+    }
+    out = {}
+    for name, (b, edges) in cases.items():
+        got = gn.migrate_demand(b, edges)
+        want = turnover_ref(b, edges.src, edges.dst, edges.inv_gain,
+                            edges.midpoint_hours, edges.rate_per_hour,
+                            sw_log)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"turnover {name}: differs from the plain version by "
+                f"{float((got - want).abs().max())}")
+        out[name] = dict(shape=list(b.shape), edges=edges.num_edges)
+    if not torch.equal(cases["no_edges"][0] * torch.exp(
+            -sw_log * torch.arange(777, dtype=torch.float32, device=dev)),
+            gn.migrate_demand(*cases["no_edges"])):
+        raise AssertionError("turnover without edges is not the deflation")
+
+    b, edges = cases["main"]
+    got = gn.migrate_demand(b, edges)
+    again = gn.migrate_demand(b, edges)
+    if not torch.equal(got, again):
+        raise AssertionError("turnover main: a rerun differs")
+    t = torch.arange(b.shape[1], dtype=torch.float64, device=dev)
+    eff = gn.software_deflator(t.float(), cfg.software_efficiency_per_year)
+    perf = torch.ones(b.shape[0], dtype=torch.float64, device=dev)
+    perf[edges.dst] = 1.0 + edges.uplift.double()
+    vol = float(((got.double() / eff.double()) * perf[:, None]).sum())
+    vol_rel = abs(vol / float(b.double().sum()) - 1.0)
+    if vol_rel > TURNOVER_VOLUME_RTOL:
+        raise AssertionError(f"turnover main: volume moved by {vol_rel}")
+
+    hb = b[:, :TURNOVER_LOOP_HOURS].contiguous()
+    got = gn.migrate_demand(hb, edges)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop = gn.migrate_demand_loop(hb, edges)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    if not torch.equal(got, loop):
+        raise AssertionError(
+            "turnover: kernel differs from the per-hour loop by "
+            f"{float((got - loop).abs().max())}")
+    del got, again, loop, hb
+
+    name = torch.cuda.get_device_name(0)
+    peak = PEAKS["pcie" if "PCIe" in name else "sxm"]
+    args = turnover_args(b, edges)
+    ms, plain_ms, kern_sets, plain_sets = time_turns(
+        lambda: gk.generation_turnover_cuda(*args),
+        lambda: turnover_ref(b, edges.src, edges.dst, edges.inv_gain,
+                             edges.midpoint_hours, edges.rate_per_hour,
+                             sw_log))
+    p, t, g = b.shape[0], b.shape[1], edges.num_edges
+    # every row read once and written once, and the edges' five columns
+    # (src, dst as int32, gain, midpoint, rate); the unit table is the
+    # kernel's own layout of src and dst, not more input
+    nbytes = 4 * (2 * p * t + 5 * g)
+    nops = (TURNOVER_PAIR_OPS * g + (p - 2 * g) + TURNOVER_HOUR_OPS) * t
+    ms_bound, by = bound(nops, nbytes, peak["fp32_flops"], peak)
+    timing = dict(shape_p_t=[p, t], edges=g, ms=ms, plain_ms=plain_ms,
+                  kernel_ms=kern_sets, plain_ms_sets=plain_sets,
+                  bound_ms=ms_bound, bound_by=by, bound_bytes=nbytes,
+                  bound_ops=nops,
+                  share_of_bound=ms_bound / ms,
+                  loop_s=loop_s, loop_shape_p_t=[p, TURNOVER_LOOP_HOURS])
+    emit("turnover", cases=out, bit_for_bit=True, rerun_bit_for_bit=True,
+         loop_bit_for_bit=True, volume_rel=vol_rel, nvidia_smi=smi(),
+         **timing)
+    return 0.0, timing
 
 
 def serve_prompt_lengths():
@@ -1724,7 +2089,7 @@ def timing_walk(dev, peak):
                 bound_ops=WALK_OPS * n * p * t, share_of_bound=ms_bound / ms)
 
 
-def phase_timing(dev, launches, errs):
+def phase_timing(dev, launches, errs, turnover):
     from repro_torch.kernels.commitment_sweep import commitment_sweep as ck
     name = torch.cuda.get_device_name(0)
     peak = PEAKS["pcie" if "PCIe" in name else "sxm"]
@@ -1761,7 +2126,7 @@ def phase_timing(dev, launches, errs):
              simt_d128=f"{FLASH_PREFILL[:3] + (128,)} causal float32",
              decode_split=f"{FLASH_DECODE} cache {SERVE_CACHE} bfloat16"),
              **fl),
-         rwkv6=lin, revocation_walk=walk)
+         rwkv6=lin, revocation_walk=walk, generation_turnover=turnover)
     flash_srcs = kernel_modules()["flash_attention"].SOURCES
     flash_mix = launches["flash_by_kernel"]
     pre = fl["prefill_tc"]
@@ -1779,6 +2144,11 @@ def phase_timing(dev, launches, errs):
             "launches_per_plan": launches["commitment_sweep"],
             "launches_per_one_shot_plan":
                 launches["commitment_sweep_one_shot"],
+            # with migration=True, convertible=True the grid plan also
+            # sweeps the cloud rows (3 clouds x 8 horizons) every week
+            "launches_per_migration_plan":
+                launches["commitment_sweep_migration"],
+            "migration_cloud_rows_shape": [3 * HORIZON_WEEKS, MAIN_G, MAIN_T],
             "max_abs_err": errs["commitment_sweep"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": sweep_bound[0],
             "bound_by": sweep_bound[1], "library_ms": None,
@@ -1846,6 +2216,23 @@ def phase_timing(dev, launches, errs):
             "library_note": "no single PyTorch call computes the walk",
             "shape": f"N, P, T = {WALK_MAIN} float32",
         },
+        {
+            "name": "generation_turnover", "route": "cuda",
+            "source": "src/repro_torch/kernels/generation_turnover/csrc/"
+                      "generation_turnover.cu",
+            "replaces": "src/repro/capacity/generations.py:275",
+            "replaces_note": "the lax.scan over hours of migrate_demand "
+                             "(its step _mig_step at :251), not a Pallas "
+                             "kernel",
+            "launches": launches["generation_turnover"],
+            "launches_per_turnover_fleet": launches["generation_turnover"],
+            "max_abs_err": errs["generation_turnover"],
+            "ms": turnover["ms"], "plain_ms": turnover["plain_ms"],
+            "bound_ms": turnover["bound_ms"],
+            "bound_by": turnover["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes the turnover",
+            "shape": f"P, T = {tuple(turnover['shape_p_t'])} float32",
+        },
     ]}), flush=True)
 
 
@@ -1863,6 +2250,9 @@ def main() -> int:
     errs["rwkv6"] = phase_linrec(dev)
     errs["revocation_walk"] = phase_walk(dev)
     from repro_torch.data import traces
+    errs["generation_turnover"], turnover = phase_turnover(
+        dev, traces.synthetic_base_pool_set(
+            num_pools=NUM_POOLS, num_hours=NUM_HOURS, seed=0))
     t0 = time.perf_counter()
     pools = traces.synthetic_pool_set(
         num_pools=NUM_POOLS, num_hours=NUM_HOURS, seed=0)
@@ -1873,18 +2263,21 @@ def main() -> int:
     phase_quantile(pools, grid_rep)
     one_shot_launches = phase_one_shot(pools, dev)
     walk_launches = phase_spot(pools, grid_rep)
+    turnover_launches, migration_launches = phase_migration(grid_rep)
     phase_profile(pools, grid_rep, plan_s)
     del pools, grid_rep
     phase_model_cpu(dev)
     launches = {"commitment_sweep": sweep_launches,
                 "commitment_sweep_one_shot": one_shot_launches,
-                "revocation_walk": walk_launches}
+                "revocation_walk": walk_launches,
+                "generation_turnover": turnover_launches,
+                "commitment_sweep_migration": migration_launches}
     launches["flash_attention"], dense = phase_serve(
         "serve_dense", "stablelm-1.6b", dev, "flash_attention")
     launches["flash_by_kernel"] = dense["launches"]["flash_by_kernel"]
     launches["rwkv6"], _ = phase_serve(
         "serve_rwkv", "rwkv6-3b", dev, "rwkv6")
-    phase_timing(dev, launches, errs)
+    phase_timing(dev, launches, errs, turnover)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,3 @@
-"""Capacity data the port needs: the pricing tables (paper Table 2)."""
+"""Capacity data and models the port needs: the pricing tables (paper
+Tables 1-2), the spot revocation process, generation turnover, and the
+spot plan's replay."""

@@ -1,10 +1,11 @@
-"""Carry a fleet, its purchase options, its spot lines and a model's
-parameters across from the JAX package.
+"""Carry a fleet, its purchase options, its spot lines, its successor
+table and a model's parameters across from the JAX package.
 
 The functions are duck-typed: they read plain fields (``keys``,
 ``demand``, ``configs`` of a pool set; ``name``, ``cloud``, ``rate``,
 ``term_weeks``, ``convertible`` of a purchase option; the arrays of spot
-lines and revocation parameters) as numpy arrays and Python values, so
+lines and revocation parameters; the rows of a migration config) as numpy
+arrays and Python values, so
 they need no import of the reference package.  The
 parity tests use them so that both packages plan the very same fleet.
 """
@@ -16,7 +17,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.capacity import generations as gn
 from repro_torch.capacity import preemption as pe
+from repro_torch.capacity import pricing
 from repro_torch.core import demand as dm
 from repro_torch.core import portfolio as pf
 from repro_torch.core import spot as sp
@@ -48,6 +51,20 @@ def options_from_reference(ref_opts) -> list[pf.PurchaseOption]:
         )
         for o in ref_opts
     ]
+
+
+def migration_config_from_reference(ref) -> gn.MigrationConfig:
+    """The port's MigrationConfig holding ``ref``'s successor rows,
+    software-efficiency rate and share-prior weight, so both packages can
+    plant the same table."""
+    names = [f.name for f in dataclasses.fields(pricing.Generation)]
+    return gn.MigrationConfig(
+        generations=tuple(
+            pricing.Generation(**{n: getattr(g, n) for n in names})
+            for g in ref.generations),
+        software_efficiency_per_year=float(ref.software_efficiency_per_year),
+        share_prior_weight=float(ref.share_prior_weight),
+    )
 
 
 def _f32(x, device) -> torch.Tensor:

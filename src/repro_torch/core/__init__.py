@@ -5,11 +5,14 @@
   demand     — synthetic demand traces, §2.2 statistics, the PoolSet fleet
   forecast   — structural forecaster: the batched one-shot fit, prefix
                normal equations, ridge solves
-  ladder     — staggered tranches, the per-pool tranche book, Fig. 9
+  ladder     — staggered tranches, the per-pool and cloud-level tranche
+               books, Fig. 9
+  migration  — share-based forecasting and the driver decomposition of a
+               fleet in generation turnover
   planner    — Algorithm 1: plan_commitment, plan_portfolio, the one-shot
                fleet plan, Fig. 8
   policy     — the weekly decision rules of the replay
   portfolio  — purchase options, cost lines, exact and grid stack solvers,
-               the real-dollar spend
+               the real-dollar spend, the convertible band's helpers
   replan     — the rolling weekly replay, a loop over weeks on the device
 """

@@ -13,12 +13,14 @@ The same fields and the same eager validation as the reference's
 
 Both modes are ported: ``mode="one_shot"`` (the default) returns a
 :class:`repro_torch.core.planner.FleetPoolsPlan`, ``mode="rolling"`` a
-:class:`repro_torch.core.replan.RollingPlanReport`; ``spot=`` (None, a
-bool or a :class:`repro_torch.core.spot.SpotConfig`) runs in both.  The
-other band configs (``migration``, ``convertible``, ``scenarios``,
-``telemetry``), ``cadence="breach"`` and ``irls_carry=True`` are accepted
-at construction, as in the reference, and raise ``NotImplementedError``
-naming their ROADMAP item when planned.
+:class:`repro_torch.core.replan.RollingPlanReport`.  ``spot=`` (None, a
+bool or a :class:`repro_torch.core.spot.SpotConfig`), ``migration=``
+(None, a bool or a :class:`repro_torch.capacity.generations.
+MigrationConfig`) and ``convertible=`` (None, a bool or a list of
+convertible purchase options) run in both.  The other band configs
+(``scenarios``, ``telemetry``), ``cadence="breach"`` and
+``irls_carry=True`` are accepted at construction, as in the reference, and
+raise ``NotImplementedError`` naming their ROADMAP item when planned.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Any, Literal
 
 import torch
 
+from repro_torch.capacity import generations as gn
 from repro_torch.core import forecast as fc
 from repro_torch.core import policy as pol
 from repro_torch.core import spot as spot_mod
@@ -158,6 +161,7 @@ class PlanRequest:
                     "spot= takes a SpotConfig, bool, or None, got "
                     f"{type(self.spot).__name__}"
                 )
+        gn.resolve_migration(self.migration)
         known = tuple(pol.POLICIES) + pol.UNPORTED_POLICIES
         if isinstance(self.policy, str) and self.policy not in known:
             raise ValueError(

@@ -228,6 +228,27 @@ def plan_pool_portfolio_purchases(
     return PoolLadderBook(keys=keys, ladders=tuple(ladders))
 
 
+def convertible_ladder_book(
+    cloud_targets: np.ndarray,
+    term_hours: np.ndarray,
+    clouds,
+    *,
+    period_hours: int = HOURS_PER_WEEK,
+) -> PoolLadderBook:
+    """Convertible tranches as a *cloud-level* ladder book.
+
+    cloud_targets (C, W, Kc): per cloud, per period, the target width of
+    each convertible SKU's band.  A convertible commitment attaches to a
+    cloud and re-pins across that cloud's families at every re-plan, so
+    the book's keys are the pseudo-pools ``(cloud, "*", "convertible")``.
+    Tranche mechanics are those of the pool book, so its live widths
+    reconcile with the replay's carried cloud-level stack week by week."""
+    keys = tuple((c, "*", "convertible") for c in clouds)
+    return plan_pool_portfolio_purchases(
+        cloud_targets, term_hours, keys, period_hours=period_hours,
+    )
+
+
 def weekly_spot_ladder(
     peaks: np.ndarray,
     *,

@@ -29,11 +29,13 @@ from typing import Any, Literal
 import numpy as np
 import torch
 
+from repro_torch.capacity import generations as gn
 from repro_torch.capacity import pricing
 from repro_torch.core import commitment as cm
 from repro_torch.core import demand as dm
 from repro_torch.core import forecast as fc
 from repro_torch.core import ladder as ld
+from repro_torch.core import migration as mg
 from repro_torch.core import portfolio as pf
 from repro_torch.core import spot as spot_mod
 from repro_torch.core.demand import HOURS_PER_WEEK
@@ -43,8 +45,6 @@ pricing.validate_tables()
 
 #: Keywords whose subsystem the port does not have yet, by ROADMAP item.
 UNPORTED_BANDS = {
-    "migration": "item 11: generation turnover and convertibles",
-    "convertible": "item 11: generation turnover and convertibles",
     "scenarios": "item 12: scenario batching",
     "telemetry": "item 14: telemetry emitters",
 }
@@ -313,9 +313,13 @@ class FleetPoolsPlan:
     clouds and SKUs.  With a spot band, ``spot_lines`` holds the per-pool
     :class:`~repro_torch.core.spot.SpotLines`, ``spot_floor`` (P,) the
     full-window floors and ``spot_cost`` the spot bill, which
-    ``total_cost`` includes.  The migration and convertible fields keep
-    the reference's layout and stay None or 0.0 until those bands are
-    ported (ROADMAP Queue 1, item 11)."""
+    ``total_cost`` includes.  With the migration band, ``migration_edges``
+    holds the matched :class:`~repro_torch.capacity.generations.
+    MigrationEdges`; with the convertible band, ``conv_options`` the
+    cloud-level SKUs, ``conv_clouds`` their cloud axis, ``conv_widths``
+    (C, Kc) the bands bought, ``conv_alloc`` (P,) their re-pin onto the
+    pools for the window, ``conv_ladders`` the cloud-level book and
+    ``conv_cost`` their bill, which ``total_cost`` includes."""
 
     keys: tuple[dm.PoolKey, ...]
     options: list[pf.PurchaseOption]
@@ -470,9 +474,16 @@ def _plan_fleet_pools_one_shot(
     The pools' spend is one commitment-sweep launch over the P rows (with
     spot: the level and the floor of each row), the aggregate's one more;
     the results come to the host in a fixed number of copies, however many
-    pools there are.  ``migration`` and ``convertible`` raise
-    ``NotImplementedError`` naming their ROADMAP item."""
-    reject_unported_bands(migration=migration, convertible=convertible)
+    pools there are.
+
+    ``migration`` (True or a ``generations.MigrationConfig``) fits the
+    structural forecaster on turnover-invariant pair totals and recomposes
+    per-pool forecasts from total x logistic share (``core.migration``).
+    ``convertible`` (True or a list of convertible options) adds the
+    cloud-level band: a stack sized on each cloud's total forecast,
+    truncated below the pools' pinned stacks, re-pinned onto the pools by
+    forecast-peak excess for the window (lifting their billed level), and
+    billed at its committed rates over the window."""
     dev = resolve_device(device)
     options = options if options is not None else pf.options_from_pricing()
     od = od_rate if od_rate is not None else pricing.on_demand_premium()
@@ -491,10 +502,24 @@ def _plan_fleet_pools_one_shot(
     )
     qs = pf.handover_fractiles(al_p, be_p, od_rate=od)            # (P, K)
 
-    # Steps 1-2: one batched fit and forecast over the P axis.
-    model = fc.fit_batched(hist, cfg)
+    # Steps 1-2: one batched fit and forecast over the P axis.  With the
+    # migration band the fit runs on pair totals, and per-pool forecasts
+    # are recomposed from total x logistic share.
+    mig_cfg = gn.resolve_migration(migration)
+    edges = (gn.migration_edges(pools.keys, mig_cfg, device=dev)
+             if mig_cfg is not None else None)
+    use_mig = edges is not None and edges.num_edges > 0
     t_fut = hist.shape[-1] + torch.arange(eval_hours, device=dev)
-    yhat = fc.predict_batched(model, t_fut)                       # (P, H)
+    if use_mig:
+        model = fc.fit_batched(mg.transform_for_fit(hist, edges), cfg)
+        sh_a, sh_b = mg.fit_share(hist, edges, t_max=model.t_max,
+                                  prior_weight=mig_cfg.share_prior_weight)
+        yhat = mg.compose_forecast(
+            fc.predict_batched(model, t_fut),
+            mg.predict_share(sh_a, sh_b, t_fut, model.t_max), edges)
+    else:
+        model = fc.fit_batched(hist, cfg)
+        yhat = fc.predict_batched(model, t_fut)                   # (P, H)
     w_hours = torch.arange(1, horizon_weeks + 1, device=dev) * HOURS_PER_WEEK
 
     # Steps 3-4, per-pool fractiles riding along.
@@ -519,11 +544,31 @@ def _plan_fleet_pools_one_shot(
         per_horizon, qs, term_weeks, horizon_weeks
     )                                                             # (P, K)
 
+    conv_opts = pf.resolve_convertible(convertible, pools.clouds)
+    conv_alloc = None
+    if conv_opts is not None:
+        conv_clouds, conv_widths, conv_alloc = _one_shot_convertible(
+            conv_opts, pools.clouds, yhat, widths, w_hours, horizon_weeks,
+            term_weighting, od)
+
     spends = pf.portfolio_spends(actual, widths, options, od_rate=od,
-                                 spot_rate=spot_rate, spot_floor=spot_floor)
-    widths_np, levels_np, qs_np, per_h_np, yhat_np = _to_host(
-        widths, levels, qs, per_horizon, yhat
-    )
+                                 spot_rate=spot_rate, spot_floor=spot_floor,
+                                 level_offset=conv_alloc)
+    host = [widths, levels, qs, per_horizon, yhat]
+    if conv_opts is not None:
+        host += [conv_widths, conv_alloc]
+    widths_np, levels_np, qs_np, per_h_np, yhat_np, *conv_np = _to_host(
+        *host)
+    conv_cost = 0.0
+    if conv_opts is not None:
+        conv_widths_np, conv_alloc_np = conv_np
+        conv_rates = np.asarray([o.rate for o in conv_opts])
+        conv_cost = float((conv_rates * conv_widths_np).sum() * eval_hours)
+        conv_ladders = ld.convertible_ladder_book(
+            conv_widths_np[:, None, :],
+            np.asarray([o.term_weeks * HOURS_PER_WEEK for o in conv_opts]),
+            conv_clouds,
+        )
 
     # Per-pool tranche stacks: buy every band now; terms are per-SKU.
     term_hours = np.asarray([o.term_weeks * HOURS_PER_WEEK for o in options])
@@ -543,7 +588,7 @@ def _plan_fleet_pools_one_shot(
     committed = sum(float(e.spend.committed.sum()) for e in per_pool)
     on_demand = sum(e.spend.on_demand for e in per_pool)
     spot_cost = sum(e.spend.spot for e in per_pool)
-    total = committed + on_demand + spot_cost
+    total = committed + on_demand + spot_cost + conv_cost
     all_od = sum(e.spend.all_on_demand for e in per_pool)
     savings = 1.0 - total / all_od if all_od > 0 else 0.0
 
@@ -589,7 +634,36 @@ def _plan_fleet_pools_one_shot(
         spot_floor=(None if spot_floor is None
                     else spot_floor.cpu().numpy()),
         spot_cost=spot_cost,
+        migration_edges=edges if use_mig else None,
+        conv_options=conv_opts,
+        conv_clouds=None if conv_opts is None else tuple(conv_clouds),
+        conv_widths=None if conv_opts is None else conv_widths_np,
+        conv_alloc=None if conv_opts is None else conv_alloc_np,
+        conv_ladders=None if conv_opts is None else conv_ladders,
+        conv_cost=conv_cost,
     )
+
+
+def _one_shot_convertible(conv_opts, clouds, yhat, widths, w_hours,
+                          horizon_weeks, term_weighting, od):
+    """The one-shot plan's convertible band, on the forecasts' device:
+    Algorithm 1 on each cloud's total forecast with the convertible lines,
+    the stack truncated below the cloud's summed pinned stacks (the band
+    convertible buys is safe at cloud level but pinnable to no single
+    family), and the width re-pinned onto the pools by their excess of the
+    window's forecast *peak* over their own stacks (allocating sunk
+    capacity is free, and a mean-based need would leave the diurnal peaks
+    on demand).  Returns (clouds, widths (C, Kc), allocation (P,))."""
+    conv_clouds, member, _, _, qs_c, conv_terms = pf.convertible_cloud_setup(
+        conv_opts, clouds, term_weighting=term_weighting, od_rate=od,
+        device=yhat.device)
+    pool_top = widths.sum(-1)
+    per_h_c = _prefix_weighted_quantiles(member @ yhat, w_hours, qs_c)
+    cw, ct = _monotone_stack(per_h_c, qs_c, conv_terms, horizon_weeks)
+    conv_widths = pf.truncate_convertible_stack(ct, cw, member @ pool_top)
+    excess = torch.clamp(yhat.amax(-1) - pool_top, min=0.0)
+    alloc = pf.allocate_convertible(conv_widths.sum(-1), excess, member)
+    return conv_clouds, conv_widths, alloc
 
 
 def _aggregate_spot(agg_res, hist, s_lines, options, term_weeks, w_hours,

@@ -60,6 +60,9 @@ class PolicyContext:
     irls_iters: int = 0
     # yhat (P, Wh*168) -> (targets (P, K), spot floor (P,) | None)
     targets_for: Callable | None = None
+    # (yhat, week) -> yhat: the migration band's recomposition of pair-total
+    # forecasts into per-pool forecasts (None without the band)
+    compose_forecast: Callable | None = None
 
     @property
     def horizon_hours(self) -> int:
@@ -103,8 +106,9 @@ class Policy:
 
 class RollingPortfolioPolicy(Policy):
     """The paper's rolling loop as a policy: re-fit the forecaster on the
-    week-``w`` prefix, forecast the horizon, and run Algorithm 1 steps 2-4
-    for the target stack."""
+    week-``w`` prefix, forecast the horizon (recomposed from pair totals
+    and shares by ``ctx.compose_forecast`` under the migration band), and
+    run Algorithm 1 steps 2-4 for the target stack."""
 
     name = "rolling_portfolio"
     forecasting = True
@@ -117,6 +121,8 @@ class RollingPortfolioPolicy(Policy):
             yhat = fc.predict_from_beta(
                 ctx.state, beta, w * HOURS_PER_WEEK, ctx.horizon_hours
             )
+            if ctx.compose_forecast is not None:
+                yhat = ctx.compose_forecast(yhat, w)
             targets, floor = ctx.targets_for(yhat)
             return pstate, Decision(
                 targets, floor, yhat, self._is_decision(ctx, w)

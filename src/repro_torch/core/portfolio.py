@@ -18,6 +18,13 @@ Two solvers, both batched over a leading row axis (the reference vmaps):
 
 :func:`portfolio_spends` bills stacks in real dollars over an evaluation
 window, all rows in one sweep.
+
+The convertible band (``convertible=`` on both planners) adds cloud-level
+exchangeable SKUs (:func:`convertible_options_from_pricing`): sized on
+cloud-total forecasts above the pools' pinned stacks
+(:func:`convertible_cloud_setup`, :func:`truncate_convertible_stack`) and
+re-pinned onto the cloud's pools each period
+(:func:`allocate_convertible`).
 """
 
 from __future__ import annotations
@@ -43,8 +50,10 @@ class PurchaseOption:
 
     ``rate`` is the committed $/unit-hour in normalized units (mean Table-2
     3y committed rate = 1.0, so on-demand ~= 2.1).  ``convertible`` marks
-    the cloud-level exchangeable SKU class, which the convertible slice
-    (ROADMAP Queue 1, item 11) adds to the planner."""
+    the cloud-level exchangeable SKU class (``pricing.CONVERTIBLE_PLANS``):
+    a convertible tranche is bought against a *cloud* and may be re-pinned
+    to any family of that cloud at every re-plan boundary, for a discount
+    haircut against the standard line."""
 
     name: str
     cloud: str
@@ -78,6 +87,129 @@ def options_from_pricing(
                 (1.0 - p.discount_3y) / base, 156,
             ))
     return out
+
+
+def convertible_options_from_pricing(
+    clouds: Sequence[str] | None = None,
+    *,
+    terms: Sequence[str] = ("1y", "3y"),
+) -> list[PurchaseOption]:
+    """The per-cloud convertible SKUs: rate = 1 - (mean standard discount -
+    haircut) in the normalized units of :func:`options_from_pricing`, one
+    SKU per cloud per term."""
+    if clouds is None:
+        clouds = sorted(pricing.known_clouds())
+    base = 1.0 - pricing.mean_discount_3y()
+    out = []
+    for c in clouds:
+        d1, d3 = pricing.convertible_discounts(c)
+        if "1y" in terms:
+            out.append(PurchaseOption(
+                f"{c}/convertible/1y", c, (1.0 - d1) / base, 52,
+                convertible=True,
+            ))
+        if "3y" in terms:
+            out.append(PurchaseOption(
+                f"{c}/convertible/3y", c, (1.0 - d3) / base, 156,
+                convertible=True,
+            ))
+    return out
+
+
+def resolve_convertible(
+    convertible, clouds: Sequence[str]
+) -> list[PurchaseOption] | None:
+    """Normalize the planner-facing ``convertible=`` argument: None/False
+    disables, True takes the default SKUs of the clouds in the fleet, an
+    option list passes through (every option must be convertible).  An
+    empty list means no convertible SKU exists: disabled."""
+    if convertible is None or convertible is False:
+        return None
+    if convertible is True:
+        convertible = convertible_options_from_pricing(sorted(set(clouds)))
+    if not isinstance(convertible, (list, tuple)) or not all(
+        isinstance(o, PurchaseOption) and o.convertible for o in convertible
+    ):
+        raise TypeError(
+            "convertible must be None/bool or a list of convertible "
+            f"PurchaseOptions, got {convertible!r}"
+        )
+    return list(convertible) or None
+
+
+def convertible_cloud_setup(
+    conv_options: Sequence[PurchaseOption],
+    pool_clouds: Sequence[str],
+    *,
+    term_weighting: float = 0.0,
+    od_rate: float = 2.1,
+    device=None,
+):
+    """The cloud-level machinery of the convertible band, shared by both
+    planners: the sorted cloud axis, the (C, P) 0/1 membership matrix,
+    per-cloud convertible cost lines (C, Kc) (wrong-cloud SKUs priced at
+    on-demand, as in :func:`pool_option_lines`), their handover fractiles
+    (C, Kc), and the SKUs' terms (Kc,) in weeks.  Returns
+    ``(clouds, member, alphas, betas, fractiles, term_weeks)`` on
+    ``device``."""
+    clouds = sorted(set(pool_clouds))
+    member = torch.tensor(
+        [[1.0 if c == pc else 0.0 for pc in pool_clouds] for c in clouds],
+        dtype=torch.float32, device=device,
+    )
+    al, be, _ = pool_option_lines(
+        conv_options, clouds, term_weighting=term_weighting,
+        od_rate=od_rate, device=device,
+    )
+    qs = handover_fractiles(al, be, od_rate=od_rate)
+    terms = torch.tensor(
+        [o.term_weeks for o in conv_options], dtype=torch.int64,
+        device=device,
+    )
+    return clouds, member, al, be, qs, terms
+
+
+def truncate_convertible_stack(
+    tops: torch.Tensor, widths: torch.Tensor, pinned: torch.Tensor
+) -> torch.Tensor:
+    """(C, Kc) convertible band widths: the cloud-total stack truncated
+    below the pool-pinned level.  Bands cover (top - width, top]; what lies
+    under ``pinned`` (C,) belongs to the cheaper family-pinned SKUs, so a
+    convertible band keeps only its part above it."""
+    return torch.clamp(
+        tops - torch.maximum(tops - widths, pinned[:, None]), min=0.0
+    )
+
+
+def allocate_convertible(
+    conv_width: torch.Tensor,
+    excess: torch.Tensor,
+    membership: torch.Tensor,
+    *,
+    rounds: int = 3,
+) -> torch.Tensor:
+    """Re-pin each cloud's convertible capacity onto its pools for one
+    period.
+
+    ``conv_width`` (C,) is the live convertible width per cloud, ``excess``
+    (P,) each pool's forecast demand above its own pinned stack,
+    ``membership`` (C, P) the 0/1 cloud-of-pool matrix.  The allocation is
+    proportional to excess with ``rounds`` redistribution passes, never
+    above a pool's excess; capacity beyond a cloud's total excess stays
+    unallocated (it bills its committed rate either way)."""
+    alloc = torch.zeros_like(excess)
+    need = excess
+    rem = conv_width
+    for _ in range(rounds):
+        cloud_need = membership @ need                       # (C,)
+        give = membership.T @ (
+            rem / torch.clamp(cloud_need, min=1e-9)
+        ) * need                                             # (P,)
+        give = torch.minimum(give, need)
+        alloc = alloc + give
+        need = need - give
+        rem = rem - membership @ give
+    return alloc
 
 
 def option_lines(

@@ -41,6 +41,19 @@ week the forecast's per-horizon spot floors (the envelope entry against
 the chance-constraint volume cap, sorts and gathers only) truncate the
 per-horizon committed levels, and the horizon-1 floor is that week's
 spot decision, never carried.
+
+``migration=`` makes the weekly forecasts turnover-aware
+(``core.migration``): the structural state fits pair totals in
+old-equivalent units, a share prefix state rides beside it, and each
+week's per-pool forecasts are recomposed from total x logistic share by
+the policy's ``compose_forecast`` hook.  ``convertible=`` adds the
+cloud-level exchangeable SKUs, carried as ``(active_c, rolloff_c)``
+(C, Kc): each week rolls off, sizes the cloud-level stack on the cloud
+totals of the forecast (truncated below the pools' pinned stacks), buys
+increments, re-pins the live width onto the pools by the coming week's
+forecast-peak excess, suppresses the standard buys pro rata, and bills the
+pools at their level plus that allocation.  Under ``solver="grid"`` the
+cloud rows are a second sweep launch each replayed week.
 """
 
 from __future__ import annotations
@@ -51,10 +64,12 @@ from typing import Literal
 import numpy as np
 import torch
 
+from repro_torch.capacity import generations as gn
 from repro_torch.capacity import pricing
 from repro_torch.core import demand as dm
 from repro_torch.core import forecast as fc
 from repro_torch.core import ladder as ld
+from repro_torch.core import migration as mg
 from repro_torch.core import policy as pol
 from repro_torch.core import portfolio as pf
 from repro_torch.core import spot as spot_mod
@@ -114,6 +129,22 @@ class RollingPlanReport:
     spot_cost: np.ndarray | None = None               # (S, P) weekly spend
     spot_volume: np.ndarray | None = None             # (S, P) chip-hours
     spot_ladders: ld.PoolLadderBook | None = None     # 1-week audit tranches
+    # Migration awareness (None on migration-blind replays): the successor
+    # table and the edges it matched onto the fleet.
+    migration_config: "gn.MigrationConfig | None" = None
+    migration_edges: "gn.MigrationEdges | None" = None
+    # Convertible band (None on convertible-free replays): cloud-level
+    # tranches carried per cloud, re-pinned onto that cloud's pools every
+    # week (``conv_alloc``).  Cloud axes align with ``conv_clouds``, option
+    # axes with ``conv_options``.
+    conv_options: "list[pf.PurchaseOption] | None" = None
+    conv_clouds: tuple[str, ...] | None = None
+    conv_targets: np.ndarray | None = None            # (S, C, Kc) targets
+    conv_increments: np.ndarray | None = None         # (S, C, Kc) buys
+    conv_active: np.ndarray | None = None             # (S, C, Kc) stack
+    conv_alloc: np.ndarray | None = None              # (S, P) re-pinned
+    conv_committed_cost: np.ndarray | None = None     # (S, C) weekly spend
+    conv_ladders: ld.PoolLadderBook | None = None     # cloud-level book
     # Which policy drove the weekly decisions (``core.policy``), and the
     # weeks on which it could buy.
     policy_name: str = "rolling_portfolio"
@@ -125,7 +156,10 @@ class RollingPlanReport:
         total = self.committed_cost + self.on_demand_cost
         if self.spot_cost is not None:
             total = total + self.spot_cost
-        return total.sum(-1)
+        total = total.sum(-1)
+        if self.conv_committed_cost is not None:
+            total = total + self.conv_committed_cost.sum(-1)
+        return total
 
     def summary(self) -> dict:
         out = {
@@ -139,6 +173,11 @@ class RollingPlanReport:
         if self.spot_cost is not None:
             out["spot_cost"] = float(self.spot_cost.sum())
             out["spot_chip_hours"] = float(self.spot_volume.sum())
+        if self.conv_committed_cost is not None:
+            out["convertible_cost"] = float(self.conv_committed_cost.sum())
+            out["convertible_final_width"] = float(
+                self.conv_active[-1].sum()
+            )
         if self.one_shot_cost is not None:
             out["one_shot_cost"] = self.one_shot_cost
             out["savings_vs_one_shot"] = self.savings_vs_one_shot
@@ -220,15 +259,16 @@ def replan_fleet_pools(
     ``portfolio.optimal_portfolio_grid``).
 
     ``spot`` (True, a :class:`~repro_torch.core.spot.SpotConfig` or a
-    (SpotConfig, SpotLines) pair) adds the spot band; it needs a
-    forecasting policy.  ``migration``, ``convertible``, ``scenarios``,
+    (SpotConfig, SpotLines) pair) adds the spot band, ``migration`` (True
+    or a ``generations.MigrationConfig``) the turnover-aware forecasts,
+    ``convertible`` (True or a list of convertible options) the
+    cloud-level band; each needs a forecasting policy.  ``scenarios``,
     ``telemetry``, ``cadence="breach"`` and ``irls_carry=True`` belong to
     subsystems the port does not have yet; setting any of them raises
     ``NotImplementedError`` naming the ROADMAP item.  ``breach_band`` and
     ``breach_tolerance`` only matter under ``cadence="breach"``."""
     del use_kernel, breach_band, breach_tolerance
     _reject_unported(
-        migration=migration, convertible=convertible,
         scenarios=scenarios, telemetry=telemetry, cadence=cadence,
         irls_carry=irls_carry,
     )
@@ -264,12 +304,6 @@ def replan_fleet_pools(
     qs = pf.handover_fractiles(al_p, be_p, od_rate=od)       # (P, K)
     sp_res = spot_mod.resolve_spot(spot, clouds, od_rate=od, device=dev)
     if sp_res is not None:
-        if not pcy.forecasting:
-            raise ValueError(
-                f"policy {pcy.name!r} does not forecast, but the spot band "
-                "keys on the weekly forecast; use a forecasting policy or "
-                "disable the band"
-            )
         s_cfg, s_lines = sp_res
         u_env = spot_mod.spot_entry_fractile(al_p, be_p, s_lines.rate,
                                              od_rate=od)      # (P,)
@@ -278,32 +312,74 @@ def replan_fleet_pools(
     )
     term_list = [o.term_weeks for o in options]
     term_weeks = torch.tensor(term_list, dtype=torch.int64, device=dev)
-    sched_len = total_weeks + max(term_list) + 1
+
+    # Migration awareness: the structural state fits pair totals, a share
+    # prefix state rides along, the policy recomposes each week's forecast.
+    mig_cfg = gn.resolve_migration(migration)
+    edges = (gn.migration_edges(pools.keys, mig_cfg, device=dev)
+             if mig_cfg is not None else None)
+    use_mig = edges is not None and edges.num_edges > 0
+
+    # Convertible band: cloud-level SKUs beside the pool-pinned options.
+    conv_opts = pf.resolve_convertible(convertible, clouds)
+    max_term = max(term_list)
+    if conv_opts is not None:
+        conv_clouds, member, al_c, be_c, qs_c, conv_terms = (
+            pf.convertible_cloud_setup(
+                conv_opts, clouds, term_weighting=term_weighting,
+                od_rate=od, device=dev,
+            )
+        )
+        num_clouds, num_conv = len(conv_clouds), len(conv_opts)
+        conv_rates = torch.tensor([o.rate for o in conv_opts],
+                                  dtype=torch.float32, device=dev)
+        conv_idx = torch.arange(num_conv, device=dev)
+        max_term = max(max_term, max(o.term_weeks for o in conv_opts))
+    sched_len = total_weeks + max_term + 1
+
+    bands = [name for name, on in (("spot", sp_res is not None),
+                                   ("migration", use_mig),
+                                   ("convertible", conv_opts is not None))
+             if on]
+    if bands and not pcy.forecasting:
+        raise ValueError(
+            f"policy {pcy.name!r} does not forecast, but "
+            f"{'/'.join(bands)} bands key on the weekly forecast; use a "
+            "forecasting policy or disable the bands"
+        )
     w_hours = torch.arange(1, horizon_weeks + 1, device=dev) * HOURS_PER_WEEK
     opt_idx = torch.arange(num_opts, device=dev)
 
+    fit_demand = mg.transform_for_fit(demand, edges) if use_mig else demand
     state = fc.prefix_fit_state(
-        demand, cfg, horizon_hours=horizon_hours,
+        fit_demand, cfg, horizon_hours=horizon_hours,
         min_prefix_hours=start_weeks * HOURS_PER_WEEK,
     )
     demand_wk = demand.reshape(num_pools, total_weeks, HOURS_PER_WEEK)
-    # Horizon prefix masks of the grid solver, (R*Wh, H): pool p's horizon
-    # h row keeps the first h weeks of the forecast.
+    # Horizon prefix masks of the grid solver, (R*Wh, H): row r's horizon
+    # h keeps the first h weeks of the forecast.
     t_h = torch.arange(horizon_hours, device=dev)
     prefix_masks = (t_h[None, :] < w_hours[:, None]).to(torch.float32)
-    grid_masks = prefix_masks.repeat(num_pools, 1) if solver == "grid" else None
+    pool_masks = cloud_masks = None
+    if solver == "grid":
+        pool_masks = prefix_masks.repeat(num_pools, 1)
+        if conv_opts is not None:
+            cloud_masks = prefix_masks.repeat(num_clouds, 1)
 
-    def grid_prefix_levels(yhat):
+    def grid_prefix_levels(yhat, alphas, betas, masks):
         """Per-horizon stack tops via the over/under sweep on prefix-mask
         weights: horizon prefixes fold into the row axis, so the whole
-        (P x Wh, H, G) problem is one sweep launch."""
+        (R x Wh, H, G) problem is one sweep launch (rows R are pools for
+        the standard options, clouds for the convertible band; ``masks``
+        is ``prefix_masks`` repeated once per row)."""
         plan = pf.optimal_portfolio_grid(
             yhat.repeat_interleave(horizon_weeks, dim=0),
-            al_p.repeat_interleave(horizon_weeks, dim=0),
-            be_p.repeat_interleave(horizon_weeks, dim=0),
-            od_rate=od, num_grid=num_grid, weights=grid_masks,
+            alphas.repeat_interleave(horizon_weeks, dim=0),
+            betas.repeat_interleave(horizon_weeks, dim=0),
+            od_rate=od, num_grid=num_grid, weights=masks,
         )
-        return plan.levels.reshape(num_pools, horizon_weeks, num_opts)
+        return plan.levels.reshape(yhat.shape[0], horizon_weeks,
+                                   alphas.shape[-1])
 
     def targets_for(yhat):
         """Algorithm 1 steps 2-4 on one week's forecast: per-horizon prefix
@@ -312,7 +388,7 @@ def replan_fleet_pools(
         spot floors first, and the horizon-1 floor (P,) rides along as
         the week's spot decision (None without spot)."""
         if solver == "grid":
-            per_h = grid_prefix_levels(yhat)
+            per_h = grid_prefix_levels(yhat, al_p, be_p, pool_masks)
         else:
             per_h = _prefix_weighted_quantiles(yhat, w_hours, qs)
         floor = None
@@ -322,6 +398,75 @@ def replan_fleet_pools(
             floor = floors[:, 0]
         widths, _ = _monotone_stack(per_h, qs, term_weeks, horizon_weeks)
         return widths, floor
+
+    def conv_targets_for(yhat, pool_top):
+        """Cloud-level convertible targets (C, Kc) on one week's forecast.
+        A cloud's total is turnover-invariant (demand moves between its
+        families, not out of it), so the safe cloud-level stack comes from
+        the same prefix thresholds -> term minima -> monotone stack on the
+        cloud totals with the convertible lines, truncated below the
+        cloud's summed pool stacks ``pool_top`` (P,): convertible buys the
+        band that is safe at cloud level but pinnable to no one family."""
+        total_c = member @ yhat                                # (C, H)
+        if solver == "grid":
+            per_h = grid_prefix_levels(total_c, al_c, be_c, cloud_masks)
+        else:
+            per_h = _prefix_weighted_quantiles(total_c, w_hours, qs_c)
+        widths_c, tops_c = _monotone_stack(per_h, qs_c, conv_terms,
+                                           horizon_weeks)
+        return pf.truncate_convertible_stack(tops_c, widths_c,
+                                             member @ pool_top)
+
+    compose_forecast = None
+    if use_mig:
+        share_state = mg.share_prefix_state(
+            demand, edges, t_max=state.t_max,
+            prior_weight=mig_cfg.share_prior_weight,
+        )
+
+        def compose_forecast(yhat, w):
+            """Pair totals x the week-``w`` prefix's logistic share fits
+            -> per-pool forecasts (the policy's hook)."""
+            sa, sb = mg.solve_share_prefix(share_state, w)
+            sh = mg.predict_share(sa, sb, w * HOURS_PER_WEEK + t_h,
+                                  share_state.t_max)
+            return mg.compose_forecast(yhat, sh, edges)
+
+    def convertible_week(w, dec, active, active_c, rolloff_c):
+        """The convertible pass of week ``w``, decided before the standard
+        buys: roll off, size the cloud band (truncated below the higher of
+        this week's pool targets and the carried pool stacks, so surplus
+        standard tranches are not covered twice), buy its increments,
+        re-pin the live width onto the pools by the coming week's forecast
+        peak above their stacks (allocating sunk capacity is free; a mean
+        need would leave the diurnal peaks on demand), and scale the
+        standard buys down pro rata by that allocation.  Returns (the
+        standard increments (P, K), active_c, the cloud outputs)."""
+        active_c = active_c - rolloff_c[:, :, w]
+        widths = dec.targets
+        pool_top = torch.maximum(widths.sum(-1), active.sum(-1))
+        widths_c = conv_targets_for(dec.yhat, pool_top)
+        inc_c = torch.clamp(widths_c - active_c, min=0.0)
+        inc_c = torch.where((inc_c > ld.PURCHASE_EPS) & dec.is_decision,
+                            inc_c, 0.0)
+        active_c = active_c + inc_c
+        rolloff_c[:, conv_idx, w + conv_terms] += inc_c
+        need = torch.clamp(
+            dec.yhat[:, :HOURS_PER_WEEK].amax(-1) - active.sum(-1), min=0.0)
+        alloc = pf.allocate_convertible(active_c.sum(-1), need, member)
+        desired = torch.clamp(widths - active, min=0.0)
+        lift = desired.sum(-1)                                   # (P,)
+        scale = torch.where(
+            lift > ld.PURCHASE_EPS,
+            torch.clamp(lift - alloc, min=0.0) / torch.clamp(lift, min=1e-9),
+            0.0)
+        inc = desired * scale[:, None]
+        inc = torch.where((inc > ld.PURCHASE_EPS) & dec.is_decision, inc, 0.0)
+        outs = {"conv_target": widths_c, "conv_inc": inc_c,
+                "conv_active": active_c, "conv_alloc": alloc,
+                "conv_committed":
+                    (conv_rates * active_c).sum(-1) * HOURS_PER_WEEK}
+        return inc, active_c, outs
 
     def replay(cadence_wk: int, solve_fn, step_policy: pol.Policy):
         """One pass over the evaluation weeks; returns the per-week outputs
@@ -333,10 +478,15 @@ def replan_fleet_pools(
             cadence_weeks=cadence_wk, horizon_weeks=horizon_weeks,
             total_weeks=total_weeks, state=state, solve_fn=solve_fn,
             irls_iters=irls_iters, targets_for=targets_for,
+            compose_forecast=compose_forecast,
         )
         pstate, decide = step_policy.setup(ctx)
         active = torch.zeros((num_pools, num_opts), device=dev)
         rolloff = torch.zeros((num_pools, num_opts, sched_len), device=dev)
+        if conv_opts is not None:
+            active_c = torch.zeros((num_clouds, num_conv), device=dev)
+            rolloff_c = torch.zeros((num_clouds, num_conv, sched_len),
+                                    device=dev)
         outs: dict[str, list] = {}
         is_dec = []
         for w in range(start_weeks, total_weeks):
@@ -346,9 +496,13 @@ def replan_fleet_pools(
             # only on decision weeks and only as increments
             pstate, dec = decide(pstate, pol.Observation(week=w, active=active))
             widths = dec.targets
-            inc = torch.clamp(widths - active, min=0.0)
-            buy = (inc > ld.PURCHASE_EPS) & dec.is_decision
-            inc = torch.where(buy, inc, 0.0)
+            if conv_opts is None:
+                inc = torch.clamp(widths - active, min=0.0)
+                buy = (inc > ld.PURCHASE_EPS) & dec.is_decision
+                inc = torch.where(buy, inc, 0.0)
+            else:
+                inc, active_c, conv_vals = convertible_week(
+                    w, dec, active, active_c, rolloff_c)
             active = active + inc
             # The tranche bought at w expires at w + term.  The schedule
             # has total_weeks + max_term + 1 columns and w < total_weeks,
@@ -358,10 +512,13 @@ def replan_fleet_pools(
             # 5. bill the week: committed rates regardless of use, the
             # shortfall above the stack top at the on-demand rate; with a
             # spot band, on-demand only up to the floor and the effective
-            # spot rate above it
+            # spot rate above it.  A convertible allocation lifts each
+            # pool's level for the week (its tranches bill at cloud level).
             d = demand_wk[:, w]                                # (P, 168)
             level = active.sum(-1)
             committed = (rates * active).sum(-1) * HOURS_PER_WEEK
+            if conv_opts is not None:
+                level = level + conv_vals["conv_alloc"]
             used = torch.minimum(d, level[:, None]).sum(-1)
             util = torch.where(
                 level > 0, used / (level * HOURS_PER_WEEK), 0.0
@@ -381,6 +538,8 @@ def replan_fleet_pools(
                             spot=s_lines.rate * spot_vol,
                             spot_peak=spot_over.amax(-1))
             vals["od"] = od * over
+            if conv_opts is not None:
+                vals.update(conv_vals)
             for key, val in vals.items():
                 outs.setdefault(key, []).append(val)
             is_dec.append(bool(dec.is_decision))
@@ -396,9 +555,13 @@ def replan_fleet_pools(
 
     # The purchases as a tranche book: per-week targets (0 outside decision
     # weeks, so the ladder planner's "never below active" rule buys exactly
-    # the replay's increments) threaded through the portfolio ladder.
+    # the replay's increments) threaded through the portfolio ladder.  With
+    # the convertible band the targets are not what was bought (live
+    # convertible capacity suppresses standard buys), so the book replays
+    # the realized post-purchase stack instead.
     targets_full = np.zeros((num_pools, total_weeks, num_opts), np.float32)
-    targets_full[:, weeks[dec]] = np.swapaxes(ys["target"][dec], 0, 1)
+    book = ys["target"] if conv_opts is None else ys["active"]
+    targets_full[:, weeks[dec]] = np.swapaxes(book[dec], 0, 1)
     term_hours = np.asarray(term_list) * HOURS_PER_WEEK
     ladders = ld.plan_pool_portfolio_purchases(
         targets_full, term_hours, pools.keys
@@ -407,6 +570,8 @@ def replan_fleet_pools(
     total = float(ys["committed"].sum() + ys["od"].sum())
     if sp_res is not None:
         total += float(ys["spot"].sum())
+    if conv_opts is not None:
+        total += float(ys["conv_committed"].sum())
     eval_np = demand_np[:, start_weeks * HOURS_PER_WEEK:]
     all_od = od * float(eval_np.sum())
     report = RollingPlanReport(
@@ -440,16 +605,38 @@ def replan_fleet_pools(
         report.spot_ladders = ld.spot_ladder_book(
             ys["spot_peak"], pools.keys, start_week=start_weeks,
         )
+    if use_mig:
+        report.migration_config = mig_cfg
+        report.migration_edges = edges
+    if conv_opts is not None:
+        report.conv_options = conv_opts
+        report.conv_clouds = tuple(conv_clouds)
+        report.conv_targets = ys["conv_target"]
+        report.conv_increments = ys["conv_inc"]
+        report.conv_active = ys["conv_active"]
+        report.conv_alloc = ys["conv_alloc"]
+        report.conv_committed_cost = ys["conv_committed"]
+        # The cloud-level tranche book, with the pool book's increment-only
+        # semantics: its live widths reconcile with the carried stack.
+        conv_full = np.zeros((num_clouds, total_weeks, num_conv), np.float32)
+        conv_full[:, weeks[dec]] = np.swapaxes(ys["conv_target"][dec], 0, 1)
+        report.conv_ladders = ld.convertible_ladder_book(
+            conv_full,
+            np.asarray([o.term_weeks for o in conv_opts]) * HOURS_PER_WEEK,
+            conv_clouds,
+        )
     if not compare:
         return report
 
-    # One-shot baseline: identical replay (the same spot band, if any),
-    # single decision week, always the standard rolling policy on the
-    # prefix-sum refit.
+    # One-shot baseline: identical replay (the same spot, migration and
+    # convertible bands, if any), single decision week, always the standard
+    # rolling policy on the prefix-sum refit.
     one, _ = replay(0, fc.solve_prefix, pol.RollingPortfolioPolicy())
     one_weekly = (one["committed"] + one["od"]).sum(-1)
     if sp_res is not None:
         one_weekly = one_weekly + one["spot"].sum(-1)
+    if conv_opts is not None:
+        one_weekly = one_weekly + one["conv_committed"].sum(-1)
     report.one_shot_weekly_cost = one_weekly
     report.one_shot_cost = float(one_weekly.sum())
     report.savings_vs_one_shot = (

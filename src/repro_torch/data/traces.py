@@ -1,5 +1,5 @@
 """Loader for the released Shaved Ice dataset schema (paper §6) and the
-calibrated synthetic fleet.
+calibrated synthetic fleet, with or without generation turnover.
 
 The artifact publishes normalized hourly VM demand as CSV with columns
 ``timestamp, cloud, region, machine_type, normalized_count``;
@@ -7,7 +7,10 @@ The artifact publishes normalized hourly VM demand as CSV with columns
 it, the synthetic fleet stands in: 12 machine-type keys per cycle across 3
 clouds and 4 regions, varying scale, growth and seasonality the way the
 paper's §2 per-pool statistics do.  Pool ``i`` draws its noise from a CPU
-``torch.Generator`` seeded with ``seed + i``.
+``torch.Generator`` seeded with ``seed + i``.  The turnover fleet
+(``migration=``) pairs old-family pools with their successors and moves
+demand between them through ``capacity.generations`` (on the card by
+default: one launch of the turnover kernel).
 
 Two API levels, as in the reference: ``{(cloud, region, machine_type):
 hourly ndarray}`` (:func:`load_dataset_csv`, :func:`synthetic_pools`,
@@ -26,6 +29,7 @@ from datetime import datetime
 import numpy as np
 import torch
 
+from repro_torch.capacity import generations as gn
 from repro_torch.core import demand as dm
 
 DATASET_ENV = "SHAVEDICE_DATASET"
@@ -132,21 +136,87 @@ def synthetic_pools(
     }
 
 
+def _turnover_pool_configs(
+    num_pools: int, cfg: gn.MigrationConfig
+) -> dict[tuple[str, str, str], dm.DemandConfig]:
+    """Per-pool configs of a fleet in generation turnover: (old family,
+    successor family) pool pairs keyed by the successor table, replicated
+    across regions until ``num_pools`` is reached.  The old-family pool
+    carries the pair's base demand; the successor starts empty and
+    receives volume only through migration."""
+    gens = list(cfg.generations)
+    if not gens:
+        raise ValueError("migration config has no generations to plant")
+    if num_pools < 2 or num_pools % 2:
+        raise ValueError(
+            "a turnover fleet is built from (old family, successor) pool "
+            f"pairs; num_pools must be even and >= 2, got {num_pools}"
+        )
+    out: dict[tuple[str, str, str], dm.DemandConfig] = {}
+    for i in range(num_pools // 2):
+        g = gens[i % len(gens)]
+        region = f"region_{i // len(gens)}"
+        out[(g.cloud, region, g.old_family)] = dm.DemandConfig(
+            base_level=60.0 * (1.5 ** (i % 3)),
+            annual_growth=0.35 + 0.1 * (i % 4),
+            diurnal_amplitude=0.10 + 0.02 * (i % 3),
+            weekly_amplitude=0.12 + 0.02 * (i % 4),
+        )
+        out[(g.cloud, region, g.new_family)] = dm.DemandConfig(
+            base_level=0.0
+        )
+    return out
+
+
+def synthetic_base_pool_set(
+    num_pools: int = 12,
+    num_hours: int = 24 * 365 * 3,
+    seed: int = 0,
+    migration=True,
+) -> dm.PoolSet:
+    """The *pre-turnover* fleet a migration scenario starts from (host
+    numpy): demand on the old-family pools, successor pools present and
+    exactly zero.  Pool ``i`` of the pair order draws its noise from a
+    generator seeded with ``seed + i``."""
+    cfg = gn.resolve_migration(migration)
+    if cfg is None:
+        raise ValueError(
+            "synthetic_base_pool_set builds a turnover fleet; pass "
+            "migration=True or a MigrationConfig (use synthetic_pool_set "
+            "for the fleet without turnover)"
+        )
+    cfgs = _turnover_pool_configs(num_pools, cfg)
+    pools = {
+        key: dm.synth_demand(
+            num_hours, c,
+            generator=torch.Generator().manual_seed(seed + i),
+        ).numpy() if c.base_level > 0 else np.zeros(num_hours, np.float32)
+        for i, (key, c) in enumerate(cfgs.items())
+    }
+    return dm.PoolSet.from_dict(pools, configs=cfgs)
+
+
 def synthetic_pool_set(
     num_pools: int = 12,
     num_hours: int = 24 * 365 * 3,
     seed: int = 0,
     migration=None,
+    *,
+    device: "torch.device | str | None" = None,
 ) -> dm.PoolSet:
     """The synthetic fleet as an aligned PoolSet (keys sorted), carrying
-    each pool's generating ``DemandConfig``.  The hardware-turnover fleet
-    (``migration=``) belongs to the migration slice (ROADMAP Queue 1,
-    item 11) and raises ``NotImplementedError`` here."""
-    if migration is not None and migration is not False:
-        raise NotImplementedError(
-            "synthetic_pool_set(migration=...) is not ported yet "
-            "(ROADMAP Queue 1, item 11: generation turnover)"
-        )
+    each pool's generating ``DemandConfig``.
+
+    ``migration`` (True or a ``generations.MigrationConfig``) switches to
+    the turnover fleet: the base fleet of :func:`synthetic_base_pool_set`
+    turned over by ``generations.migrate_pool_set`` on ``device``
+    (``None`` = the card; ``device="cpu"`` runs the plain version).
+    Without ``migration`` the fleet is built on the host and ``device`` is
+    not used."""
+    mig = gn.resolve_migration(migration)
+    if mig is not None:
+        base = synthetic_base_pool_set(num_pools, num_hours, seed, mig)
+        return gn.migrate_pool_set(base, mig, device=device)
     return dm.PoolSet.from_dict(
         synthetic_pools(num_pools, num_hours, seed),
         configs=_pool_configs(num_pools),

@@ -149,8 +149,11 @@ def test_synthetic_fleet_shape_and_keys_match_reference():
     # same profiles, different noise draws: row means agree to ~1%
     np.testing.assert_allclose(t.demand.mean(-1), j.demand.mean(-1),
                                rtol=0.02)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.synthetic_pool_set(num_pools=4, num_hours=24, migration=True)
+    # the turnover fleet: the reference's keys, built on the asked device
+    jm = jtr.synthetic_pool_set(num_pools=4, num_hours=24, migration=True)
+    tm = ttr.synthetic_pool_set(num_pools=4, num_hours=24, migration=True,
+                                device="cpu")
+    assert tm.keys == jm.keys and tm.demand.shape == jm.demand.shape
 
 
 def test_convert_round_trips_the_reference_fleet():

@@ -38,6 +38,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.capacity import generations as jgn  # noqa: E402
+from repro.capacity import pricing as jpr  # noqa: E402
 from repro.core import api as japi  # noqa: E402
 from repro.core import commitment as jcm  # noqa: E402
 from repro.core import demand as jdm  # noqa: E402
@@ -46,9 +48,11 @@ from repro.core import planner as jpl  # noqa: E402
 from repro.core import portfolio as jpf  # noqa: E402
 from repro.data import traces as jtr  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.capacity import generations as tgn  # noqa: E402
 from repro_torch.core import api as tapi  # noqa: E402
 from repro_torch.core import commitment as tcm  # noqa: E402
 from repro_torch.core import forecast as tfc  # noqa: E402
+from repro_torch.core import migration as tmg  # noqa: E402
 from repro_torch.core import planner as tpl  # noqa: E402
 from repro_torch.core import portfolio as tpf  # noqa: E402
 
@@ -400,14 +404,17 @@ def test_compare_horizons(horizons, eval_weeks):
                       rel=1e-5)
 
 
-def test_unported_bands_name_their_item(plans):
-    tpools = plans[2]
-    for kw, item in (({"migration": True}, "item 11"),
-                     ({"convertible": True}, "item 11")):
+def test_unported_bands_name_their_item():
+    """The bands still to come (scenarios, telemetry) raise naming their
+    ROADMAP item; migration and convertible are ported and not refused."""
+    assert sorted(tpl.UNPORTED_BANDS) == ["scenarios", "telemetry"]
+    for kw, item in (({"scenarios": 2}, "item 12"),
+                     ({"telemetry": True}, "item 14")):
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             with pytest.raises(NotImplementedError, match=item):
-                tpl._plan_fleet_pools_one_shot(tpools, device="cpu", **kw)
+                tpl.reject_unported_bands(**kw)
+    tpl.reject_unported_bands(scenarios=None, telemetry=False)
 
 
 # The spot band in the one-shot plan (spot=True), on the same two fleets:
@@ -490,3 +497,139 @@ def test_prefix_spot_floors_snap_to_reference_levels(seed):
 
     assert above(got) == pytest.approx(above(want), rel=1e-4)
 
+
+
+# The migration and convertible bands in the one-shot plan
+# (migration=, convertible=True), on two turnover fleets of the JAX
+# package carried across: 4 pools x 30 weeks with the reference's planted
+# rolling table (adoption midpoints in weeks 14 and 21), and 4 pools x 68
+# weeks (>= 1.2 years of history, so the yearly terms are on) with its
+# decomposition table (weeks 35 and 68).  On the yearly fleet the
+# reference runs on the port's pair-total forecasts (its float32 fit
+# strays there, see above) and fits its own shares.  Forecasts within
+# rtol 5e-4; the pools' stacks, the cloud bands and their allocation
+# within the stack tolerance; every cost within rel 1e-3 of the bill.
+MIG_PLANTS = {
+    "short": (30, jgn.MigrationConfig(generations=(
+        jpr.Generation("aws", "C6i", "C7i", 8, 12.0, 0.25),
+        jpr.Generation("gcp", "N2-Standard", "N4-Standard", 16, 10.0, 0.50),
+    ))),
+    "yearly": (68, jgn.MigrationConfig(generations=(
+        jpr.Generation("aws", "C6i", "C7i", 20, 30.0, 0.25),
+        jpr.Generation("gcp", "N2-Standard", "N4-Standard", 55, 26.0, 0.50),
+    ))),
+}
+MIG_COSTS = ("total_cost", "committed_cost", "on_demand_cost", "conv_cost",
+             "aggregate_cost")
+
+
+@pytest.fixture(scope="module", params=sorted(MIG_PLANTS))
+def mig_plans(request):
+    weeks, jplant = MIG_PLANTS[request.param]
+    jpools = jtr.synthetic_pool_set(num_pools=4, num_hours=weeks * WK,
+                                    seed=3, migration=jplant)
+    tpools = convert.pool_set_from_reference(jpools)
+    tplant = convert.migration_config_from_reference(jplant)
+    tres = tapi.plan(tapi.PlanRequest(pools=tpools, horizon_weeks=HORIZON,
+                                      migration=tplant, convertible=True),
+                     device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        if request.param == "yearly":
+            hist = torch.from_numpy(tpools.demand[:, :-HORIZON * WK])
+            edges = tgn.migration_edges(tpools.keys, tplant, device="cpu")
+            model = tfc.fit_batched(tmg.transform_for_fit(hist, edges))
+            t_fut = hist.shape[-1] + torch.arange(HORIZON * WK)
+            tot = tfc.predict_batched(model, t_fut).numpy()
+            agg = tfc.fit(hist.sum(0))
+            agg_yhat = tfc.forecast_horizon(agg, hist.shape[-1],
+                                            HORIZON * WK).numpy()
+            mp.setattr(jfc, "predict_batched",
+                       lambda model, t: jnp.asarray(tot))
+            mp.setattr(jfc, "forecast_horizon",
+                       lambda model, t0, n: jnp.asarray(agg_yhat))
+        jres = japi.plan(japi.PlanRequest(pools=jpools,
+                                          horizon_weeks=HORIZON,
+                                          migration=jplant,
+                                          convertible=True))
+    return request.param, tpools, jres, tres
+
+
+@pytest.mark.parametrize("field", MIG_COSTS)
+def test_migration_convertible_costs(mig_plans, field):
+    _, _, jres, tres = mig_plans
+    got, want = getattr(tres, field), getattr(jres, field)
+    assert abs(got - want) <= COST_REL * abs(jres.total_cost), field
+
+
+def test_migration_convertible_forecasts_and_stacks(mig_plans):
+    _, _, jres, tres = mig_plans
+    np.testing.assert_allclose(tres.forecasts, jres.forecasts,
+                               rtol=FORECAST_RTOL)
+    np.testing.assert_allclose(tres.widths, jres.widths, **STACK_TOL)
+    np.testing.assert_allclose(tres.levels, jres.levels, **STACK_TOL)
+    assert tres.conv_clouds == tuple(jres.conv_clouds)
+    assert tres.conv_options == convert.options_from_reference(
+        jres.conv_options)
+    np.testing.assert_allclose(tres.conv_widths, np.asarray(jres.conv_widths),
+                               **STACK_TOL)
+    np.testing.assert_allclose(tres.conv_alloc, np.asarray(jres.conv_alloc),
+                               **STACK_TOL)
+    for field in ("src", "dst", "uplift", "inv_gain"):
+        np.testing.assert_array_equal(
+            getattr(tres.migration_edges, field).numpy(),
+            np.asarray(getattr(jres.migration_edges, field)))
+
+
+def test_migration_convertible_accounting(mig_plans):
+    """The reference's checks on the one-shot plan's fields: the bill adds
+    up with the convertible spend, the allocation stays inside its cloud,
+    and the cloud book holds the bands bought."""
+    _, tpools, _, res = mig_plans
+    assert res.migration_edges.num_edges == 2
+    assert res.conv_widths.shape == (len(res.conv_clouds),
+                                     len(res.conv_options))
+    assert res.conv_cost > 0.0
+    assert res.total_cost == pytest.approx(
+        res.committed_cost + res.on_demand_cost + res.conv_cost, rel=1e-12)
+    member = np.asarray([[1.0 if c == k[0] else 0.0 for k in res.keys]
+                         for c in res.conv_clouds])
+    assert (member @ res.conv_alloc <= res.conv_widths.sum(-1) + 1e-3).all()
+    assert res.conv_ladders.keys == tuple(
+        (c, "*", "convertible") for c in res.conv_clouds)
+    np.testing.assert_allclose(
+        res.conv_ladders.option_widths(0, len(res.conv_options)),
+        res.conv_widths, rtol=1e-6)
+    # the allocation lifts the billed level: each pool's on-demand spend
+    # is the demand above its stack plus its allocation
+    actual = tpools.demand[:, -HORIZON * WK:]
+    od = tpf.pricing.on_demand_premium()
+    for p, entry in enumerate(res.per_pool):
+        level = res.widths[p].sum() + res.conv_alloc[p]
+        want = od * np.maximum(actual[p] - level, 0.0).sum()
+        assert entry.spend.on_demand == pytest.approx(want, rel=1e-4,
+                                                      abs=1e-3)
+
+
+def test_migration_only_and_convertible_only():
+    """Each band alone, on the short fleet: migration without convertible
+    recomposes the forecasts and buys no cloud band; convertible without
+    migration keeps the plain forecasts."""
+    weeks, jplant = MIG_PLANTS["short"]
+    tpools = convert.pool_set_from_reference(jtr.synthetic_pool_set(
+        num_pools=4, num_hours=weeks * WK, seed=3, migration=jplant))
+    tplant = convert.migration_config_from_reference(jplant)
+    both = tapi.plan(tapi.PlanRequest(pools=tpools, horizon_weeks=HORIZON,
+                                      migration=tplant, convertible=True),
+                     device="cpu")
+    mig = tapi.plan(tapi.PlanRequest(pools=tpools, horizon_weeks=HORIZON,
+                                     migration=tplant), device="cpu")
+    np.testing.assert_array_equal(mig.forecasts, both.forecasts)
+    assert mig.conv_options is None and mig.conv_cost == 0.0
+    conv = tapi.plan(tapi.PlanRequest(pools=tpools, horizon_weeks=HORIZON,
+                                      convertible=True), device="cpu")
+    plain = tapi.plan(tapi.PlanRequest(pools=tpools, horizon_weeks=HORIZON),
+                      device="cpu")
+    np.testing.assert_array_equal(conv.forecasts, plain.forecasts)
+    assert conv.migration_edges is None and conv.conv_widths is not None
+    with pytest.raises(TypeError, match="MigrationConfig"):
+        tapi.PlanRequest(pools=tpools, migration="yes")

@@ -367,3 +367,104 @@ def test_one_row_solves_with_spot_squeeze():
         assert one.spot_floor.dim() == 0 and one.widths.dim() == 1
         torch.testing.assert_close(one.spot_floor, batch.spot_floor[1])
         torch.testing.assert_close(one.spot_frac, batch.spot_frac[1])
+
+
+# The convertible band's helpers (convertible=): the SKUs, the argument's
+# resolution, the cloud set-up, the truncation below the pinned stack and
+# the allocation onto a cloud's pools, against the reference.  Elementwise
+# float32 throughout: rtol 1e-6; the allocation's three rounds of (C, P)
+# products at rtol 1e-5.
+CONV_CLOUDS = ("aws", "gcp", "aws", "azure", "gcp", "aws")
+
+
+@pytest.mark.parametrize("clouds", [None, ["gcp"], ["azure", "aws"]])
+@pytest.mark.parametrize("terms", [("1y", "3y"), ("3y",)])
+def test_convertible_options_equal_reference(clouds, terms):
+    want = jpf.convertible_options_from_pricing(clouds, terms=terms)
+    got = tpf.convertible_options_from_pricing(clouds, terms=terms)
+    assert convert.options_from_reference(want) == got
+    assert all(o.convertible for o in got)
+    std = tpf.options_from_pricing(clouds=clouds)
+    for o in got:
+        same = [s.rate for s in std
+                if s.cloud == o.cloud and s.term_weeks == o.term_weeks]
+        assert o.rate > sum(same) / len(same)   # flexibility is not free
+
+
+def test_resolve_convertible_variants():
+    assert tpf.resolve_convertible(None, CONV_CLOUDS) is None
+    assert tpf.resolve_convertible(False, CONV_CLOUDS) is None
+    got = tpf.resolve_convertible(True, CONV_CLOUDS)
+    want = jpf.resolve_convertible(True, CONV_CLOUDS)
+    assert got == convert.options_from_reference(want)
+    assert tpf.resolve_convertible(got, CONV_CLOUDS) == got
+    assert tpf.resolve_convertible([], CONV_CLOUDS) is None
+    with pytest.raises(TypeError, match="convertible"):
+        tpf.resolve_convertible(tpf.options_from_pricing(), CONV_CLOUDS)
+
+
+@pytest.mark.parametrize("term_weighting", [0.0, 1.0])
+def test_convertible_cloud_setup_equals_reference(term_weighting):
+    jopts = jpf.convertible_options_from_pricing()
+    want = jpf.convertible_cloud_setup(jopts, CONV_CLOUDS,
+                                       term_weighting=term_weighting,
+                                       od_rate=OD)
+    got = tpf.convertible_cloud_setup(
+        convert.options_from_reference(jopts), CONV_CLOUDS,
+        term_weighting=term_weighting, od_rate=OD, device="cpu")
+    assert got[0] == want[0]
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6)
+
+
+def test_truncate_convertible_stack_equals_reference():
+    rng = np.random.default_rng(3)
+    tops = np.sort(rng.uniform(0, 50, (3, 4)), -1).astype(np.float32)
+    widths = rng.uniform(0, 10, (3, 4)).astype(np.float32)
+    pinned = np.asarray([0.0, 30.0, 80.0], np.float32)
+    want = jpf.truncate_convertible_stack(*map(jnp.asarray, (tops, widths,
+                                                             pinned)))
+    got = tpf.truncate_convertible_stack(*map(torch.from_numpy, (
+        tops, widths, pinned)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy()[2] == 0).all() and (got.numpy() <= widths).all()
+
+
+MEMBER = np.asarray([[1.0, 1.0, 0.0], [0.0, 0.0, 1.0]], np.float32)
+
+
+@pytest.mark.parametrize("width,need", [
+    ([12.0, 1.5], [4.0, 20.0, 2.0]),      # scarce: all handed out
+    ([30.0, 5.0], [2.0, 20.0, 2.0]),      # surplus: every need met
+    ([0.0, 3.0], [0.0, 0.0, 1.0]),        # nothing to give, nothing needed
+])
+def test_allocate_convertible_equals_reference(width, need):
+    width = np.asarray(width, np.float32)
+    need = np.asarray(need, np.float32)
+    want = np.asarray(jpf.allocate_convertible(
+        jnp.asarray(width), jnp.asarray(need), jnp.asarray(MEMBER)))
+    got = tpf.allocate_convertible(torch.from_numpy(width),
+                                   torch.from_numpy(need),
+                                   torch.from_numpy(MEMBER)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    assert (got <= need + 1e-5).all()
+    np.testing.assert_allclose(MEMBER @ got, np.minimum(MEMBER @ need, width),
+                               atol=1e-3)
+
+
+def test_convertible_ladder_book_keys():
+    from repro.core import ladder as jld
+
+    from repro_torch.core import ladder as tld
+    targets = np.zeros((2, 3, 1), np.float32)
+    targets[:, 0, 0] = [5.0, 7.0]
+    book = tld.convertible_ladder_book(targets, np.asarray([52 * 168]),
+                                       ["aws", "gcp"])
+    ref = jld.convertible_ladder_book(targets, np.asarray([52 * 168]),
+                                      ["aws", "gcp"])
+    assert book.keys == ref.keys == (("aws", "*", "convertible"),
+                                     ("gcp", "*", "convertible"))
+    np.testing.assert_allclose(book.option_widths(0, 1)[:, 0], [5.0, 7.0])
+    for a, b in zip(book.ladders, ref.ladders):
+        np.testing.assert_array_equal(a.amount, b.amount)
+        np.testing.assert_array_equal(a.start, b.start)

@@ -12,6 +12,8 @@ options so tranches roll off inside the window, ``compare=True``.
   rel 1e-3.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -19,14 +21,18 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.capacity import generations as jgn  # noqa: E402
+from repro.capacity import pricing as jpr  # noqa: E402
 from repro.core import api as japi  # noqa: E402
 from repro.core import portfolio as jpf  # noqa: E402
 from repro.core import replan as jrp  # noqa: E402
 from repro.data import traces as jtr  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.capacity import generations as tgn  # noqa: E402
 from repro_torch.capacity import pricing as tpr  # noqa: E402
 from repro_torch.core import api as tapi  # noqa: E402
 from repro_torch.core import forecast as tfc  # noqa: E402
+from repro_torch.core import migration as tmg  # noqa: E402
 from repro_torch.core import replan as trp  # noqa: E402
 
 WK = 168
@@ -296,8 +302,7 @@ def test_request_fields_match_reference():
 
 
 @pytest.mark.parametrize("kw", [
-    {"spot": True, "scenarios": 2}, {"migration": True},
-    {"convertible": True}, {"scenarios": 2}, {"telemetry": True},
+    {"spot": True, "scenarios": 2}, {"scenarios": 2}, {"telemetry": True},
     {"irls_carry": True},
     {"cadence": "breach"}, {"policy": "deterministic_hedge"},
     {"policy": "randomized_hedge"},
@@ -310,10 +315,11 @@ def test_unported_keywords_raise(fleet, kw):
 
 def test_unported_modes_raise_on_plan(fleet):
     tpools = fleet[2]
-    for kw, item in (({"migration": True}, "item 11"),
-                     ({"convertible": True}, "item 11")):
+    for kw, item in (({"scenarios": 2}, "item 12"),
+                     ({"telemetry": True}, "item 14")):
         with pytest.raises(NotImplementedError, match=item):
-            tapi.plan(tapi.PlanRequest(pools=tpools, **kw), device="cpu")
+            tapi.plan(tapi.PlanRequest(pools=tpools, mode="rolling", **kw),
+                      device="cpu")
     req = tapi.PlanRequest(pools=tpools, mode="rolling",
                            rolling=tapi.RollingConfig(cadence="breach"))
     with pytest.raises(NotImplementedError, match="breach"):
@@ -484,3 +490,216 @@ def test_spot_ladder_helpers_equal_reference():
         np.testing.assert_array_equal(a.amount, b.amount)
     with pytest.raises(ValueError, match="keys"):
         tld.spot_ladder_book(np.zeros((4, 3)), [("aws", "r", "m")])
+
+
+# The rolling replay with the migration and convertible bands
+# (migration=, convertible=True), on the reference's
+# tests/test_generations.py::TestRollingMigrationConvertible fleet: 4 pools
+# x 30 weeks, seed 3, its planted 2-edge table; cadence 2, start 8,
+# horizon 6, compare=True; both solvers, both backends.  Totals within rel
+# 1e-3 and the pool and cloud stacks within rtol 1e-3 / atol 1e-2, the
+# tolerances above; under the grid solver, targets within one grid cell
+# of that week's forecast (pools) or of its cloud totals (clouds).
+MIG_PLANT = jgn.MigrationConfig(generations=(
+    jpr.Generation("aws", "C6i", "C7i", 8, 12.0, 0.25),
+    jpr.Generation("gcp", "N2-Standard", "N4-Standard", 16, 10.0, 0.50),
+))
+MIG_KW = dict(cadence_weeks=2, start_weeks=8, horizon_weeks=6, compare=True,
+              num_grid=NUM_GRID, convertible=True)
+
+
+@pytest.fixture(scope="module")
+def mig_fleet():
+    jpools = jtr.synthetic_pool_set(num_pools=4, num_hours=30 * WK, seed=3,
+                                    migration=MIG_PLANT)
+    return (jpools, convert.pool_set_from_reference(jpools),
+            convert.migration_config_from_reference(MIG_PLANT))
+
+
+@pytest.fixture(scope="module", params=[
+    ("quantile", "scan"), ("quantile", "loop"), ("grid", "scan"),
+    ("grid", "loop")], ids=lambda p: "-".join(p))
+def mig_reports(request, mig_fleet):
+    jpools, tpools, tplant = mig_fleet
+    solver, backend = request.param
+    kw = dict(MIG_KW, solver=solver, backend=backend)
+    return (solver,
+            jrp.replan_fleet_pools(jpools, migration=MIG_PLANT, **kw),
+            trp.replan_fleet_pools(tpools, migration=tplant, device="cpu",
+                                   **kw))
+
+
+def _composed_cells(tpools, tplant, rep):
+    """(S, P) and (S, C) grid cells of every replayed week's
+    turnover-aware forecast and of its cloud totals, recomputed with the
+    port's own pieces."""
+    demand = torch.from_numpy(tpools.demand)
+    edges = tgn.migration_edges(tpools.keys, tplant, device="cpu")
+    state = tfc.prefix_fit_state(
+        tmg.transform_for_fit(demand, edges), tfc.ForecastConfig(),
+        horizon_hours=rep.horizon_weeks * WK,
+        min_prefix_hours=rep.start_weeks * WK)
+    share = tmg.share_prefix_state(demand, edges, t_max=state.t_max,
+                                   prior_weight=tplant.share_prior_weight)
+    member = torch.tensor([[1.0 if c == k[0] else 0.0 for k in rep.keys]
+                           for c in rep.conv_clouds])
+    pools, clouds = [], []
+    for w in map(int, rep.weeks):
+        yhat = tfc.predict_from_beta(state, tfc.solve_prefix(state, w),
+                                     w * WK, rep.horizon_weeks * WK)
+        a, b = tmg.solve_share_prefix(share, w)
+        sh = tmg.predict_share(a, b, w * WK + torch.arange(yhat.shape[-1]),
+                               share.t_max)
+        yhat = tmg.compose_forecast(yhat, sh, edges)
+        pools.append((yhat.amax(-1) / (NUM_GRID - 1)).numpy())
+        clouds.append(((member @ yhat).amax(-1) / (NUM_GRID - 1)).numpy())
+    return np.stack(pools), np.stack(clouds)
+
+
+def test_migration_replay_costs_match(mig_reports):
+    _, jrep, trep = mig_reports
+    for field in COSTS:
+        assert getattr(trep, field) == pytest.approx(
+            getattr(jrep, field), rel=1e-3), field
+    js, ts = jrep.summary(), trep.summary()
+    assert sorted(ts) == sorted(js)
+    for key in ("convertible_cost", "convertible_final_width",
+                "total_cost"):
+        assert ts[key] == pytest.approx(js[key], rel=1e-3), key
+    np.testing.assert_allclose(trep.weekly_cost, jrep.weekly_cost,
+                               rtol=1e-3)
+    np.testing.assert_allclose(trep.one_shot_weekly_cost,
+                               jrep.one_shot_weekly_cost, rtol=1e-3)
+
+
+def test_migration_replay_stacks_match(mig_fleet, mig_reports):
+    solver, jrep, trep = mig_reports
+    assert trep.conv_clouds == tuple(jrep.conv_clouds)
+    assert trep.conv_options == convert.options_from_reference(
+        jrep.conv_options)
+    for field in ("src", "dst", "midpoint_hours", "rate_per_hour"):
+        np.testing.assert_array_equal(
+            getattr(trep.migration_edges, field).numpy(),
+            np.asarray(getattr(jrep.migration_edges, field)))
+    assert trep.migration_config == mig_fleet[2]
+    if solver == "quantile":
+        for field in ("active", "targets", "increments"):
+            np.testing.assert_allclose(getattr(trep, field),
+                                       getattr(jrep, field), rtol=1e-3,
+                                       atol=1e-2, err_msg=field)
+        # A cloud band is the cloud stack's top above the sum of its pools'
+        # stacks, so it moves with their error: 1e-3 of the cloud's pool
+        # level, and the allocation 1e-3 of the pool's billed level.
+        member = np.asarray([[1.0 if c == k[0] else 0.0 for k in trep.keys]
+                             for c in trep.conv_clouds])
+        pool_level = jrep.active.sum(-1)                          # (S, P)
+        cloud_tol = (1e-3 * pool_level @ member.T + 1e-2)[..., None]
+        for field in ("conv_active", "conv_targets", "conv_increments"):
+            diff = np.abs(getattr(trep, field) - getattr(jrep, field))
+            assert (diff <= cloud_tol).all(), field
+        diff = np.abs(trep.conv_alloc - jrep.conv_alloc)
+        assert (diff <= 1e-3 * (pool_level + jrep.conv_alloc) + 1e-2).all()
+        return
+    pool_cells, cloud_cells = _composed_cells(mig_fleet[1], mig_fleet[2],
+                                              trep)
+    # targets snap to cell edges; a cell's drift with the grid's top is
+    # the forecasts' rel 1e-4 times the cell index
+    slack = 1.0 + (NUM_GRID - 1) * 1e-4
+    diff = np.abs(trep.targets - jrep.targets)
+    assert (diff <= pool_cells[:, :, None] * slack + 1e-4).all()
+    diff = np.abs(trep.conv_targets - jrep.conv_targets)
+    assert (diff <= cloud_cells[:, :, None] * slack + 1e-4).all()
+
+
+def test_migration_replay_books_reconcile(mig_reports):
+    """The acceptance of the reference's TestRollingMigrationConvertible on
+    the port's report: the cloud book's live widths equal the carried
+    cloud stack every week, the pool book (built from the realized stack,
+    since live convertible capacity suppresses standard buys) equals the
+    carried pool stack, and the allocation stays inside its cloud."""
+    _, _, rep = mig_reports
+    member = np.asarray([[1.0 if c == k[0] else 0.0 for k in rep.keys]
+                         for c in rep.conv_clouds])
+    for i, w in enumerate(rep.weeks):
+        np.testing.assert_allclose(
+            rep.conv_ladders.option_widths(int(w) * WK,
+                                           len(rep.conv_options)),
+            rep.conv_active[i], atol=1e-4)
+        np.testing.assert_allclose(
+            rep.ladders.option_widths(int(w) * WK, len(rep.options)),
+            rep.active[i], atol=1e-4)
+        assert (member @ rep.conv_alloc[i]
+                <= rep.conv_active[i].sum(-1) + 1e-3).all()
+    s, c, kc = rep.conv_targets.shape
+    assert (s, c, kc) == (len(rep.weeks), len(rep.conv_clouds),
+                          len(rep.conv_options))
+    assert rep.conv_alloc.shape == rep.committed_cost.shape
+    want = float(rep.committed_cost.sum() + rep.on_demand_cost.sum()
+                 + rep.conv_committed_cost.sum())
+    assert rep.total_cost == pytest.approx(want, rel=1e-6)
+    assert rep.weekly_cost.sum() == pytest.approx(want, rel=1e-6)
+
+
+def test_migration_bands_need_a_forecasting_policy(mig_fleet):
+    _, tpools, tplant = mig_fleet
+    kw = dict(MIG_KW, compare=False)
+    for bands in ({"migration": tplant, "convertible": None},
+                  {"convertible": True}):
+        with pytest.raises(ValueError, match="does not forecast"):
+            trp.replan_fleet_pools(tpools, device="cpu", policy="hindsight",
+                                   **dict(kw, **bands))
+
+
+def test_migration_bands_through_the_request(mig_fleet):
+    """api.plan spells the same replay as replan_fleet_pools, and each
+    band alone leaves the other's report fields empty."""
+    _, tpools, tplant = mig_fleet
+    trep = trp.replan_fleet_pools(tpools, migration=tplant, device="cpu",
+                                  **dict(MIG_KW, compare=False))
+    rolling = tapi.RollingConfig(cadence_weeks=2, start_weeks=8,
+                                 num_grid=NUM_GRID, compare=False)
+    req = tapi.PlanRequest(pools=tpools, mode="rolling", horizon_weeks=6,
+                           migration=tplant, convertible=True,
+                           rolling=rolling)
+    rep = tapi.plan(req, device="cpu")
+    assert rep.total_cost == trep.total_cost
+    mig = tapi.plan(dataclasses.replace(req, convertible=None),
+                    device="cpu")
+    assert mig.conv_active is None and mig.migration_edges is not None
+    assert "convertible_cost" not in mig.summary()
+    conv = tapi.plan(dataclasses.replace(req, migration=None), device="cpu")
+    assert conv.migration_edges is None and conv.conv_active is not None
+
+
+# tests/test_generations.py::TestTwoTurnoverAcceptance on its fleet (4
+# pools x 156 weeks, seed 7, two turnovers), built by the JAX package and
+# carried across: the port's migration-aware plan with convertibles is at
+# least 5% cheaper than its migration-blind rolling plan.
+@pytest.fixture(scope="module")
+def acceptance_reports():
+    two = jgn.MigrationConfig(generations=(
+        jpr.Generation("aws", "C6i", "C7i", 30, 40.0, 0.25),
+        jpr.Generation("gcp", "N2-Standard", "N4-Standard", 85, 36.0, 0.50),
+    ))
+    tpools = convert.pool_set_from_reference(jtr.synthetic_pool_set(
+        num_pools=4, num_hours=24 * 7 * 156, seed=7, migration=two))
+    kw = dict(cadence_weeks=2, start_weeks=26, horizon_weeks=52,
+              compare=False, device="cpu")
+    blind = trp.replan_fleet_pools(tpools, **kw)
+    aware = trp.replan_fleet_pools(
+        tpools, migration=convert.migration_config_from_reference(two),
+        convertible=True, **kw)
+    return blind, aware
+
+
+def test_two_turnover_margin_at_least_5pct(acceptance_reports):
+    blind, aware = acceptance_reports
+    margin = 1.0 - aware.total_cost / blind.total_cost
+    assert margin >= 0.05, f"margin {margin:.3f} below 5%"
+
+
+def test_two_turnover_convertible_bought_and_pinned(acceptance_reports):
+    _, aware = acceptance_reports
+    assert float(aware.conv_active[-1].sum()) > 1.0
+    assert float(aware.conv_alloc.sum()) > 0.0
+    assert aware.conv_committed_cost.sum() > 0.0
