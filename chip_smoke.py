@@ -5,7 +5,8 @@
 Drives the port's paths on the card — the commitment planner in both
 modes, without and with the spot band and its Monte-Carlo replay, with
 the migration and convertible bands on a fleet in generation turnover,
-and the serving engine on the published stablelm-1.6b and rwkv6-3b — and
+batched over demand scenarios, the policy tournament, and the serving
+engine on the published stablelm-1.6b and rwkv6-3b — and
 checks each of their kernels (commitment sweep, revocation walk,
 generation turnover, flash attention, RWKV6 recurrence) against its plain
 PyTorch version.  Flash
@@ -85,6 +86,28 @@ JSON line and raising on failure:
   profile   the grid plan under torch.profiler: device busy time, time by
             kernel (full table in build/chip_smoke/profile_grid_plan.txt), and
             the host-side tranche book timed alone
+  scenarios scenario batching (a main path): each perturbation's rows
+            built on the card against the numpy rows, bit for bit (growth
+            on every pool); the fleet-scale batch of the repo's benchmark
+            (N = 32 growth futures, quantile solver, cadence 1, start 26,
+            horizon 8, no baselines) with scenario 0 bit for bit equal to
+            the unbatched replay; api.plan rolling with the grid solver and
+            ScenarioConfig(32, "regime") at phase plan's settings: exactly
+            234 sweep launches (the scenarios ride the row axis), scenario
+            0 bit for bit equal to phase plan's report (per-week arrays,
+            weekly costs, its bills), wall time, peak memory, device busy
+            under the profiler; an N = 8 spot plan (scenario 0 equal to
+            phase spot's report) and replay_spot_plan(scenario=3) over 32
+            draws meeting 0.95 (one walk launch); an N = 4 aware plan on
+            the turnover fleet (468 launches, scenario 0 equal to phase
+            migration's report); on 16 pools over the fleet's first 39
+            weeks (start 26), N = 4 chunked by 3, equal to the unchunked
+            run bit for bit and to the CPU within rel 1e-4 of each
+            scenario's bill and one grid cell
+  tournament  run_tournament at the reference's defaults (every policy, 5
+            families x 32 seeds x 3 pools x 48 weeks) on the card, against
+            the CPU on the same paths (rel 1e-4 of each path's bill) and
+            the loop backend (rel 1e-3)
   flash     flash-attention kernels vs plain version: ragged shapes in
             f32 and bf16 and both layouts (each case checked to launch the
             kernel its route names; among them simt's tile seams: Sq and
@@ -117,7 +140,8 @@ JSON line and raising on failure:
             decode_split, no simt), peak memory (a main path)
   serve_rwkv   the same for the full rwkv6-3b; RWKV6 launches (a main path)
   timing    each kernel's and its plain version's times at its main-path
-            shape (flash: prefill_tc at the bf16 prefill, decode_split at
+            shape (the sweep also at the scenario plan's 262,144 x 128 x
+            1,344; flash: prefill_tc at the bf16 prefill, decode_split at
             the bf16 decode, simt at the f32 prefill, and at head dim 128
             beside the library; RWKV6 also at a short prompt's T = 128;
             the revocation walk at its main shape; the turnover kernel's
@@ -227,6 +251,35 @@ PLANTED_GENERATIONS = (("aws", "C6i", "C7i", 8, 12.0, 0.25),
 PLANTED_WEEKS, PLANTED_HORIZON_WEEKS = 30, 4
 PLANTED_ONE_SHOT_BILL = {"total_cost": 31999601.274787903,
                          "conv_cost": 246545.78058510643}
+# Scenario batching (scenarios=): N futures flattened into the replay's
+# rows.  The fleet-scale setting of benchmarks/paper_benches.py
+# (bench_fleet_scale: N = 32 growth futures, cadence 1, start 26, horizon
+# 8, the quantile solver, no baselines); the grid plan at phase plan's
+# settings with N = 32 regime futures (its sweep launches unchanged, the
+# scenarios ride the row axis); an N = 8 spot plan and the replay of one
+# of its scenarios; an N = 4 aware plan on the turnover fleet (468
+# launches, as without scenarios); and N = 4 with chunk 3 on 16 pools.
+SCEN_N = 32
+SCEN_FLEET_KW = dict(cadence_weeks=1, start_weeks=26, horizon_weeks=8,
+                     compare=False)
+SCEN_SPOT_N, SCEN_SPOT_REPLAYED = 8, 3
+SCEN_AWARE_N = 4
+# N = 4 chunked by 3 on 16 pools over the fleet's first 39 weeks, start
+# 26 (the CPU's plain sweep over 64 rows and three years took minutes)
+SCEN_CHUNK_N, SCEN_CHUNK, SCEN_CHUNK_POOLS = 4, 3, 16
+SCEN_CHUNK_WEEKS, SCEN_CHUNK_START = 39, 26
+# scenarios whose rows of each perturbation are held against the numpy
+# rows on the host, and the pools sampled (growth: every pool)
+SCEN_CHECKED = (1, SCEN_N - 1)
+SCEN_SAMPLED_POOLS = (0, 1, 511, NUM_POOLS - 1)
+# The tournament at the reference's defaults (5 policies x 5 families x 32
+# seeds x 3 pools x 48 weeks; start 20, cadence 2, horizon 8): each path's
+# bill card against CPU within rel 1e-4; the scan backend against the loop
+# backend within the replay parity's bill tolerance, rel 1e-3 (the loop's
+# direct refit differs from the prefix-sum refit by ~1e-4 in the forecasts,
+# ROADMAP Queue 3; a CPU run at this size puts paths 1.07e-4 apart).
+TOURNAMENT_RTOL = 1e-4
+TOURNAMENT_LOOP_RTOL = 1e-3
 # Peak rates for the bound (NVIDIA data sheets, dense, at the full power
 # limit): FP32 on the CUDA cores, bf16 on the tensor cores, HBM bandwidth.
 PEAKS = {
@@ -317,21 +370,22 @@ def compare(name, got, want):
     return max(float((go - wo).abs().max()), float((gu - wu).abs().max())), rel
 
 
-def main_shape_inputs(dev, seed=0):
+def main_shape_inputs(dev, seed=0, pools=NUM_POOLS):
     """Demand-like rows (synthetic forecasts repeated over 8 prefixes),
     per-row grids max(f) x linspace(0, 1, G), 0/1 prefix-mask weights —
-    the shapes and weights the grid solver hands the kernel."""
+    the shapes and weights the grid solver hands the kernel (``pools``
+    rows of forecasts: the fleet's pools, or pools x scenarios)."""
     from repro_torch.numerics import linspace
     gen = torch.Generator().manual_seed(seed)
-    base = 40.0 + 200.0 * torch.rand(NUM_POOLS, 1, generator=gen)
+    base = 40.0 + 200.0 * torch.rand(pools, 1, generator=gen)
     t = torch.arange(MAIN_T, dtype=torch.float32)
     shape = 1.0 + 0.15 * torch.cos(2 * torch.pi * (t - 15) / 24)
-    noise = 1.0 + 0.02 * torch.randn(NUM_POOLS, MAIN_T, generator=gen)
+    noise = 1.0 + 0.02 * torch.randn(pools, MAIN_T, generator=gen)
     yhat = (base * shape * noise).to(dev)
     f = yhat.repeat_interleave(HORIZON_WEEKS, 0).contiguous()
     wk = torch.arange(1, HORIZON_WEEKS + 1) * 168
     masks = (t[None, :] < wk[:, None]).to(torch.float32)
-    w = masks.repeat(NUM_POOLS, 1).to(dev)
+    w = masks.repeat(pools, 1).to(dev)
     cs = (f.amax(-1, keepdim=True)
           * linspace(0.0, 1.0, MAIN_G, device=dev)[None]).contiguous()
     return f, w, cs
@@ -565,12 +619,14 @@ def phase_ties(dev):
     emit("ties", cases=sorted(cases), card_equals_cpu=True)
 
 
-def grid_cells(pools, rep, num_grid):
-    """(S, P) grid-cell width max(yhat)/(G-1) of every replayed week's
-    forecast, recomputed on the CPU with the port's forecaster."""
+def grid_cells(pools, rep, num_grid, demand=None):
+    """(S, R) grid-cell width max(yhat)/(G-1) of every replayed week's
+    forecast, recomputed on the CPU with the port's forecaster, of the
+    fleet's rows or of the (R, T) ``demand`` rows given."""
     from repro_torch.core import forecast as fc
-    demand = torch.as_tensor(
-        pools.demand[:, :(pools.num_hours // 168) * 168])
+    if demand is None:
+        demand = torch.as_tensor(
+            pools.demand[:, :(pools.num_hours // 168) * 168])
     state = fc.prefix_fit_state(
         demand, fc.ForecastConfig(), horizon_hours=rep.horizon_weeks * 168,
         min_prefix_hours=rep.start_weeks * 168,
@@ -976,7 +1032,7 @@ def phase_spot(pools, grid_rep):
                      requeue_cost=rr.requeue_cost,
                      shortfall_chip_hours=rr.shortfall_chip_hours),
          nvidia_smi=smi(), **out)
-    return walk_launches
+    return walk_launches, rep
 
 
 def phase_migration(grid_rep):
@@ -987,7 +1043,8 @@ def phase_migration(grid_rep):
     rolling grid plan on the same fleet (sweep launches counted from 0
     around each); then both modes on the 16 pools of MIGRATION_REGIONS,
     card against the CPU.  Returns (turnover launches, sweep launches of
-    the aware rolling plan)."""
+    the aware rolling plan, the turnover fleet, the aware rolling
+    report)."""
     from repro_torch.capacity import generations as gn
     from repro_torch.core.api import PlanRequest, RollingConfig, plan
     from repro_torch.core.demand import PoolSet
@@ -1106,7 +1163,7 @@ def phase_migration(grid_rep):
     out["card_vs_cpu_16_rel"] = dict(pools=len(keep), **card_cpu)
     out["planted_one_shot"] = planted_one_shot()
     emit("migration", solver="grid", nvidia_smi=smi(), **out)
-    return turnover_launches, launches
+    return turnover_launches, launches, pools, rep
 
 
 def planted_one_shot():
@@ -1151,6 +1208,283 @@ def planted_one_shot():
                 card_vs_cpu_rel=rel, bill_rel=bill_rel)
 
 
+def bits_equal(name, got, want):
+    """Raise unless the arrays hold the same bits (and shape)."""
+    a = np.ascontiguousarray(np.asarray(got))
+    b = np.ascontiguousarray(np.asarray(want))
+    if a.shape != b.shape or a.tobytes() != b.tobytes():
+        diff = (np.asarray(a != b).sum() if a.shape == b.shape
+                else f"shapes {a.shape} vs {b.shape}")
+        raise AssertionError(f"{name}: not bit for bit ({diff} differ)")
+
+
+def scenario0_equal(label, batch, base, fields):
+    """Scenario 0 of a batched report against the unbatched report, bit
+    for bit: per-week arrays, weekly costs and the bills."""
+    for name in fields:
+        bits_equal(f"{label} {name}", getattr(batch, name)[:, 0],
+                   getattr(base, name))
+    bits_equal(f"{label} weekly_cost", batch.weekly_cost[:, 0],
+               base.weekly_cost)
+    pairs = [("scenario_cost", "total_cost")]
+    if base.one_shot_cost is not None:
+        pairs += [("scenario_one_shot_cost", "one_shot_cost"),
+                  ("scenario_hindsight_cost", "hindsight_cost")]
+        bits_equal(f"{label} hindsight_widths", batch.hindsight_widths[0],
+                   base.hindsight_widths)
+    for mine, theirs in pairs:
+        if float(getattr(batch, mine)[0]) != getattr(base, theirs):
+            raise AssertionError(
+                f"{label}: {mine}[0] {float(getattr(batch, mine)[0])} != "
+                f"{theirs} {getattr(base, theirs)}")
+    return True
+
+
+def perturbations_on_card(pools):
+    """Each perturbation's scenario rows built on the card against the
+    port's plain numpy rows (the reference's arithmetic) on the host, bit
+    for bit: growth on every pool, the others on SCEN_SAMPLED_POOLS."""
+    from repro_torch.data import scenarios as sc
+    demand = pools.demand[:, :(pools.num_hours // 168) * 168]
+    checked = {}
+    for family in sc.PERTURBATIONS[1:]:
+        cfg = sc.ScenarioConfig(n_scenarios=SCEN_N, family=family)
+        rows = (range(NUM_POOLS) if family == "growth"
+                else SCEN_SAMPLED_POOLS)
+        for s in SCEN_CHECKED:
+            card = sc.scenario_block(demand, cfg, s, s + 1)[0]
+            got = card[list(rows)].cpu().numpy()
+            want = np.stack([
+                sc._perturb(family, demand[p], sc._rng(family, 0, s, p))
+                for p in rows]).astype(np.float32)
+            bits_equal(f"{family} scenario {s}", got, want)
+        checked[family] = len(rows) * len(SCEN_CHECKED)
+    return checked
+
+
+def phase_scenarios(pools, grid_rep, plan_s, plan_profile, spot_rep,
+                    mig_pools, mig_rep):
+    """Scenario batching on the card (a main path, launches counted from 0
+    around each plan): the perturbations against their numpy rows; the
+    fleet-scale batch (N = 32 growth, quantile) with scenario 0 against the
+    unbatched replay; api.plan with the grid solver and N = 32 regime
+    futures at phase plan's settings, scenario 0 against phase plan's
+    report, 234 sweep launches, wall time, peak memory, device busy under
+    the profiler; an N = 8 spot plan against phase spot's report and
+    replay_spot_plan of scenario 3; an N = 4 aware plan against phase
+    migration's report (468 launches); and on 16 pools over the fleet's
+    first 39 weeks N = 4 chunked by 3 against the unchunked run (bits) and
+    against the CPU."""
+    from repro_torch.capacity.simulator import replay_spot_plan
+    from repro_torch.core.api import (
+        PlanRequest, RollingConfig, ScenarioConfig, plan)
+    from repro_torch.core.demand import PoolSet
+    from repro_torch.core.replan import replan_fleet_pools
+    from repro_torch.data import scenarios as sc
+    t0 = time.perf_counter()
+    out = {"perturbed_rows_checked": perturbations_on_card(pools),
+           "perturbation_check_s": time.perf_counter() - t0}
+    per_week = ("targets", "increments", "active", "committed_cost",
+                "on_demand_cost", "utilization")
+
+    # the fleet-scale setting: N = 32 growth futures, quantile solver
+    cfg = ScenarioConfig(n_scenarios=SCEN_N, family="growth")
+    batch, secs, _, peak = timed(lambda: replan_fleet_pools(
+        pools, scenarios=cfg, **SCEN_FLEET_KW), "commitment_sweep")
+    single, single_s, _, single_peak = timed(lambda: replan_fleet_pools(
+        pools, **SCEN_FLEET_KW), "commitment_sweep")
+    scenario0_equal("fleet scale", batch, single, per_week)
+    if not np.isfinite(batch.scenario_cost).all():
+        raise AssertionError("fleet scale: non-finite scenario costs")
+    out["fleet_scale"] = dict(
+        scenarios=SCEN_N, family="growth", solver="quantile",
+        weeks_replayed=len(batch.weeks), wall_s=secs,
+        max_memory_allocated=peak, unbatched_wall_s=single_s,
+        unbatched_max_memory_allocated=single_peak,
+        scenario0_bit_for_bit=True,
+        scenario_cost_mean=float(batch.scenario_cost.mean()),
+        scenario_cost_p95=float(np.quantile(batch.scenario_cost, 0.95)))
+
+    # the grid plan at phase plan's settings with N = 32 regime futures
+    rolling = RollingConfig(solver="grid", num_grid=NUM_GRID)
+    req = PlanRequest(pools=pools, mode="rolling", rolling=rolling,
+                      scenarios=ScenarioConfig(n_scenarios=SCEN_N,
+                                               family="regime"))
+    rep, secs, launches, peak = timed(lambda: plan(req), "commitment_sweep")
+    if launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"{launches} sweep launches in the {SCEN_N}-"
+                             f"scenario plan, expected {EXPECTED_LAUNCHES}")
+    if rep.targets.shape != (len(rep.weeks), SCEN_N, NUM_POOLS,
+                             len(rep.options)):
+        raise AssertionError(f"scenario targets shape {rep.targets.shape}")
+    scenario0_equal("grid plan", rep, grid_rep, per_week)
+    cr = rep.scenario_cr
+    if not (np.isfinite(cr).all() and (rep.scenario_cost > 0).all()):
+        raise AssertionError("grid plan: non-finite scenario ratios")
+    summary, _ = profiled(lambda: plan(req))
+    out["grid_plan"] = dict(
+        scenarios=SCEN_N, family="regime", rows=SCEN_N * NUM_POOLS,
+        sweep_rows=SCEN_N * NUM_POOLS * HORIZON_WEEKS, wall_s=secs,
+        max_memory_allocated=peak, sweep_launches=launches,
+        scenario0_bit_for_bit=True, plan_phase_wall_s=plan_s,
+        plan_phase_device_busy_s=plan_profile["device_busy_s"],
+        plan_phase_device_busy_share=plan_profile[
+            "device_busy_share_of_profiled"],
+        profile=summary, summary={
+            k: v for k, v in rep.summary().items()
+            if k.startswith("scenario_") or k == "total_cost"})
+
+    # N = 8 spot plan; one scenario's Monte-Carlo replay
+    req = PlanRequest(pools=pools, mode="rolling", rolling=rolling,
+                      spot=True, scenarios=ScenarioConfig(
+                          n_scenarios=SCEN_SPOT_N, family="regime"))
+    rep, secs, launches, peak = timed(lambda: plan(req), "commitment_sweep")
+    if launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"{launches} sweep launches in the spot "
+                             "scenario plan")
+    scenario0_equal("spot plan", rep, spot_rep,
+                    per_week + ("spot_floor", "spot_cost", "spot_volume"))
+    rr, replay_s, walk_launches, replay_peak = timed(
+        lambda: replay_spot_plan(pools, rep, num_draws=SPOT_REPLAY_DRAWS,
+                                 scenario=SCEN_SPOT_REPLAYED),
+        "revocation_walk")
+    realized_rel = abs(rr.realized_cost - rr.planned_cost) / rr.planned_cost
+    if walk_launches != EXPECTED_WALK_LAUNCHES:
+        raise AssertionError(f"{walk_launches} walk launches in the replay")
+    if rr.planned_cost != float(rep.scenario_cost[SCEN_SPOT_REPLAYED]):
+        raise AssertionError("the replay's planned bill is not its "
+                             "scenario's")
+    if not (rr.meets_target and rr.fleet_availability >= SPOT_TARGET):
+        raise AssertionError(
+            f"scenario {SCEN_SPOT_REPLAYED} replay misses its target: "
+            f"{float(rr.mean_availability.min())}")
+    if realized_rel > SPOT_REALIZED_RTOL:
+        raise AssertionError(f"scenario replay realized {realized_rel} "
+                             "from planned")
+    out["spot"] = dict(
+        scenarios=SCEN_SPOT_N, wall_s=secs, max_memory_allocated=peak,
+        sweep_launches=launches, scenario0_bit_for_bit=True,
+        replay=dict(scenario=SCEN_SPOT_REPLAYED, draws=rr.num_draws,
+                    wall_s=replay_s, max_memory_allocated=replay_peak,
+                    walk_launches=walk_launches,
+                    min_pool_availability=float(rr.mean_availability.min()),
+                    fleet_availability=rr.fleet_availability,
+                    planned_cost=rr.planned_cost,
+                    realized_vs_planned_rel=realized_rel))
+
+    # N = 4 aware plan on the turnover fleet
+    req = PlanRequest(pools=mig_pools, mode="rolling", rolling=rolling,
+                      migration=True, convertible=True,
+                      scenarios=ScenarioConfig(n_scenarios=SCEN_AWARE_N,
+                                               family="scale"))
+    rep, secs, launches, peak = timed(lambda: plan(req), "commitment_sweep")
+    if launches != EXPECTED_MIGRATION_LAUNCHES:
+        raise AssertionError(f"{launches} sweep launches in the aware "
+                             f"scenario plan, expected "
+                             f"{EXPECTED_MIGRATION_LAUNCHES}")
+    scenario0_equal("aware plan", rep, mig_rep, per_week + (
+        "conv_targets", "conv_active", "conv_alloc", "conv_committed_cost"))
+    out["aware"] = dict(scenarios=SCEN_AWARE_N, family="scale", wall_s=secs,
+                        max_memory_allocated=peak, sweep_launches=launches,
+                        scenario0_bit_for_bit=True)
+
+    # 16 pools, N = 4 chunked by 3: against the unchunked run (bits) and
+    # the CPU (costs within rel 1e-4, targets within one grid cell)
+    sub = PoolSet(keys=pools.keys[:SCEN_CHUNK_POOLS],
+                  demand=pools.demand[:SCEN_CHUNK_POOLS,
+                                      :SCEN_CHUNK_WEEKS * 168],
+                  configs=pools.configs[:SCEN_CHUNK_POOLS])
+    kw = dict(solver="grid", num_grid=NUM_GRID, start_weeks=SCEN_CHUNK_START)
+    full_cfg = ScenarioConfig(n_scenarios=SCEN_CHUNK_N, family="growth")
+    chunk_cfg = ScenarioConfig(n_scenarios=SCEN_CHUNK_N, family="growth",
+                               chunk=SCEN_CHUNK)
+    chunked = replan_fleet_pools(sub, scenarios=chunk_cfg, **kw)
+    full = replan_fleet_pools(sub, scenarios=full_cfg, **kw)
+    for name in per_week + ("one_shot_weekly_cost", "hindsight_weekly_cost",
+                            "hindsight_widths", "scenario_cost",
+                            "scenario_cr", "scenario_one_shot_cost"):
+        bits_equal(f"chunked {name}", getattr(chunked, name),
+                   getattr(full, name))
+    if chunked.total_cost != full.total_cost:
+        raise AssertionError("chunked total differs from unchunked")
+    t0 = time.perf_counter()
+    cpu = replan_fleet_pools(sub, scenarios=chunk_cfg, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    cost_rel = float(np.max(np.abs(chunked.scenario_cost - cpu.scenario_cost)
+                            / cpu.scenario_cost))
+    if cost_rel > 1e-4:
+        raise AssertionError(f"chunked card vs CPU scenario costs {cost_rel}")
+    t_hist = (sub.num_hours // 168) * 168
+    rows = sc.scenario_batch(sub.demand[:, :t_hist], chunk_cfg,
+                             device="cpu").reshape(-1, t_hist)
+    cells = grid_cells(sub, cpu, NUM_GRID, demand=rows).reshape(
+        len(cpu.weeks), SCEN_CHUNK_N, SCEN_CHUNK_POOLS)[..., None]
+    diff = np.abs(chunked.targets - cpu.targets)
+    if (diff > cells * (1.0 + (NUM_GRID - 1) * 1e-4)).any():
+        raise AssertionError("chunked card vs CPU targets differ by more "
+                             f"than one cell ({float((diff / cells).max())})")
+    out["chunked_16"] = dict(
+        pools=SCEN_CHUNK_POOLS, weeks=SCEN_CHUNK_WEEKS,
+        start_weeks=SCEN_CHUNK_START, scenarios=SCEN_CHUNK_N,
+        chunk=SCEN_CHUNK,
+        chunked_equals_unchunked=True, card_vs_cpu_cost_rel=cost_rel,
+        card_vs_cpu_max_target_cells=float((diff / cells).max()),
+        cpu_wall_s=cpu_s)
+    emit("scenarios", pools=NUM_POOLS, hours=NUM_HOURS, nvidia_smi=smi(),
+         **out)
+    return out["grid_plan"]["sweep_launches"]
+
+
+def phase_tournament(dev):
+    """run_tournament at the reference's defaults on the card (every
+    registry policy, 5 families x 32 seeds x 3 pools x 48 weeks, the
+    (F*N*P) rows of one replay per policy), against the CPU on the same
+    paths (each path's bill within TOURNAMENT_RTOL) and the scan backend
+    against the loop backend (TOURNAMENT_LOOP_RTOL)."""
+    from repro_torch.capacity import pricing
+    from repro_torch.core import forecast as fc
+    from repro_torch.core import policy as pol
+    from repro_torch.core import portfolio as pf
+    from repro_torch.core import tournament as tn
+    from repro_torch.data import scenarios as sc
+    names = list(pol.POLICIES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = tn.run_tournament(names, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    paths = np.stack([sc.scenario_paths(f, num_pools=3, num_weeks=48,
+                                        num_seeds=32)
+                      for f in sc.FAMILIES])
+    kw = dict(start_weeks=20, cadence_weeks=2, horizon_weeks=8,
+              options=pf.options_from_pricing(),
+              od=pricing.on_demand_premium(), cfg=fc.ForecastConfig())
+    t0 = time.perf_counter()
+    cpu = tn._run_on_paths([pol.get_policy(p) for p in names], sc.FAMILIES,
+                           paths, backend="scan", device=torch.device("cpu"),
+                           **kw)
+    cpu_s = time.perf_counter() - t0
+    loop = tn._run_on_paths([pol.get_policy(p) for p in names], sc.FAMILIES,
+                            paths, backend="loop", device=dev, **kw)
+    rel = {
+        "card_vs_cpu": float(np.max(np.abs(card.cost / cpu.cost - 1.0))),
+        "card_vs_cpu_hindsight": float(np.max(np.abs(
+            card.hindsight_cost / cpu.hindsight_cost - 1.0))),
+        "scan_vs_loop": float(np.max(np.abs(card.cost / loop.cost - 1.0))),
+    }
+    if (max(rel["card_vs_cpu"], rel["card_vs_cpu_hindsight"])
+            > TOURNAMENT_RTOL or rel["scan_vs_loop"] > TOURNAMENT_LOOP_RTOL):
+        raise AssertionError(f"tournament disagreement: {rel}")
+    if not np.isfinite(card.competitive_ratio).all():
+        raise AssertionError("tournament: non-finite ratios")
+    emit("tournament", policies=names, families=list(sc.FAMILIES),
+         seeds=card.num_seeds, pools=3, weeks=48, wall_s=secs,
+         cpu_wall_s=cpu_s, rel=rel,
+         cr_mean={p: {f: card.family_stats(p, f)["cr_mean"]
+                      for f in card.families} for p in card.policies},
+         cr_min=float(card.competitive_ratio.min()))
+
+
 def device_kernels(prof):
     """(device us, count, name) of every device-side event (kernels,
     memcpys, memsets), largest first: the aten ops on the host side carry
@@ -1170,16 +1504,19 @@ def profiled(fn):
     """fn() once under torch.profiler: (summary, kernels), the summary
     the profiled wall seconds, device busy seconds and events and the top
     device kernels (ms, count, name); kernels as device_kernels gives
-    them."""
+    them.  CUDA activity only: the host-side op events add nothing to the
+    device time and multiply both the profiled wall time and the time to
+    process the trace."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     kernels = device_kernels(prof)
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
     busy = sum(k[0] for k in kernels) / 1e6
     return dict(profiled_wall_s=wall, device_busy_s=busy,
                 device_events=sum(n for _, n, _ in kernels),
@@ -1217,6 +1554,7 @@ def phase_profile(pools, rep, plan_s):
     ladder_s = time.perf_counter() - t0
     emit("profile", solver="grid", plan_wall_s=plan_s,
          sweep_device_s=sweep_s, ladder_book_host_s=ladder_s, **summary)
+    return summary
 
 
 def median_ms(fn, reps, cover=True):
@@ -2089,6 +2427,66 @@ def timing_walk(dev, peak):
                 bound_ops=WALK_OPS * n * p * t, share_of_bound=ms_bound / ms)
 
 
+def sweep_work(w, rows, peak):
+    """(operations, bytes, (bound ms, by)) of one sweep over ``rows`` rows
+    with weights ``w``: per hour with w != 0 a binary search over G + 1
+    buckets and its terms, per output a step of the scan; f, w and the
+    candidates read once, over and under written once."""
+    nnz_w = float((w != 0).sum())
+    ops = (nnz_w * (math.ceil(math.log2(MAIN_G + 1)) + OPS_PER_HOUR)
+           + OPS_PER_OUTPUT * rows * MAIN_G)
+    nbytes = 4 * (2 * rows * MAIN_T + 3 * rows * MAIN_G)
+    return ops, nbytes, bound(ops, nbytes, peak["fp32_flops"], peak), nnz_w
+
+
+def timing_sweep_scenarios(dev, peak):
+    """The sweep at the scenario-batched grid plan's shape, SCEN_N x the
+    main shape's rows (the plain version in row chunks, fewer turns).
+    The wrapper's output there is held against the plain version's (the
+    timed pass's) within the tolerance, against the timed launch's and
+    against the bucketed plain version (per block of MAIN_P rows, the
+    algebra is per row) bit for bit."""
+    from repro_torch.kernels.commitment_sweep import commitment_sweep as ck
+    from repro_torch.kernels.commitment_sweep import ops as sweep_ops
+    from repro_torch.kernels.commitment_sweep.ref import (
+        commitment_sweep_bucketed_ref,
+    )
+    f, w, cs = main_shape_inputs(dev, pools=NUM_POOLS * SCEN_N)
+    rows = f.shape[0]
+    last = {}
+
+    def kernel():
+        last["kernel"] = ck.commitment_sweep_cuda(f, w, cs)
+
+    def plain():
+        last["plain"] = plain_chunked(f, w, cs)
+
+    ms, plain_ms, kern_sets, plain_sets = time_turns(
+        kernel, plain, kernel_reps=10, plain_reps=1)
+    got = sweep_ops.commitment_sweep_over_under(f, cs, w)
+    torch.cuda.synchronize()
+    err, rel = compare("scenario_shape", got, last["plain"])
+    if not all(torch.equal(a, b) for a, b in zip(got, last["kernel"])):
+        raise AssertionError("scenario_shape: the wrapper's sweep != the "
+                             "timed launch's bit for bit")
+    for i in range(0, rows, MAIN_P):
+        want = commitment_sweep_bucketed_ref(
+            f[i:i + MAIN_P], w[i:i + MAIN_P], cs[i:i + MAIN_P])
+        if not (torch.equal(got[0][i:i + MAIN_P], want[0])
+                and torch.equal(got[1][i:i + MAIN_P], want[1])):
+            raise AssertionError(
+                f"scenario_shape rows {i}..{i + MAIN_P - 1}: kernel != "
+                "bucketed plain version bit for bit")
+    del last, got, want
+    ops, nbytes, (ms_bound, by), _ = sweep_work(w, rows, peak)
+    return dict(shape=[rows, MAIN_G, MAIN_T], ms=ms, plain_ms=plain_ms,
+                kernel_ms=kern_sets, plain_ms_sets=plain_sets,
+                bound_ms=ms_bound, bound_by=by, bound_ops=ops,
+                bound_bytes=nbytes, share_of_bound=ms_bound / ms,
+                library_ms=None, max_abs_err=err, cost_rel_err=rel,
+                equals_bucketed_plain=True)
+
+
 def phase_timing(dev, launches, errs, turnover):
     from repro_torch.kernels.commitment_sweep import commitment_sweep as ck
     name = torch.cuda.get_device_name(0)
@@ -2097,18 +2495,13 @@ def phase_timing(dev, launches, errs, turnover):
     ms, plain_ms, kern_sets, plain_sets = time_turns(
         lambda: ck.commitment_sweep_cuda(f, w, cs),
         lambda: plain_chunked(f, w, cs))
-    nnz_w = float((w != 0).sum())
-    # The bucketed work: per hour with w != 0 a binary search over G + 1
-    # buckets and its terms, per output a step of the scan.
-    ops = (nnz_w * (math.ceil(math.log2(MAIN_G + 1)) + OPS_PER_HOUR)
-           + OPS_PER_OUTPUT * MAIN_P * MAIN_G)
-    nbytes = 4 * (f.numel() + w.numel() + cs.numel() + 2 * MAIN_P * MAIN_G)
-    sweep_bound = bound(ops, nbytes, peak["fp32_flops"], peak)
+    ops, nbytes, sweep_bound, nnz_w = sweep_work(w, MAIN_P, peak)
     # reference figures: the brute force's operations over the hours the
     # masks keep, and over every (row, candidate, hour) triple
     masked_flops = FLOPS_PER_TRIPLE * MAIN_G * nnz_w
     full_flops = FLOPS_PER_TRIPLE * MAIN_P * MAIN_G * MAIN_T
     del f, w, cs
+    scen = timing_sweep_scenarios(dev, peak)
     fl = timing_flash(dev, peak)
     lin = timing_linrec(dev, peak)
     walk = timing_walk(dev, peak)
@@ -2119,7 +2512,8 @@ def phase_timing(dev, launches, errs, turnover):
              bound_ms=sweep_bound[0], bound_by=sweep_bound[1],
              share_of_bound=sweep_bound[0] / ms,
              bound_ms_masked_triples=1e3 * masked_flops / peak["fp32_flops"],
-             bound_ms_all_triples=1e3 * full_flops / peak["fp32_flops"]),
+             bound_ms_all_triples=1e3 * full_flops / peak["fp32_flops"],
+             scenario_shape=scen),
          flash=dict(shapes=dict(
              prefill_tc=f"{FLASH_PREFILL} causal bfloat16",
              simt=f"{FLASH_PREFILL} causal float32",
@@ -2149,7 +2543,15 @@ def phase_timing(dev, launches, errs, turnover):
             "launches_per_migration_plan":
                 launches["commitment_sweep_migration"],
             "migration_cloud_rows_shape": [3 * HORIZON_WEEKS, MAIN_G, MAIN_T],
-            "max_abs_err": errs["commitment_sweep"], "ms": ms,
+            # with scenarios=ScenarioConfig(32) the same 234 launches
+            # carry 32 x the rows; that shape's times and bound
+            "launches_per_scenario_plan":
+                launches["commitment_sweep_scenarios"],
+            "scenario_shape": {key: scen[key] for key in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")},
+            "max_abs_err": max(errs["commitment_sweep"],
+                               scen["max_abs_err"]), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": sweep_bound[0],
             "bound_by": sweep_bound[1], "library_ms": None,
         },
@@ -2262,16 +2664,22 @@ def main() -> int:
     grid_rep, sweep_launches, plan_s = phase_plan(pools)
     phase_quantile(pools, grid_rep)
     one_shot_launches = phase_one_shot(pools, dev)
-    walk_launches = phase_spot(pools, grid_rep)
-    turnover_launches, migration_launches = phase_migration(grid_rep)
-    phase_profile(pools, grid_rep, plan_s)
-    del pools, grid_rep
+    walk_launches, spot_rep = phase_spot(pools, grid_rep)
+    turnover_launches, migration_launches, mig_pools, mig_rep = (
+        phase_migration(grid_rep))
+    plan_profile = phase_profile(pools, grid_rep, plan_s)
+    scenario_launches = phase_scenarios(pools, grid_rep, plan_s,
+                                        plan_profile, spot_rep, mig_pools,
+                                        mig_rep)
+    del pools, grid_rep, spot_rep, mig_pools, mig_rep
+    phase_tournament(dev)
     phase_model_cpu(dev)
     launches = {"commitment_sweep": sweep_launches,
                 "commitment_sweep_one_shot": one_shot_launches,
                 "revocation_walk": walk_launches,
                 "generation_turnover": turnover_launches,
-                "commitment_sweep_migration": migration_launches}
+                "commitment_sweep_migration": migration_launches,
+                "commitment_sweep_scenarios": scenario_launches}
     launches["flash_attention"], dense = phase_serve(
         "serve_dense", "stablelm-1.6b", dev, "flash_attention")
     launches["flash_by_kernel"] = dense["launches"]["flash_by_kernel"]

@@ -3,9 +3,10 @@
 The planners price the spot band at an expected effective rate
 (``core.spot``).  :func:`replay_spot_plan` is the realized counterpart: it
 samples revocation paths for the plan's pools (``capacity.preemption``)
-and bills each draw, all on the device the plan ran on.  Only the spot
-replay of the reference's ``capacity/simulator.py`` is ported; the fleet
-simulation entry points come with ROADMAP Queue 1, item 15.
+and bills each draw, all on the device the plan ran on, for any scenario
+of a scenario-batched plan.  Only the spot replay of the reference's
+``capacity/simulator.py`` is ported; the fleet simulation entry points come
+with ROADMAP Queue 1, item 15.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from repro_torch.capacity import preemption as pe
 from repro_torch.capacity.pricing import on_demand_premium
 from repro_torch.core import demand as dm
+from repro_torch.data import scenarios as sc
 
 
 @dataclasses.dataclass
@@ -64,43 +66,81 @@ def replay_spot_plan(
     realized three-way bill is summed per draw.  Nothing of the (N, P, T)
     paths comes to the host.
 
-    Scenario batches are not ported (ROADMAP Queue 1, item 12), so the
-    realized trace, ``scenario=0``, is the only index."""
-    if report.spot_floor is None:
-        raise ValueError("report has no spot band; re-plan with spot=...")
-    if scenario != 0:
-        raise ValueError(
-            f"scenario index {scenario} out of range for a report with "
-            "1 scenario(s)"
-        )
-    cfg, lines = report.spot_config, report.spot_lines
-    dev = lines.rate.device
-    demand, spot_dem = _spot_demand(pools.demand, report.spot_floor,
-                                    report.start_weeks, dev)
-
-    gen = torch.Generator(device=dev)
+    On a scenario-batched report ``scenario`` selects the demand future
+    to replay: its floors and costs are sliced off the report's N axis
+    (the spot lines are the same for every scenario), and for ``scenario > 0`` that scenario's demand
+    alone is rebuilt from the report's ``scenario_config`` (scenarios are
+    pure functions of the realized trace and the config, so these are the
+    rows the replay billed).  Scenario 0, the realized trace, is the
+    default and the only index of an unbatched report."""
+    cfg = report.spot_config
+    demand, spot_dem, lines, base, planned = _scenario_inputs(
+        pools, report, scenario)
+    gen = torch.Generator(device=demand.device)
     gen.manual_seed(seed)
     paths = pe.simulate_revocations(lines.params, demand.shape[1],
                                     num_draws=num_draws, generator=gen)
-    # The committed and mid-band on-demand bill is path independent: read
-    # it off the report.
-    base = float(report.committed_cost.sum() + report.on_demand_cost.sum())
     return _bill_paths(paths, demand, spot_dem, lines.market_rate,
                        cfg.requeue_hours, cfg.availability_target, base,
-                       report.total_cost)
+                       planned)
+
+
+def _scenario_inputs(pools, report, scenario):
+    """(demand, spot demand, spot lines, path-independent bill, planned
+    bill) of one scenario of ``report``, on the device of its spot lines:
+    the demand and spot demand (P, T) of the replayed weeks, the report's
+    (P,) spot lines (every scenario's), and the committed, mid-band
+    on-demand and convertible bill read off the report."""
+    if report.spot_floor is None:
+        raise ValueError("report has no spot band; re-plan with spot=...")
+    batched = np.asarray(report.spot_floor).ndim == 3      # (S, N, P)
+    n_scen = report.n_scenarios if batched else 1
+    if not 0 <= scenario < n_scen:
+        raise ValueError(
+            f"scenario index {scenario} out of range for a report with "
+            f"{n_scen} scenario(s)"
+        )
+
+    def pick(a):
+        a = np.asarray(a)
+        return a[:, scenario] if batched else a
+
+    floors = pick(report.spot_floor)
+    lines = report.spot_lines
+    dev = lines.rate.device
+    wk = dm.HOURS_PER_WEEK
+    if scenario == 0:
+        demand = pools.demand
+    else:
+        t_hist = (pools.num_hours // wk) * wk
+        demand = sc.scenario_block(
+            pools.demand[:, :t_hist], report.scenario_config, scenario,
+            scenario + 1, device=dev)[0]
+    demand, spot_dem = _spot_demand(demand, floors, report.start_weeks, dev)
+    base = float(pick(report.committed_cost).sum()
+                 + pick(report.on_demand_cost).sum())
+    if report.conv_committed_cost is not None:
+        base += float(pick(report.conv_committed_cost).sum())
+    planned = (float(report.scenario_cost[scenario]) if batched
+               else report.total_cost)
+    return demand, spot_dem, lines, base, planned
 
 
 def _spot_demand(demand, spot_floor, start_weeks, device):
     """(demand, spot demand), (P, T) float32 on ``device``: the replayed
-    weeks' hourly demand from ``start_weeks`` on, and what of it lies above
-    the week's spot floor ``spot_floor`` (S, P), broadcast to its hours."""
+    weeks' hourly demand from ``start_weeks`` on (``demand`` host numpy or
+    a tensor, whole hours from 0), and what of it lies above the week's
+    spot floor ``spot_floor`` (S, P), broadcast to its hours."""
     wk = dm.HOURS_PER_WEEK
     floor = torch.from_numpy(np.array(spot_floor, np.float32)).to(device)
     s = floor.shape[0]
     t0 = start_weeks * wk
-    demand = torch.as_tensor(
-        np.ascontiguousarray(demand[:, t0:t0 + s * wk]),
-        dtype=torch.float32).to(device)
+    if not isinstance(demand, torch.Tensor):
+        demand = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(demand, np.float32)[:, t0:t0 + s * wk]))
+    else:
+        demand = demand[:, t0:t0 + s * wk]
+    demand = demand.to(device=device, dtype=torch.float32).contiguous()
     spot_dem = torch.clamp(
         demand - floor.T.repeat_interleave(wk, dim=1), min=0.0)
     return demand, spot_dem

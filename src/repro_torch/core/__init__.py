@@ -11,8 +11,11 @@
                fleet in generation turnover
   planner    — Algorithm 1: plan_commitment, plan_portfolio, the one-shot
                fleet plan, Fig. 8
-  policy     — the weekly decision rules of the replay
+  policy     — the weekly decision rules of the replay, the hedges
   portfolio  — purchase options, cost lines, exact and grid stack solvers,
                the real-dollar spend, the convertible band's helpers
-  replan     — the rolling weekly replay, a loop over weeks on the device
+  replan     — the rolling weekly replay, a loop over weeks on the device,
+               batched over demand scenarios
+  tournament — every policy over the workload families' paths, scored by
+               competitive ratio and regret
 """

@@ -17,10 +17,11 @@ Both modes are ported: ``mode="one_shot"`` (the default) returns a
 bool or a :class:`repro_torch.core.spot.SpotConfig`), ``migration=``
 (None, a bool or a :class:`repro_torch.capacity.generations.
 MigrationConfig`) and ``convertible=`` (None, a bool or a list of
-convertible purchase options) run in both.  The other band configs
-(``scenarios``, ``telemetry``), ``cadence="breach"`` and
-``irls_carry=True`` are accepted at construction, as in the reference, and
-raise ``NotImplementedError`` naming their ROADMAP item when planned.
+convertible purchase options) run in both; ``scenarios=`` (an int or a
+:class:`ScenarioConfig`) and every registry ``policy=`` run in rolling
+mode.  ``telemetry``, ``cadence="breach"`` and ``irls_carry=True`` are
+accepted at construction, as in the reference, and raise
+``NotImplementedError`` naming their ROADMAP item when planned.
 """
 
 from __future__ import annotations
@@ -34,8 +35,9 @@ from repro_torch.capacity import generations as gn
 from repro_torch.core import forecast as fc
 from repro_torch.core import policy as pol
 from repro_torch.core import spot as spot_mod
+from repro_torch.data.scenarios import ScenarioConfig, resolve_scenarios
 
-__all__ = ["PlanRequest", "RollingConfig", "plan"]
+__all__ = ["PlanRequest", "RollingConfig", "ScenarioConfig", "plan"]
 
 _SOLVERS = ("quantile", "grid")
 _BACKENDS = ("scan", "loop")
@@ -132,7 +134,7 @@ class PlanRequest:
     migration: Any = None
     convertible: Any = None
     policy: Any = None          # Policy | str | None
-    scenarios: Any = None
+    scenarios: "ScenarioConfig | int | None" = None
     telemetry: Any = None
     rolling: RollingConfig = dataclasses.field(default_factory=RollingConfig)
 
@@ -162,11 +164,12 @@ class PlanRequest:
                     f"{type(self.spot).__name__}"
                 )
         gn.resolve_migration(self.migration)
-        known = tuple(pol.POLICIES) + pol.UNPORTED_POLICIES
-        if isinstance(self.policy, str) and self.policy not in known:
+        if isinstance(self.policy, str) and self.policy not in pol.POLICIES:
             raise ValueError(
-                f"unknown policy {self.policy!r}; known: {known}"
+                f"unknown policy {self.policy!r}; "
+                f"known: {tuple(pol.POLICIES)}"
             )
+        resolve_scenarios(self.scenarios)
         if self.mode == "one_shot":
             if self.policy is not None:
                 raise ValueError("policy= applies to mode='rolling' only")

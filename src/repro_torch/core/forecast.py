@@ -13,6 +13,13 @@ With one fixed design matrix (time normalization and changepoints pinned
 to the full trace), the week-w normal equations are prefix sums of
 per-week blocks, so a weekly refit is one gather plus a (D, D) ridge solve.
 
+A state built with ``row_block`` runs every per-row product, solve and
+reduction of its refits block by block, ``row_block`` rows at a time: a
+row's result then has the same bits whatever the number of rows beside it
+(a GEMM's or a solve's blocking, and so its rounding, depends on the
+number of rows), which is what a scenario-batched replay needs for its
+scenario 0 to equal the unbatched replay.
+
 Float32 throughout, as in the reference.  The solves use
 ``torch.linalg.solve_ex``, which skips the singularity check and with it a
 device-to-host sync; the ridge term keeps the systems well posed.
@@ -245,6 +252,13 @@ class PrefixFitState:
     t_max: float
     num_hist_hours: int
     period_hours: int
+    row_block: int | None = None  # rows per block of the refits (None: all)
+
+    def blocks(self) -> list[slice]:
+        """The row blocks the refits run on, in row order."""
+        rows = self.rhs_prefix.shape[0]
+        step = self.row_block or max(rows, 1)
+        return [slice(i, i + step) for i in range(0, rows, step)]
 
 
 def prefix_fit_state(
@@ -254,13 +268,15 @@ def prefix_fit_state(
     horizon_hours: int,
     period_hours: int = HOURS_PER_WEEK,
     min_prefix_hours: int | None = None,
+    row_block: int | None = None,
 ) -> PrefixFitState:
     """Build the rolling-refit state for a (P, T) pool batch, on ``ys``'s
     device.
 
     ``min_prefix_hours`` is the shortest prefix any refit will see: the
     short-history guard on the yearly Fourier terms keys on it.  T is
-    truncated to whole periods."""
+    truncated to whole periods.  ``row_block`` (dividing P) makes every
+    per-row result independent of P (module docstring)."""
     ys = torch.as_tensor(ys, dtype=torch.float32)
     dev = ys.device
     num_weeks = ys.shape[-1] // period_hours
@@ -275,23 +291,34 @@ def prefix_fit_state(
     d = xh.shape[-1]
     xw = xh.reshape(num_weeks, period_hours, d)
     gram_prefix = torch.cumsum(torch.einsum("wtd,wte->wde", xw, xw), dim=0)
-    logy = torch.log(torch.clamp(ys, min=1e-6))
-    lw = logy.reshape(ys.shape[0], num_weeks, period_hours)
-    rhs_prefix = torch.cumsum(torch.einsum("wtd,pwt->pwd", xw, lw), dim=1)
+    rows = ys.shape[0]
+    if row_block is not None and rows % row_block:
+        raise ValueError(f"row_block={row_block} does not divide {rows} rows")
+    step = row_block or max(rows, 1)
+    logy = torch.empty_like(ys)
+    rhs_prefix = torch.empty((rows, num_weeks, d), dtype=torch.float32,
+                             device=dev)
+    for i in range(0, rows, step):
+        blk = slice(i, i + step)
+        logy[blk] = torch.log(torch.clamp(ys[blk], min=1e-6))
+        lw = logy[blk].reshape(-1, num_weeks, period_hours)
+        rhs_prefix[blk] = torch.cumsum(
+            torch.einsum("wtd,pwt->pwd", xw, lw), dim=1)
     return PrefixFitState(
         x=x, gram_prefix=gram_prefix, rhs_prefix=rhs_prefix, logy=logy,
         cfg=cfg, t_max=t_max, num_hist_hours=t_hist,
-        period_hours=period_hours,
+        period_hours=period_hours, row_block=row_block,
     )
 
 
 def solve_prefix(state: PrefixFitState, week: int) -> torch.Tensor:
     """beta (P, D) fit on the prefix of ``week`` whole periods — one index
     into the cumulative normal equations + a ridge solve; ``week >= 1``."""
-    return _ridge_solve(
-        state.gram_prefix[week - 1], state.rhs_prefix[:, week - 1],
-        state.cfg.ridge,
-    )
+    rhs = state.rhs_prefix[:, week - 1]
+    return torch.cat([
+        _ridge_solve(state.gram_prefix[week - 1], rhs[blk], state.cfg.ridge)
+        for blk in state.blocks()
+    ])
 
 
 def solve_prefix_direct(state: PrefixFitState, week: int) -> torch.Tensor:
@@ -304,8 +331,11 @@ def solve_prefix_direct(state: PrefixFitState, week: int) -> torch.Tensor:
     mask = (t < week * state.period_hours).to(xh.dtype)
     xm = xh * mask[:, None]
     g = xm.T @ xh
-    r = torch.einsum("td,pt->pd", xm, state.logy)
-    return _ridge_solve(g, r, state.cfg.ridge)
+    return torch.cat([
+        _ridge_solve(g, torch.einsum("td,pt->pd", xm, state.logy[blk]),
+                     state.cfg.ridge)
+        for blk in state.blocks()
+    ])
 
 
 def irls_refine(
@@ -320,7 +350,12 @@ def irls_refine(
     xh = state.x[: state.num_hist_hours]
     t = torch.arange(state.num_hist_hours, device=xh.device)
     mask = (t < week * state.period_hours).to(xh.dtype)
-    return _irls(xh, state.logy, beta, iters, state.cfg, mask=mask)
+    whitened = _whiten(xh * mask[:, None], state.cfg.ridge)
+    return torch.cat([
+        _irls(xh, state.logy[blk], beta[blk], iters, state.cfg, whitened,
+              mask=mask)
+        for blk in state.blocks()
+    ])
 
 
 def predict_from_beta(
@@ -329,4 +364,8 @@ def predict_from_beta(
     """(P, num_hours) forecast from prefix-fit betas starting at absolute
     hour ``t_start``."""
     xf = state.x[t_start:t_start + num_hours]
-    return torch.exp(beta @ xf.T)
+    out = torch.empty((beta.shape[0], num_hours), dtype=beta.dtype,
+                      device=beta.device)
+    for blk in state.blocks():
+        torch.mm(beta[blk], xf.T, out=out[blk])
+    return torch.exp_(out)

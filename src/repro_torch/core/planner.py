@@ -45,7 +45,6 @@ pricing.validate_tables()
 
 #: Keywords whose subsystem the port does not have yet, by ROADMAP item.
 UNPORTED_BANDS = {
-    "scenarios": "item 12: scenario batching",
     "telemetry": "item 14: telemetry emitters",
 }
 

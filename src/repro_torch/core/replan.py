@@ -54,11 +54,29 @@ increments, re-pins the live width onto the pools by the coming week's
 forecast-peak excess, suppresses the standard buys pro rata, and bills the
 pools at their level plus that allocation.  Under ``solver="grid"`` the
 cloud rows are a second sweep launch each replayed week.
+
+``scenarios=`` batches the replay over N demand futures
+(``data.scenarios.ScenarioConfig``): the (N, P) block is flattened into
+the row axis, scenario-major, so scenario 0 (the realized trace) is the
+first P rows and every band rides the same weekly loop, the same sweep
+launch included.  Cost lines, spot lines and policy state tile per
+scenario; migration edges re-index into each scenario's rows
+(:func:`_tile_edges`); each scenario owns its copy of the cloud axis, its
+cloud totals and allocations computed block by block with the base (C, P)
+membership.  Every operation whose rounding could depend on the number of
+rows (the forecaster's products and solves, the share state, the spot
+floors' suffix sums, the membership products) runs block by block, one
+scenario's P rows at a time, so scenario 0 of a batch, a one-scenario
+batch and a chunked batch (``ScenarioConfig.chunk``: sequential
+sub-replays merged by :func:`_merge_scenario_reports`) give the unbatched
+replay's bits.  Ladders are built from scenario 0; report arrays gain an N
+axis only on a true batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Literal
 
 import numpy as np
@@ -81,6 +99,7 @@ from repro_torch.core.planner import (
     _spot_floors,
     reject_unported_bands,
 )
+from repro_torch.data import scenarios as sc
 from repro_torch.device import resolve_device
 
 pricing.validate_tables()
@@ -124,7 +143,7 @@ class RollingPlanReport:
     # to the committed stack top; demand above it bills at the effective
     # spot rate, between stack top and floor at on-demand.
     spot_config: "spot_mod.SpotConfig | None" = None
-    spot_lines: "spot_mod.SpotLines | None" = None
+    spot_lines: "spot_mod.SpotLines | None" = None    # (P,) per pool
     spot_floor: np.ndarray | None = None              # (S, P) weekly floors
     spot_cost: np.ndarray | None = None               # (S, P) weekly spend
     spot_volume: np.ndarray | None = None             # (S, P) chip-hours
@@ -149,10 +168,27 @@ class RollingPlanReport:
     # weeks on which it could buy.
     policy_name: str = "rolling_portfolio"
     decision_mask: np.ndarray | None = None           # (S,) bool
+    # Scenario batch (None / axis absent on single-path replays): with
+    # n_scenarios > 1 every per-week array above gains an N axis at
+    # position 1 ((S, N, P, K), cloud axes (S, N, C, Kc)),
+    # ``hindsight_widths`` becomes (N, P, K), the baseline weekly costs
+    # (S, N), and the scalar aggregates are means over scenarios.  Ladders
+    # come from scenario 0, the realized trace.
+    n_scenarios: int = 1
+    scenario_family: str | None = None
+    scenario_cost: np.ndarray | None = None            # (N,) replay cost
+    scenario_one_shot_cost: np.ndarray | None = None   # (N,)
+    scenario_hindsight_cost: np.ndarray | None = None  # (N,)
+    scenario_cr: np.ndarray | None = None              # (N,) cost/hindsight
+    scenario_regret: np.ndarray | None = None          # (N,) cost-hindsight
+    # The resolved on-demand rate and scenario config, so the spot replay
+    # needs no side channel.
+    od_rate: float | None = None
+    scenario_config: "sc.ScenarioConfig | None" = None
 
     @property
     def weekly_cost(self) -> np.ndarray:
-        """(S,) fleet-total spend per week."""
+        """(S,) fleet-total spend per week ((S, N) on a scenario batch)."""
         total = self.committed_cost + self.on_demand_cost
         if self.spot_cost is not None:
             total = total + self.spot_cost
@@ -184,7 +220,87 @@ class RollingPlanReport:
         if self.hindsight_cost is not None:
             out["hindsight_cost"] = self.hindsight_cost
             out["regret_vs_hindsight"] = self.regret_vs_hindsight
+        if self.n_scenarios > 1:
+            out["n_scenarios"] = self.n_scenarios
+            out["scenario_cost_mean"] = float(self.scenario_cost.mean())
+            out["scenario_cost_p95"] = float(
+                np.quantile(self.scenario_cost, 0.95))
+            if self.scenario_cr is not None:
+                out["scenario_cr_mean"] = float(self.scenario_cr.mean())
+                out["scenario_cr_p95"] = float(
+                    np.quantile(self.scenario_cr, 0.95))
+                out["scenario_regret_mean"] = float(
+                    self.scenario_regret.mean())
+                out["scenario_regret_p95"] = float(
+                    np.quantile(self.scenario_regret, 0.95))
         return out
+
+
+def _tile_edges(edges: gn.MigrationEdges, n: int, p: int) -> gn.MigrationEdges:
+    """One fleet's migration edges replicated onto the flattened (N
+    scenarios x P pools) row axis: scenario s's copy of edge g joins rows
+    ``src[g] + s p -> dst[g] + s p``, so scenarios never exchange demand."""
+    off = (torch.arange(n, dtype=edges.src.dtype, device=edges.device)
+           * p)[:, None]
+    return dataclasses.replace(
+        edges,
+        src=(edges.src[None, :] + off).reshape(-1),
+        dst=(edges.dst[None, :] + off).reshape(-1),
+        uplift=edges.uplift.repeat(n),
+        inv_gain=edges.inv_gain.repeat(n),
+        midpoint_hours=edges.midpoint_hours.repeat(n),
+        rate_per_hour=edges.rate_per_hour.repeat(n),
+    )
+
+
+def _merge_scenario_reports(
+    parts: list[RollingPlanReport],
+) -> RollingPlanReport:
+    """Stitch chunked scenario replays (``ScenarioConfig.chunk``) into one
+    report: per-week arrays concatenate along the scenario axis,
+    per-scenario distributions along N, and the scalar aggregates are
+    recomputed as means over the whole scenario set.  Ladders (built from
+    scenario 0) come from the first chunk."""
+    first = parts[0]
+
+    def cat(name: str, axis: int):
+        vals = [getattr(p, name) for p in parts]
+        return None if vals[0] is None else np.concatenate(vals, axis=axis)
+
+    ns = np.asarray([p.n_scenarios for p in parts], np.float64)
+    per_week = ("targets", "increments", "active", "committed_cost",
+                "on_demand_cost", "utilization", "spot_floor", "spot_cost",
+                "spot_volume", "conv_targets", "conv_increments",
+                "conv_active", "conv_alloc", "conv_committed_cost",
+                "one_shot_weekly_cost", "hindsight_weekly_cost")
+    per_scen = ("hindsight_widths", "scenario_cost", "scenario_one_shot_cost",
+                "scenario_hindsight_cost", "scenario_cr", "scenario_regret")
+    rep = dataclasses.replace(
+        first,
+        **{name: cat(name, 1) for name in per_week},
+        **{name: cat(name, 0) for name in per_scen},
+        n_scenarios=int(ns.sum()),
+    )
+    rep.total_cost = float(rep.scenario_cost.mean())
+    rep.all_on_demand_cost = float(np.average(
+        [p.all_on_demand_cost for p in parts], weights=ns))
+    rep.savings_vs_on_demand = (
+        1.0 - rep.total_cost / rep.all_on_demand_cost
+        if rep.all_on_demand_cost > 0 else 0.0
+    )
+    if rep.scenario_one_shot_cost is not None:
+        rep.one_shot_cost = float(rep.scenario_one_shot_cost.mean())
+        rep.savings_vs_one_shot = (
+            1.0 - rep.total_cost / rep.one_shot_cost
+            if rep.one_shot_cost > 0 else 0.0
+        )
+    if rep.scenario_hindsight_cost is not None:
+        rep.hindsight_cost = float(rep.scenario_hindsight_cost.mean())
+        rep.regret_vs_hindsight = (
+            rep.total_cost / rep.hindsight_cost - 1.0
+            if rep.hindsight_cost > 0 else 0.0
+        )
+    return rep
 
 
 def _validate(total_weeks: int, start_weeks: int, cadence_weeks: int):
@@ -218,6 +334,13 @@ def _reject_unported(**kw) -> None:
         )
 
 
+def _block_sum(a: np.ndarray, s: int, rows: int) -> np.float32:
+    """The float32 sum of row block ``s`` (``rows`` wide) of a per-week
+    (S, R) array, summed as the contiguous (S, rows) array an unbatched
+    replay holds, so scenario 0 sums to the unbatched bits."""
+    return np.ascontiguousarray(a[:, s * rows:(s + 1) * rows]).sum()
+
+
 def replan_fleet_pools(
     pools: dm.PoolSet,
     options: list[pf.PurchaseOption] | None = None,
@@ -238,7 +361,7 @@ def replan_fleet_pools(
     migration=None,
     convertible=None,
     policy: "pol.Policy | str | None" = None,
-    scenarios=None,
+    scenarios: "sc.ScenarioConfig | int | None" = None,
     irls_carry: bool = False,
     telemetry=None,
     cadence: str = "weekly",
@@ -262,16 +385,17 @@ def replan_fleet_pools(
     (SpotConfig, SpotLines) pair) adds the spot band, ``migration`` (True
     or a ``generations.MigrationConfig``) the turnover-aware forecasts,
     ``convertible`` (True or a list of convertible options) the
-    cloud-level band; each needs a forecasting policy.  ``scenarios``,
+    cloud-level band; each needs a forecasting policy.  ``scenarios`` (an
+    int or a :class:`~repro_torch.data.scenarios.ScenarioConfig`) batches
+    the replay over N demand futures (module docstring); the report then
+    carries per-scenario cost, competitive-ratio and regret distributions.
     ``telemetry``, ``cadence="breach"`` and ``irls_carry=True`` belong to
     subsystems the port does not have yet; setting any of them raises
     ``NotImplementedError`` naming the ROADMAP item.  ``breach_band`` and
     ``breach_tolerance`` only matter under ``cadence="breach"``."""
     del use_kernel, breach_band, breach_tolerance
-    _reject_unported(
-        scenarios=scenarios, telemetry=telemetry, cadence=cadence,
-        irls_carry=irls_carry,
-    )
+    _reject_unported(telemetry=telemetry, cadence=cadence,
+                     irls_carry=irls_carry)
     if solver not in ("quantile", "grid"):
         raise ValueError(
             f"unknown solver {solver!r}; known: ('quantile', 'grid')"
@@ -288,25 +412,102 @@ def replan_fleet_pools(
         start_weeks = min(max(horizon_weeks, total_weeks // 4),
                           max(total_weeks - 1, 1))
     _validate(total_weeks, start_weeks, cadence_weeks)
-    pcy = pol.get_policy(policy)
 
+    scen = sc.resolve_scenarios(scenarios)
+    block = functools.partial(
+        _replay_block, pools=pools, options=options,
+        cadence_weeks=cadence_weeks, start_weeks=start_weeks,
+        horizon_weeks=horizon_weeks, od=od, term_weighting=term_weighting,
+        cfg=cfg, solver=solver, num_grid=num_grid, irls_iters=irls_iters,
+        backend=backend, compare=compare, spot=spot, migration=migration,
+        convertible=convertible, pcy=pol.get_policy(policy), scen=scen,
+        dev=dev,
+    )
+    if scen is None:
+        return block(0, 1)
+    n = scen.n_scenarios
+    step = scen.chunk or n
+    if step >= n:
+        return block(0, n)
+    # Sequential sub-replays over scenario chunks, merged into one.
+    return _merge_scenario_reports([
+        block(lo, min(lo + step, n)) for lo in range(0, n, step)
+    ])
+
+
+def _replay_block(
+    lo: int,
+    hi: int,
+    *,
+    pools: dm.PoolSet,
+    options: list[pf.PurchaseOption],
+    cadence_weeks: int,
+    start_weeks: int,
+    horizon_weeks: int,
+    od: float,
+    term_weighting: float,
+    cfg: fc.ForecastConfig,
+    solver: str,
+    num_grid: int,
+    irls_iters: int,
+    backend: str,
+    compare: bool,
+    spot,
+    migration,
+    convertible,
+    pcy: pol.Policy,
+    scen: "sc.ScenarioConfig | None",
+    dev: torch.device,
+) -> RollingPlanReport:
+    """The replay of scenarios ``lo .. hi - 1`` of ``scen`` (the realized
+    trace alone when ``scen`` is None) on resolved arguments.  The report
+    carries an N axis whenever the whole batch has more than one scenario,
+    so the chunks of a chunked batch concatenate along it."""
+    total_weeks = pools.num_hours // HOURS_PER_WEEK
     num_pools, num_opts = pools.num_pools, len(options)
     horizon_hours = horizon_weeks * HOURS_PER_WEEK
     t_hist = total_weeks * HOURS_PER_WEEK
     demand_np = np.ascontiguousarray(pools.demand[:, :t_hist])
-    demand = torch.as_tensor(demand_np, dtype=torch.float32).to(dev)
+    if scen is None:
+        demand = torch.as_tensor(demand_np, dtype=torch.float32).to(dev)
+    else:
+        demand = sc.scenario_block(demand_np, scen, lo, hi,
+                                   device=dev).reshape(-1, t_hist)
+    # Rows are scenario-major (N, P) flattened: scenario 0 is the first P.
+    num_scen = demand.shape[0] // num_pools
+    num_rows = demand.shape[0]
+    # The N axis appears on report arrays only for a true batch.
+    scen_axis = scen is not None and scen.n_scenarios > 1
     clouds = pools.clouds
+    row_clouds = clouds * num_scen
+    blocks = [slice(s * num_pools, (s + 1) * num_pools)
+              for s in range(num_scen)]
 
-    al_p, be_p, _ = pf.pool_option_lines(
+    def tile(x: torch.Tensor) -> torch.Tensor:
+        """Per-pool rows (P, ...) repeated once per scenario."""
+        return x.repeat(num_scen, *([1] * (x.dim() - 1)))
+
+    def by_block(fn, *rows, width=num_pools):
+        """fn on each scenario's block of the row tensors (``width`` rows
+        each), concatenated: each block runs at the unbatched shape."""
+        return torch.cat([
+            fn(*(r[s * width:(s + 1) * width] for r in rows))
+            for s in range(num_scen)
+        ])
+
+    al_p, be_p, avail_np = pf.pool_option_lines(
         options, clouds, term_weighting=term_weighting, od_rate=od,
         device=dev,
     )
-    qs = pf.handover_fractiles(al_p, be_p, od_rate=od)       # (P, K)
+    qs = tile(pf.handover_fractiles(al_p, be_p, od_rate=od))  # (R, K)
     sp_res = spot_mod.resolve_spot(spot, clouds, od_rate=od, device=dev)
     if sp_res is not None:
-        s_cfg, s_lines = sp_res
-        u_env = spot_mod.spot_entry_fractile(al_p, be_p, s_lines.rate,
-                                             od_rate=od)      # (P,)
+        s_cfg, base_lines = sp_res
+        u_env = tile(spot_mod.spot_entry_fractile(
+            al_p, be_p, base_lines.rate, od_rate=od))         # (R,)
+        s_lines = base_lines.map(tile)
+    al_p, be_p = tile(al_p), tile(be_p)
+    avail = tile(torch.as_tensor(avail_np, device=dev))
     rates = torch.tensor(
         [o.rate for o in options], dtype=torch.float32, device=dev
     )
@@ -319,8 +520,11 @@ def replan_fleet_pools(
     edges = (gn.migration_edges(pools.keys, mig_cfg, device=dev)
              if mig_cfg is not None else None)
     use_mig = edges is not None and edges.num_edges > 0
+    row_edges = (_tile_edges(edges, num_scen, num_pools)
+                 if use_mig and num_scen > 1 else edges)
 
-    # Convertible band: cloud-level SKUs beside the pool-pinned options.
+    # Convertible band: cloud-level SKUs beside the pool-pinned options,
+    # a private copy of the cloud axis per scenario.
     conv_opts = pf.resolve_convertible(convertible, clouds)
     max_term = max(term_list)
     if conv_opts is not None:
@@ -330,11 +534,18 @@ def replan_fleet_pools(
                 od_rate=od, device=dev,
             )
         )
+        al_c, be_c, qs_c = tile(al_c), tile(be_c), tile(qs_c)
         num_clouds, num_conv = len(conv_clouds), len(conv_opts)
+        num_cloud_rows = num_clouds * num_scen
         conv_rates = torch.tensor([o.rate for o in conv_opts],
                                   dtype=torch.float32, device=dev)
         conv_idx = torch.arange(num_conv, device=dev)
         max_term = max(max_term, max(o.term_weeks for o in conv_opts))
+
+        def pool_to_cloud(v):
+            """Per-pool rows (R, ...) summed onto each scenario's cloud
+            rows (N*C, ...), one (C, P) membership product per scenario."""
+            return by_block(lambda blk: member @ blk, v)
     sched_len = total_weeks + max_term + 1
 
     bands = [name for name, on in (("spot", sp_res is not None),
@@ -350,21 +561,23 @@ def replan_fleet_pools(
     w_hours = torch.arange(1, horizon_weeks + 1, device=dev) * HOURS_PER_WEEK
     opt_idx = torch.arange(num_opts, device=dev)
 
-    fit_demand = mg.transform_for_fit(demand, edges) if use_mig else demand
+    fit_demand = (mg.transform_for_fit(demand, row_edges) if use_mig
+                  else demand)
     state = fc.prefix_fit_state(
         fit_demand, cfg, horizon_hours=horizon_hours,
-        min_prefix_hours=start_weeks * HOURS_PER_WEEK,
+        min_prefix_hours=start_weeks * HOURS_PER_WEEK, row_block=num_pools,
     )
-    demand_wk = demand.reshape(num_pools, total_weeks, HOURS_PER_WEEK)
+    del fit_demand
+    demand_wk = demand.reshape(num_rows, total_weeks, HOURS_PER_WEEK)
     # Horizon prefix masks of the grid solver, (R*Wh, H): row r's horizon
     # h keeps the first h weeks of the forecast.
     t_h = torch.arange(horizon_hours, device=dev)
     prefix_masks = (t_h[None, :] < w_hours[:, None]).to(torch.float32)
     pool_masks = cloud_masks = None
     if solver == "grid":
-        pool_masks = prefix_masks.repeat(num_pools, 1)
+        pool_masks = prefix_masks.repeat(num_rows, 1)
         if conv_opts is not None:
-            cloud_masks = prefix_masks.repeat(num_clouds, 1)
+            cloud_masks = prefix_masks.repeat(num_cloud_rows, 1)
 
     def grid_prefix_levels(yhat, alphas, betas, masks):
         """Per-horizon stack tops via the over/under sweep on prefix-mask
@@ -384,30 +597,34 @@ def replan_fleet_pools(
     def targets_for(yhat):
         """Algorithm 1 steps 2-4 on one week's forecast: per-horizon prefix
         thresholds -> min within each option's term -> monotone stack
-        widths (P, K).  With spot, the per-horizon levels truncate at the
-        spot floors first, and the horizon-1 floor (P,) rides along as
-        the week's spot decision (None without spot)."""
+        widths (R, K).  With spot, the per-horizon levels truncate at the
+        spot floors first (their suffix sums run per scenario block), and
+        the horizon-1 floor (R,) rides along as the week's spot decision
+        (None without spot)."""
         if solver == "grid":
             per_h = grid_prefix_levels(yhat, al_p, be_p, pool_masks)
         else:
             per_h = _prefix_weighted_quantiles(yhat, w_hours, qs)
         floor = None
         if sp_res is not None:
-            floors = _spot_floors(yhat, w_hours, u_env, s_lines.cap)
+            floors = by_block(
+                lambda y, u, cap: _spot_floors(y, w_hours, u, cap),
+                yhat, u_env, s_lines.cap)
             per_h = torch.minimum(per_h, floors[..., None])
             floor = floors[:, 0]
         widths, _ = _monotone_stack(per_h, qs, term_weeks, horizon_weeks)
         return widths, floor
 
     def conv_targets_for(yhat, pool_top):
-        """Cloud-level convertible targets (C, Kc) on one week's forecast.
-        A cloud's total is turnover-invariant (demand moves between its
-        families, not out of it), so the safe cloud-level stack comes from
-        the same prefix thresholds -> term minima -> monotone stack on the
-        cloud totals with the convertible lines, truncated below the
-        cloud's summed pool stacks ``pool_top`` (P,): convertible buys the
-        band that is safe at cloud level but pinnable to no one family."""
-        total_c = member @ yhat                                # (C, H)
+        """Cloud-level convertible targets (N*C, Kc) on one week's
+        forecast.  A cloud's total is turnover-invariant (demand moves
+        between its families, not out of it), so the safe cloud-level stack
+        comes from the same prefix thresholds -> term minima -> monotone
+        stack on the cloud totals with the convertible lines, truncated
+        below the cloud's summed pool stacks ``pool_top`` (R,): convertible
+        buys the band that is safe at cloud level but pinnable to no one
+        family."""
+        total_c = pool_to_cloud(yhat)                          # (N*C, H)
         if solver == "grid":
             per_h = grid_prefix_levels(total_c, al_c, be_c, cloud_masks)
         else:
@@ -415,14 +632,21 @@ def replan_fleet_pools(
         widths_c, tops_c = _monotone_stack(per_h, qs_c, conv_terms,
                                            horizon_weeks)
         return pf.truncate_convertible_stack(tops_c, widths_c,
-                                             member @ pool_top)
+                                             pool_to_cloud(pool_top))
 
     compose_forecast = None
     if use_mig:
-        share_state = mg.share_prefix_state(
-            demand, edges, t_max=state.t_max,
-            prior_weight=mig_cfg.share_prior_weight,
-        )
+        # One share state per scenario block on the base edges, stacked in
+        # the tiled edges' order.
+        share_states = [
+            mg.share_prefix_state(demand[blk], edges, t_max=state.t_max,
+                                  prior_weight=mig_cfg.share_prior_weight)
+            for blk in blocks
+        ]
+        share_state = mg.SharePrefixState(
+            cum=torch.cat([st.cum for st in share_states]),
+            t_max=share_states[0].t_max)
+        del share_states
 
         def compose_forecast(yhat, w):
             """Pair totals x the week-``w`` prefix's logistic share fits
@@ -430,18 +654,18 @@ def replan_fleet_pools(
             sa, sb = mg.solve_share_prefix(share_state, w)
             sh = mg.predict_share(sa, sb, w * HOURS_PER_WEEK + t_h,
                                   share_state.t_max)
-            return mg.compose_forecast(yhat, sh, edges)
+            return mg.compose_forecast(yhat, sh, row_edges)
 
     def convertible_week(w, dec, active, active_c, rolloff_c):
         """The convertible pass of week ``w``, decided before the standard
         buys: roll off, size the cloud band (truncated below the higher of
         this week's pool targets and the carried pool stacks, so surplus
         standard tranches are not covered twice), buy its increments,
-        re-pin the live width onto the pools by the coming week's forecast
-        peak above their stacks (allocating sunk capacity is free; a mean
-        need would leave the diurnal peaks on demand), and scale the
-        standard buys down pro rata by that allocation.  Returns (the
-        standard increments (P, K), active_c, the cloud outputs)."""
+        re-pin the live width onto each scenario's pools by the coming
+        week's forecast peak above their stacks (allocating sunk capacity
+        is free; a mean need would leave the diurnal peaks on demand), and
+        scale the standard buys down pro rata by that allocation.  Returns
+        (the standard increments (R, K), active_c, the cloud outputs)."""
         active_c = active_c - rolloff_c[:, :, w]
         widths = dec.targets
         pool_top = torch.maximum(widths.sum(-1), active.sum(-1))
@@ -453,9 +677,15 @@ def replan_fleet_pools(
         rolloff_c[:, conv_idx, w + conv_terms] += inc_c
         need = torch.clamp(
             dec.yhat[:, :HOURS_PER_WEEK].amax(-1) - active.sum(-1), min=0.0)
-        alloc = pf.allocate_convertible(active_c.sum(-1), need, member)
+        width_c = active_c.sum(-1)
+        alloc = torch.cat([
+            pf.allocate_convertible(
+                width_c[s * num_clouds:(s + 1) * num_clouds], need[blk],
+                member)
+            for s, blk in enumerate(blocks)
+        ])
         desired = torch.clamp(widths - active, min=0.0)
-        lift = desired.sum(-1)                                   # (P,)
+        lift = desired.sum(-1)                                   # (R,)
         scale = torch.where(
             lift > ld.PURCHASE_EPS,
             torch.clamp(lift - alloc, min=0.0) / torch.clamp(lift, min=1e-9),
@@ -472,8 +702,8 @@ def replan_fleet_pools(
         """One pass over the evaluation weeks; returns the per-week outputs
         as host numpy arrays and the host decision flags."""
         ctx = pol.PolicyContext(
-            demand=demand, options=options, clouds=clouds, od=od,
-            rates=rates, term_weeks=term_weeks, qs=qs,
+            demand=demand, options=options, clouds=row_clouds, od=od,
+            rates=rates, term_weeks=term_weeks, avail=avail, qs=qs,
             w_hours=w_hours, start_weeks=start_weeks,
             cadence_weeks=cadence_wk, horizon_weeks=horizon_weeks,
             total_weeks=total_weeks, state=state, solve_fn=solve_fn,
@@ -481,11 +711,11 @@ def replan_fleet_pools(
             compose_forecast=compose_forecast,
         )
         pstate, decide = step_policy.setup(ctx)
-        active = torch.zeros((num_pools, num_opts), device=dev)
-        rolloff = torch.zeros((num_pools, num_opts, sched_len), device=dev)
+        active = torch.zeros((num_rows, num_opts), device=dev)
+        rolloff = torch.zeros((num_rows, num_opts, sched_len), device=dev)
         if conv_opts is not None:
-            active_c = torch.zeros((num_clouds, num_conv), device=dev)
-            rolloff_c = torch.zeros((num_clouds, num_conv, sched_len),
+            active_c = torch.zeros((num_cloud_rows, num_conv), device=dev)
+            rolloff_c = torch.zeros((num_cloud_rows, num_conv, sched_len),
                                     device=dev)
         outs: dict[str, list] = {}
         is_dec = []
@@ -494,7 +724,10 @@ def replan_fleet_pools(
             active = active - rolloff[:, :, w]
             # 2-4. the policy decides this week's target stack; buys happen
             # only on decision weeks and only as increments
-            pstate, dec = decide(pstate, pol.Observation(week=w, active=active))
+            d_prev = (demand_wk[:, w - 1] if step_policy.needs_prev_demand
+                      else None)
+            pstate, dec = decide(pstate, pol.Observation(
+                week=w, active=active, d_prev=d_prev))
             widths = dec.targets
             if conv_opts is None:
                 inc = torch.clamp(widths - active, min=0.0)
@@ -514,7 +747,7 @@ def replan_fleet_pools(
             # spot band, on-demand only up to the floor and the effective
             # spot rate above it.  A convertible allocation lifts each
             # pool's level for the week (its tranches bill at cloud level).
-            d = demand_wk[:, w]                                # (P, 168)
+            d = demand_wk[:, w]                                # (R, 168)
             level = active.sum(-1)
             committed = (rates * active).sum(-1) * HOURS_PER_WEEK
             if conv_opts is not None:
@@ -553,27 +786,47 @@ def replan_fleet_pools(
     )
     weeks = np.arange(start_weeks, total_weeks)
 
-    # The purchases as a tranche book: per-week targets (0 outside decision
-    # weeks, so the ladder planner's "never below active" rule buys exactly
-    # the replay's increments) threaded through the portfolio ladder.  With
-    # the convertible band the targets are not what was bought (live
-    # convertible capacity suppresses standard buys), so the book replays
-    # the realized post-purchase stack instead.
+    # The purchases as a tranche book, from scenario 0 (the first P rows):
+    # per-week targets (0 outside decision weeks, so the ladder planner's
+    # "never below active" rule buys exactly the replay's increments)
+    # threaded through the portfolio ladder.  With the convertible band the
+    # targets are not what was bought (live convertible capacity suppresses
+    # standard buys), so the book replays the realized stack instead.
     targets_full = np.zeros((num_pools, total_weeks, num_opts), np.float32)
-    book = ys["target"] if conv_opts is None else ys["active"]
+    book = (ys["target"] if conv_opts is None else ys["active"])[:, :num_pools]
     targets_full[:, weeks[dec]] = np.swapaxes(book[dec], 0, 1)
     term_hours = np.asarray(term_list) * HOURS_PER_WEEK
     ladders = ld.plan_pool_portfolio_purchases(
         targets_full, term_hours, pools.keys
     )
 
-    total = float(ys["committed"].sum() + ys["od"].sum())
-    if sp_res is not None:
-        total += float(ys["spot"].sum())
-    if conv_opts is not None:
-        total += float(ys["conv_committed"].sum())
-    eval_np = demand_np[:, start_weeks * HOURS_PER_WEEK:]
-    all_od = od * float(eval_np.sum())
+    def scen_total(s: int) -> float:
+        """Scenario s's replay cost, summed block by block in the
+        unbatched order (so scenario 0 is the unbatched total's bits)."""
+        cs = float(_block_sum(ys["committed"], s, num_pools)
+                   + _block_sum(ys["od"], s, num_pools))
+        if sp_res is not None:
+            cs += float(_block_sum(ys["spot"], s, num_pools))
+        if conv_opts is not None:
+            cs += float(_block_sum(ys["conv_committed"], s, num_clouds))
+        return cs
+
+    scen_cost = np.asarray([scen_total(s) for s in range(num_scen)])
+    t0 = start_weeks * HOURS_PER_WEEK
+    # every scenario's all-on-demand bill, one float64 sum per block
+    scen_all_od = od * torch.stack([
+        demand[blk, t0:].double().sum() for blk in blocks]).cpu().numpy()
+    total = float(scen_cost.mean()) if scen is not None else scen_cost[0]
+    all_od = (float(scen_all_od.mean()) if scen is not None
+              else float(scen_all_od[0]))
+
+    def _rep(a, rows=num_pools):
+        """Report view of a per-week (S, R, ...) array: the N axis inserted
+        on true scenario batches, passed through otherwise."""
+        if not scen_axis:
+            return a
+        return a.reshape(a.shape[0], num_scen, rows, *a.shape[2:])
+
     report = RollingPlanReport(
         keys=pools.keys,
         options=options,
@@ -581,45 +834,53 @@ def replan_fleet_pools(
         start_weeks=start_weeks,
         horizon_weeks=horizon_weeks,
         weeks=weeks,
-        targets=ys["target"],
-        increments=ys["inc"],
-        active=ys["active"],
-        committed_cost=ys["committed"],
-        on_demand_cost=ys["od"],
-        utilization=ys["util"],
+        targets=_rep(ys["target"]),
+        increments=_rep(ys["inc"]),
+        active=_rep(ys["active"]),
+        committed_cost=_rep(ys["committed"]),
+        on_demand_cost=_rep(ys["od"]),
+        utilization=_rep(ys["util"]),
         ladders=ladders,
-        total_cost=total,
+        total_cost=float(total),
         all_on_demand_cost=all_od,
         savings_vs_on_demand=1.0 - total / all_od if all_od > 0 else 0.0,
         policy_name=pcy.name,
         decision_mask=dec,
+        n_scenarios=num_scen,
+        scenario_family=scen.family if scen is not None else None,
+        scenario_cost=scen_cost if scen is not None else None,
+        od_rate=float(od),
+        scenario_config=scen,
     )
     if sp_res is not None:
         report.spot_config = s_cfg
-        report.spot_lines = s_lines
-        report.spot_floor = ys["floor"]
-        report.spot_cost = ys["spot"]
-        report.spot_volume = ys["spot_vol"]
+        report.spot_lines = base_lines
+        report.spot_floor = _rep(ys["floor"])
+        report.spot_cost = _rep(ys["spot"])
+        report.spot_volume = _rep(ys["spot_vol"])
         # The fast half of the split as a tranche book: every spot tranche
         # lasts exactly one week, sized at the week's peak spot usage.
         report.spot_ladders = ld.spot_ladder_book(
-            ys["spot_peak"], pools.keys, start_week=start_weeks,
+            ys["spot_peak"][:, :num_pools], pools.keys,
+            start_week=start_weeks,
         )
     if use_mig:
         report.migration_config = mig_cfg
-        report.migration_edges = edges
+        report.migration_edges = row_edges
     if conv_opts is not None:
         report.conv_options = conv_opts
         report.conv_clouds = tuple(conv_clouds)
-        report.conv_targets = ys["conv_target"]
-        report.conv_increments = ys["conv_inc"]
-        report.conv_active = ys["conv_active"]
-        report.conv_alloc = ys["conv_alloc"]
-        report.conv_committed_cost = ys["conv_committed"]
-        # The cloud-level tranche book, with the pool book's increment-only
-        # semantics: its live widths reconcile with the carried stack.
+        report.conv_targets = _rep(ys["conv_target"], num_clouds)
+        report.conv_increments = _rep(ys["conv_inc"], num_clouds)
+        report.conv_active = _rep(ys["conv_active"], num_clouds)
+        report.conv_alloc = _rep(ys["conv_alloc"])
+        report.conv_committed_cost = _rep(ys["conv_committed"], num_clouds)
+        # The cloud-level tranche book (scenario 0's clouds), with the pool
+        # book's increment-only semantics: its live widths reconcile with
+        # the carried stack.
         conv_full = np.zeros((num_clouds, total_weeks, num_conv), np.float32)
-        conv_full[:, weeks[dec]] = np.swapaxes(ys["conv_target"][dec], 0, 1)
+        conv_full[:, weeks[dec]] = np.swapaxes(
+            ys["conv_target"][:, :num_clouds][dec], 0, 1)
         report.conv_ladders = ld.convertible_ladder_book(
             conv_full,
             np.asarray([o.term_weeks for o in conv_opts]) * HOURS_PER_WEEK,
@@ -630,15 +891,27 @@ def replan_fleet_pools(
 
     # One-shot baseline: identical replay (the same spot, migration and
     # convertible bands, if any), single decision week, always the standard
-    # rolling policy on the prefix-sum refit.
+    # rolling policy on the prefix-sum refit.  Per scenario, its weekly
+    # bills (S, N) and their sums in the unbatched order.
     one, _ = replay(0, fc.solve_prefix, pol.RollingPortfolioPolicy())
-    one_weekly = (one["committed"] + one["od"]).sum(-1)
+    num_weeks = len(weeks)
+    one_weekly = (one["committed"] + one["od"]).reshape(
+        num_weeks, num_scen, num_pools).sum(-1)
     if sp_res is not None:
-        one_weekly = one_weekly + one["spot"].sum(-1)
+        one_weekly = one_weekly + one["spot"].reshape(
+            num_weeks, num_scen, num_pools).sum(-1)
     if conv_opts is not None:
-        one_weekly = one_weekly + one["conv_committed"].sum(-1)
-    report.one_shot_weekly_cost = one_weekly
-    report.one_shot_cost = float(one_weekly.sum())
+        one_weekly = one_weekly + one["conv_committed"].reshape(
+            num_weeks, num_scen, num_clouds).sum(-1)
+    scen_one = np.asarray([
+        float(np.ascontiguousarray(one_weekly[:, s]).sum())
+        for s in range(num_scen)])
+    report.one_shot_weekly_cost = (one_weekly if scen_axis
+                                   else one_weekly[:, 0])
+    report.one_shot_cost = (float(scen_one.mean()) if scen is not None
+                            else float(scen_one[0]))
+    if scen is not None:
+        report.scenario_one_shot_cost = scen_one
     report.savings_vs_one_shot = (
         1.0 - total / report.one_shot_cost
         if report.one_shot_cost > 0 else 0.0
@@ -646,24 +919,39 @@ def replan_fleet_pools(
 
     # Hindsight baseline: the optimal constant stack on realized demand
     # (billing lines, term_weighting=0: every active tranche bills its
-    # rate; expiring short tranches are repurchased back-to-back).
+    # rate; expiring short tranches are repurchased back-to-back), per row
+    # on the device, each scenario's bill summed as its own block.
     al0, be0, _ = pf.pool_option_lines(
         options, clouds, term_weighting=0.0, od_rate=od, device=dev
     )
-    hs = pf.optimal_portfolio_stack(
-        demand[:, start_weeks * HOURS_PER_WEEK:], al0, be0, od_rate=od
-    )
+    eval_demand = demand[:, t0:]
+    hs = pf.optimal_portfolio_stack(eval_demand, tile(al0), tile(be0),
+                                    od_rate=od)
+    hs_level = hs.widths.sum(-1)
+    hs_over = torch.clamp(
+        eval_demand.reshape(num_rows, num_weeks, HOURS_PER_WEEK)
+        - hs_level[:, None, None], min=0.0).sum(-1)            # (R, S)
+    hs_committed = (rates * hs.widths).sum(-1) * HOURS_PER_WEEK
+    hs_weekly = (hs_committed[:, None] + od * hs_over).cpu().numpy()
     hs_widths = hs.widths.cpu().numpy()
-    hs_level = hs_widths.sum(-1)
-    ed_wk = eval_np.reshape(num_pools, len(weeks), HOURS_PER_WEEK)
-    hs_over = np.maximum(ed_wk - hs_level[:, None, None], 0.0).sum(-1)
-    hs_committed = (
-        rates.cpu().numpy() * hs_widths
-    ).sum(-1) * HOURS_PER_WEEK
-    hs_weekly = hs_committed[:, None] + od * hs_over      # (P, S)
-    report.hindsight_widths = hs_widths
-    report.hindsight_weekly_cost = hs_weekly.sum(0)
-    report.hindsight_cost = float(hs_weekly.sum())
+    del hs, hs_over
+    scen_hind = np.asarray([
+        float(hs_weekly[blk].sum()) for blk in blocks])
+    if scen_axis:
+        report.hindsight_widths = hs_widths.reshape(num_scen, num_pools,
+                                                    num_opts)
+        report.hindsight_weekly_cost = hs_weekly.reshape(
+            num_scen, num_pools, num_weeks).sum(1).T          # (S, N)
+    else:
+        report.hindsight_widths = hs_widths
+        report.hindsight_weekly_cost = hs_weekly.sum(0)
+    if scen is not None:
+        report.scenario_hindsight_cost = scen_hind
+        report.hindsight_cost = float(scen_hind.mean())
+        report.scenario_cr = scen_cost / scen_hind
+        report.scenario_regret = scen_cost - scen_hind
+    else:
+        report.hindsight_cost = float(scen_hind[0])
     report.regret_vs_hindsight = (
         total / report.hindsight_cost - 1.0
         if report.hindsight_cost > 0 else 0.0

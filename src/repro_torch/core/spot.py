@@ -65,13 +65,20 @@ class SpotLines:
     availability: torch.Tensor
     params: pe.PreemptionParams
 
-    def to(self, device) -> "SpotLines":
+    def map(self, fn) -> "SpotLines":
+        """The lines with ``fn`` applied to every (P,) tensor, the
+        revocation parameters' too (a device move, a row slice, a tile)."""
         return SpotLines(
-            rate=self.rate.to(device), cap=self.cap.to(device),
-            market_rate=self.market_rate.to(device),
-            availability=self.availability.to(device),
-            params=self.params.to(device),
+            rate=fn(self.rate), cap=fn(self.cap),
+            market_rate=fn(self.market_rate),
+            availability=fn(self.availability),
+            params=pe.PreemptionParams(*(
+                fn(getattr(self.params, f.name))
+                for f in dataclasses.fields(self.params))),
         )
+
+    def to(self, device) -> "SpotLines":
+        return self.map(lambda a: a.to(device))
 
 
 def spot_cap_fraction(

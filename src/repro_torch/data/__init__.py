@@ -1,1 +1,2 @@
-"""Demand data for the port: the calibrated synthetic fleet."""
+"""Demand data for the port: the calibrated synthetic fleet, the
+dataset loader, and the scenario families."""

@@ -60,6 +60,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     for name in ("repro_torch.serve.engine", "repro_torch.models.model",
                  "repro_torch.models.rwkv", "repro_torch.models.transformer",
                  "repro_torch.configs",
+                 "repro_torch.data.scenarios", "repro_torch.core.tournament",
+                 "repro_torch.core.policy",
                  "repro_torch.kernels.flash_attention.flash_attention",
                  "repro_torch.kernels.linrec.linrec",
                  "repro_torch.kernels.build"):
@@ -174,3 +176,19 @@ def test_device_resolution():
             resolve_device(None)
         with pytest.raises(RuntimeError, match='device="cpu"'):
             resolve_device("cuda")
+
+
+def test_scenario_entry_points_default_to_the_card():
+    """The scenario batch and the tournament run on the card unless the
+    caller asks for the CPU, like the planners."""
+    from repro_torch.core import tournament as ttn
+    from repro_torch.data import scenarios as tsc
+    demand = np.ones((2, 24 * 14), np.float32)
+    cfg = tsc.ScenarioConfig(n_scenarios=2, family="scale")
+    cpu = tsc.scenario_batch(demand, cfg, device="cpu")
+    assert cpu.device.type == "cpu" and cpu.shape == (2, 2, 24 * 14)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            tsc.scenario_batch(demand, cfg)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            ttn.run_tournament(num_seeds=1)

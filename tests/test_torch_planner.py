@@ -405,16 +405,15 @@ def test_compare_horizons(horizons, eval_weeks):
 
 
 def test_unported_bands_name_their_item():
-    """The bands still to come (scenarios, telemetry) raise naming their
-    ROADMAP item; migration and convertible are ported and not refused."""
-    assert sorted(tpl.UNPORTED_BANDS) == ["scenarios", "telemetry"]
-    for kw, item in (({"scenarios": 2}, "item 12"),
-                     ({"telemetry": True}, "item 14")):
+    """The band still to come (telemetry) raises naming its ROADMAP item;
+    migration, convertible and scenarios are ported and not refused."""
+    assert sorted(tpl.UNPORTED_BANDS) == ["telemetry"]
+    for kw, item in (({"telemetry": True}, "item 14"),):
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             with pytest.raises(NotImplementedError, match=item):
                 tpl.reject_unported_bands(**kw)
-    tpl.reject_unported_bands(scenarios=None, telemetry=False)
+    tpl.reject_unported_bands(telemetry=False)
 
 
 # The spot band in the one-shot plan (spot=True), on the same two fleets:

@@ -10,6 +10,13 @@ options so tranches roll off inside the window, ``compare=True``.
 * grid solver: targets within one grid cell of that week's forecast,
   max(yhat)/(G-1), since thresholds snap to cell edges; totals within
   rel 1e-3.
+
+The spot, migration/convertible and scenario-batched (``scenarios=``)
+replays and the hedging policies follow, each section with its fleet and
+tolerances.  Within the port, scenario batching is held bit for bit: a
+one-scenario batch equals the unbatched replay for every policy, scenario
+0 of a batch equals it with every band on, and a chunked batch equals the
+unchunked one, under both solvers.
 """
 
 import dataclasses
@@ -25,7 +32,9 @@ from repro.capacity import generations as jgn  # noqa: E402
 from repro.capacity import pricing as jpr  # noqa: E402
 from repro.core import api as japi  # noqa: E402
 from repro.core import portfolio as jpf  # noqa: E402
+from repro.core import policy as jpol  # noqa: E402
 from repro.core import replan as jrp  # noqa: E402
+from repro.data import scenarios as jsc  # noqa: E402
 from repro.data import traces as jtr  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.capacity import generations as tgn  # noqa: E402
@@ -33,7 +42,9 @@ from repro_torch.capacity import pricing as tpr  # noqa: E402
 from repro_torch.core import api as tapi  # noqa: E402
 from repro_torch.core import forecast as tfc  # noqa: E402
 from repro_torch.core import migration as tmg  # noqa: E402
+from repro_torch.core import policy as tpol  # noqa: E402
 from repro_torch.core import replan as trp  # noqa: E402
+from repro_torch.data import scenarios as tsc  # noqa: E402
 
 WK = 168
 NUM_GRID = 128
@@ -302,10 +313,7 @@ def test_request_fields_match_reference():
 
 
 @pytest.mark.parametrize("kw", [
-    {"spot": True, "scenarios": 2}, {"scenarios": 2}, {"telemetry": True},
-    {"irls_carry": True},
-    {"cadence": "breach"}, {"policy": "deterministic_hedge"},
-    {"policy": "randomized_hedge"},
+    {"telemetry": True}, {"irls_carry": True}, {"cadence": "breach"},
 ])
 def test_unported_keywords_raise(fleet, kw):
     _, _, tpools, topts = fleet
@@ -315,8 +323,7 @@ def test_unported_keywords_raise(fleet, kw):
 
 def test_unported_modes_raise_on_plan(fleet):
     tpools = fleet[2]
-    for kw, item in (({"scenarios": 2}, "item 12"),
-                     ({"telemetry": True}, "item 14")):
+    for kw, item in (({"telemetry": True}, "item 14"),):
         with pytest.raises(NotImplementedError, match=item):
             tapi.plan(tapi.PlanRequest(pools=tpools, mode="rolling", **kw),
                       device="cpu")
@@ -703,3 +710,292 @@ def test_two_turnover_convertible_bought_and_pinned(acceptance_reports):
     assert float(aware.conv_active[-1].sum()) > 1.0
     assert float(aware.conv_alloc.sum()) > 0.0
     assert aware.conv_committed_cost.sum() > 0.0
+
+
+# Scenario batching (scenarios=), on the reference's tests/test_api.py
+# fleet (3 pools x 20 weeks; cadence 2, start 6, horizon 4).  Within the
+# port every contract is bit for bit.  Against the reference: targets as
+# above (quantile rtol 1e-3 / atol 1e-2; grid within one cell of the
+# scenario's own forecast), every per-scenario cost and ratio within rel
+# 1e-3 (regret, a difference of two bills, within 1e-3 of the bill),
+# hindsight widths within rtol 1e-5 / atol 1e-4.
+SCEN_KW = dict(cadence_weeks=2, start_weeks=6, horizon_weeks=4,
+               num_grid=NUM_GRID)
+SCEN_COSTS = ("scenario_cost", "scenario_one_shot_cost",
+              "scenario_hindsight_cost", "scenario_cr")
+
+
+@pytest.fixture(scope="module")
+def scen_fleet():
+    jpools = jtr.synthetic_pool_set(num_pools=3, num_hours=20 * WK)
+    return jpools, convert.pool_set_from_reference(jpools)
+
+
+def _same(a, b, name):
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                  err_msg=name)
+
+
+@pytest.mark.parametrize("policy", sorted(tpol.POLICIES))
+def test_n1_bit_identical_per_policy(scen_fleet, policy):
+    tpools = scen_fleet[1]
+    kw = dict(SCEN_KW, policy=policy, compare=False, device="cpu")
+    base = trp.replan_fleet_pools(tpools, **kw)
+    scen = trp.replan_fleet_pools(tpools, scenarios=1, **kw)
+    assert base.total_cost == scen.total_cost
+    for name in ("targets", "active", "increments", "committed_cost",
+                 "on_demand_cost"):
+        _same(getattr(base, name), getattr(scen, name), name)
+    assert scen.n_scenarios == 1 and scen.scenario_cost.shape == (1,)
+    assert float(scen.scenario_cost[0]) == base.total_cost
+    assert base.n_scenarios == 1 and base.scenario_cost is None
+
+
+@pytest.mark.parametrize("solver", ["quantile", "grid"])
+def test_scenario0_anchors_realized_all_bands(mig_fleet, solver):
+    """At N = 3 with spot, migration and convertible on, scenario 0 is the
+    unbatched replay bit for bit, baselines included."""
+    _, tpools, tplant = mig_fleet
+    kw = dict(MIG_KW, solver=solver, spot=True, migration=tplant,
+              device="cpu")
+    base = trp.replan_fleet_pools(tpools, **kw)
+    scen = trp.replan_fleet_pools(
+        tpools, scenarios=tsc.ScenarioConfig(n_scenarios=3, family="regime"),
+        **kw)
+    assert base.migration_edges.num_edges > 0 and scen.n_scenarios == 3
+    for name in ("targets", "increments", "active", "committed_cost",
+                 "on_demand_cost", "utilization", "spot_floor", "spot_cost",
+                 "spot_volume", "conv_targets", "conv_active", "conv_alloc",
+                 "conv_committed_cost", "weekly_cost",
+                 "one_shot_weekly_cost", "hindsight_weekly_cost"):
+        _same(getattr(scen, name)[:, 0], getattr(base, name), name)
+    _same(scen.hindsight_widths[0], base.hindsight_widths, "hindsight")
+    assert float(scen.scenario_cost[0]) == base.total_cost
+    assert float(scen.scenario_one_shot_cost[0]) == base.one_shot_cost
+    assert float(scen.scenario_hindsight_cost[0]) == base.hindsight_cost
+    # the other scenarios are other futures
+    assert not np.array_equal(scen.targets[:, 1], base.targets)
+
+
+@pytest.mark.parametrize("solver", ["quantile", "grid"])
+def test_chunked_merge_bit_identical(scen_fleet, solver):
+    tpools = scen_fleet[1]
+    kw = dict(SCEN_KW, solver=solver, device="cpu")
+    full = trp.replan_fleet_pools(
+        tpools, scenarios=tsc.ScenarioConfig(n_scenarios=4, family="growth"),
+        **kw)
+    chunked = trp.replan_fleet_pools(
+        tpools, scenarios=tsc.ScenarioConfig(n_scenarios=4, family="growth",
+                                             chunk=3), **kw)
+    assert chunked.n_scenarios == 4
+    for name in ("targets", "active", "committed_cost", "on_demand_cost",
+                 "one_shot_weekly_cost", "hindsight_weekly_cost",
+                 "hindsight_widths") + SCEN_COSTS:
+        _same(getattr(full, name), getattr(chunked, name), name)
+    assert full.total_cost == chunked.total_cost
+    assert full.one_shot_cost == chunked.one_shot_cost
+    assert full.hindsight_cost == chunked.hindsight_cost
+
+
+def _scenario_cells(tpools, rep):
+    """(S, N, P) grid-cell width of every replayed week's forecast of each
+    scenario's demand."""
+    rows = tsc.scenario_batch(
+        tpools.demand, rep.scenario_config, device="cpu").reshape(
+            -1, tpools.num_hours)
+    state = tfc.prefix_fit_state(
+        rows, tfc.ForecastConfig(), horizon_hours=rep.horizon_weeks * WK,
+        min_prefix_hours=rep.start_weeks * WK)
+    return np.stack([
+        (tfc.predict_from_beta(state, tfc.solve_prefix(state, int(w)),
+                               int(w) * WK, rep.horizon_weeks * WK)
+         .amax(-1) / (NUM_GRID - 1)).numpy()
+        for w in rep.weeks
+    ]).reshape(len(rep.weeks), rep.n_scenarios, -1)
+
+
+@pytest.mark.parametrize("solver", ["quantile", "grid"])
+def test_batched_replay_matches_reference(scen_fleet, solver):
+    jpools, tpools = scen_fleet
+    kw = dict(SCEN_KW, solver=solver)
+    jrep = jrp.replan_fleet_pools(jpools, scenarios=jsc.ScenarioConfig(
+        n_scenarios=3, family="regime", seed=4), **kw)
+    trep = trp.replan_fleet_pools(tpools, scenarios=tsc.ScenarioConfig(
+        n_scenarios=3, family="regime", seed=4), device="cpu", **kw)
+    assert trep.targets.shape == jrep.targets.shape
+    if solver == "quantile":
+        np.testing.assert_allclose(trep.targets, jrep.targets, rtol=1e-3,
+                                   atol=1e-2)
+    else:
+        cells = _scenario_cells(tpools, trep)[..., None]
+        assert (np.abs(trep.targets - jrep.targets) <= cells + 1e-4).all()
+    for name in SCEN_COSTS:
+        np.testing.assert_allclose(getattr(trep, name), getattr(jrep, name),
+                                   rtol=1e-3, err_msg=name)
+    # regret is a difference of two bills: held to 1e-3 of the bill
+    assert (np.abs(trep.scenario_regret - jrep.scenario_regret)
+            <= 1e-3 * jrep.scenario_cost).all()
+    for name in ("total_cost", "one_shot_cost", "hindsight_cost"):
+        assert getattr(trep, name) == pytest.approx(getattr(jrep, name),
+                                                    rel=1e-3), name
+    np.testing.assert_allclose(trep.hindsight_widths, jrep.hindsight_widths,
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(trep.weekly_cost, jrep.weekly_cost,
+                               rtol=1e-3)
+
+
+def test_batched_bands_match_reference(mig_fleet):
+    """N = 3 with every band on against the reference: costs within rel
+    1e-3, pool stacks and floors as above, cloud stacks within 1e-3 of
+    the cloud's pool level plus 1e-2 (the convertible band's tolerance)."""
+    jpools, tpools, tplant = mig_fleet
+    kw = dict(MIG_KW, spot=True, compare=False)
+    jrep = jrp.replan_fleet_pools(
+        jpools, migration=MIG_PLANT,
+        scenarios=jsc.ScenarioConfig(n_scenarios=3, family="scale"), **kw)
+    trep = trp.replan_fleet_pools(
+        tpools, migration=tplant,
+        scenarios=tsc.ScenarioConfig(n_scenarios=3, family="scale"),
+        device="cpu", **kw)
+    np.testing.assert_allclose(trep.scenario_cost, jrep.scenario_cost,
+                               rtol=1e-3)
+    for name in ("active", "targets", "spot_floor"):
+        np.testing.assert_allclose(getattr(trep, name), getattr(jrep, name),
+                                   rtol=1e-3, atol=1e-2, err_msg=name)
+    member = np.asarray([[1.0 if c == k[0] else 0.0 for k in trep.keys]
+                         for c in trep.conv_clouds])
+    pool_level = jrep.active.sum(-1)                        # (S, N, P)
+    cloud_tol = (1e-3 * pool_level @ member.T + 1e-2)[..., None]
+    for name in ("conv_active", "conv_targets"):
+        diff = np.abs(getattr(trep, name) - getattr(jrep, name))
+        assert (diff <= cloud_tol).all(), name
+    for name in ("src", "dst"):
+        _same(getattr(trep.migration_edges, name).numpy(),
+              getattr(jrep.migration_edges, name), name)
+
+
+def test_batched_report_shapes_and_summary(scen_fleet):
+    jpools, tpools = scen_fleet
+    n = 4
+    jrep = jrp.replan_fleet_pools(jpools, scenarios=jsc.ScenarioConfig(
+        n_scenarios=n, family="growth"), **SCEN_KW)
+    trep = trp.replan_fleet_pools(tpools, scenarios=tsc.ScenarioConfig(
+        n_scenarios=n, family="growth"), device="cpu", **SCEN_KW)
+    s, p = len(trep.weeks), tpools.num_pools
+    assert trep.targets.shape[:3] == (s, n, p)
+    assert trep.weekly_cost.shape == (s, n)
+    for name in SCEN_COSTS + ("scenario_regret",):
+        assert getattr(trep, name).shape == (n,), name
+    assert trep.hindsight_widths.shape[0] == n
+    assert trep.scenario_family == "growth" and trep.n_scenarios == n
+    assert trep.od_rate == pytest.approx(jrep.od_rate)
+    assert trep.total_cost == pytest.approx(trep.scenario_cost.mean(),
+                                            rel=1e-12)
+    js, ts = jrep.summary(), trep.summary()
+    assert sorted(ts) == sorted(js)
+    for key, val in js.items():
+        assert ts[key] == pytest.approx(val, rel=1e-3), key
+
+
+def test_batched_scan_matches_loop(scen_fleet):
+    tpools = scen_fleet[1]
+    kw = dict(SCEN_KW, compare=False, device="cpu",
+              scenarios=tsc.ScenarioConfig(n_scenarios=3, family="regime"))
+    scan = trp.replan_fleet_pools(tpools, backend="scan", **kw)
+    loop = trp.replan_fleet_pools(tpools, backend="loop", **kw)
+    np.testing.assert_allclose(scan.targets, loop.targets, rtol=1e-3,
+                               atol=1e-2)
+    np.testing.assert_allclose(scan.scenario_cost, loop.scenario_cost,
+                               rtol=1e-4)
+
+
+def test_scenarios_through_the_request(scen_fleet):
+    tpools = scen_fleet[1]
+    cfg = tapi.ScenarioConfig(n_scenarios=2, family="burst", seed=1)
+    req = tapi.PlanRequest(
+        pools=tpools, mode="rolling", horizon_weeks=4, scenarios=cfg,
+        rolling=tapi.RollingConfig(cadence_weeks=2, start_weeks=6,
+                                   compare=False))
+    rep = tapi.plan(req, device="cpu")
+    want = trp.replan_fleet_pools(tpools, scenarios=cfg, compare=False,
+                                  device="cpu", **dict(SCEN_KW, num_grid=128))
+    _same(rep.targets, want.targets, "targets")
+    _same(rep.scenario_cost, want.scenario_cost, "scenario_cost")
+    assert "ScenarioConfig" in tapi.__all__
+    with pytest.raises(TypeError, match="bool"):
+        tapi.PlanRequest(pools=tpools, mode="rolling", scenarios=True)
+    with pytest.raises(ValueError, match="rolling"):
+        tapi.PlanRequest(pools=tpools, scenarios=2)
+    with pytest.raises(ValueError, match="out of range"):
+        tsc.scenario_block(tpools.demand, tsc.resolve_scenarios(2), 1, 3,
+                           device="cpu")
+
+
+# The hedging policies (deterministic_hedge, randomized_hedge) in the
+# replay, on the same fleet, unbatched and at N = 3: the randomized hedge
+# is fed the reference's jax.random thresholds (the port draws its own
+# from torch.Generator).  Decisions equal: every week's buys and commit
+# pattern; the widths and the bills within rel 1e-5 (float32 sums in
+# another order).  No meter on these fleets sits within rounding of its
+# price, so no tie moves a commit week here.
+class _ReferenceDraws(tpol.RandomizedHedgePolicy):
+    def _thresholds(self, num_pools):
+        import jax
+        u = jax.random.uniform(jax.random.PRNGKey(self.seed),
+                               (num_pools, self.grid_size))
+        return torch.from_numpy(np.array(jpol._hedge_threshold(u)))
+
+
+@pytest.mark.parametrize("scenarios", [None, 3])
+@pytest.mark.parametrize("name", ["deterministic_hedge", "randomized_hedge"])
+def test_hedge_replay_matches_reference(scen_fleet, name, scenarios):
+    jpools, tpools = scen_fleet
+    scen = (None if scenarios is None else
+            dict(n_scenarios=scenarios, family="regime", seed=2))
+    jrep = jrp.replan_fleet_pools(
+        jpools, policy=name, **SCEN_KW,
+        scenarios=None if scen is None else jsc.ScenarioConfig(**scen))
+    tpolicy = (_ReferenceDraws(seed=0) if name == "randomized_hedge"
+               else name)
+    trep = trp.replan_fleet_pools(
+        tpools, policy=tpolicy, device="cpu", **SCEN_KW,
+        scenarios=None if scen is None else tsc.ScenarioConfig(**scen))
+    assert trep.policy_name == jrep.policy_name == name
+    _same(trep.increments > 0, jrep.increments > 0, "buy weeks")
+    for field in ("increments", "active", "targets"):
+        np.testing.assert_allclose(getattr(trep, field), getattr(jrep, field),
+                                   rtol=1e-5, atol=1e-5, err_msg=field)
+    np.testing.assert_allclose(trep.weekly_cost, jrep.weekly_cost, rtol=1e-5)
+    assert trep.total_cost == pytest.approx(jrep.total_cost, rel=1e-5)
+    if scenarios is not None:
+        np.testing.assert_allclose(trep.scenario_cr, jrep.scenario_cr,
+                                   rtol=1e-5)
+
+
+def test_hedge_thresholds_follow_the_density():
+    """The port's own thresholds (torch.Generator uniforms): inside (0, 1],
+    mean 1/(e-1) within 0.005, and a Kolmogorov distance to the CDF
+    (e^z - 1)/(e - 1) below 0.01 over 40,000 draws."""
+    z = tpol.RandomizedHedgePolicy(grid_size=40, seed=3)._thresholds(1000)
+    z = np.sort(z.numpy().ravel().astype(np.float64))
+    assert z.min() > 0.0 and z.max() <= 1.0
+    assert z.mean() == pytest.approx(1.0 / (np.e - 1.0), abs=0.005)
+    cdf = (np.exp(z) - 1.0) / (np.e - 1.0)
+    n = z.size
+    ks = max(np.max(np.arange(1, n + 1) / n - cdf),
+             np.max(cdf - np.arange(n) / n))
+    assert ks < 0.01
+    again = tpol.RandomizedHedgePolicy(grid_size=40, seed=3)._thresholds(1000)
+    assert np.array_equal(np.sort(again.numpy().ravel()), z.astype(np.float32))
+
+
+def test_hindsight_policy_replays_its_own_bill(scen_fleet):
+    """A true bound on fixed seeds: the hindsight policy holds the optimal
+    constant stack every week, so its replay bills exactly the hindsight
+    reference, a competitive ratio of 1 (float32 sums, rel 1e-5)."""
+    tpools = scen_fleet[1]
+    for family in ("regime", "growth"):
+        rep = trp.replan_fleet_pools(
+            tpools, policy="hindsight", device="cpu", **SCEN_KW,
+            scenarios=tsc.ScenarioConfig(n_scenarios=3, family=family))
+        np.testing.assert_allclose(rep.scenario_cr, 1.0, rtol=1e-5)
