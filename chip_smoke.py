@@ -5,7 +5,8 @@
 Drives the port's paths on the card — the commitment planner in both
 modes, without and with the spot band and its Monte-Carlo replay, with
 the migration and convertible bands on a fleet in generation turnover,
-batched over demand scenarios, the policy tournament, and the serving
+batched over demand scenarios, with telemetry, the breach cadence and
+the carried IRLS moments, the policy tournament, and the serving
 engine on the published stablelm-1.6b and rwkv6-3b — and
 checks each of their kernels (commitment sweep, revocation walk,
 generation turnover, flash attention, RWKV6 recurrence) against its plain
@@ -104,6 +105,27 @@ JSON line and raising on failure:
             weeks (start 26), N = 4 chunked by 3, equal to the unchunked
             run bit for bit and to the CPU within rel 1e-4 of each
             scenario's bill and one grid cell
+  telemetry the main fleet at phase plan's settings (a main path, 234
+            sweep launches per plan): the plain plan again (wall time,
+            host syncs); api.plan with TelemetryConfig(calibration=True,
+            provenance=True), every per-week array and bill bit for bit
+            with phase plan's report, its ledger reconciled with the
+            weekly costs, its kernel stats the shape of every recorded
+            sweep launch, the calibration coverage per fractile, the
+            decision log's holdings against the carried stack at three
+            weeks, and its wall time beside the plain plan's; the breach
+            cadence (decision weeks against the weekly 117, the bill
+            against the weekly bill and within rel 1e-4 of BREACH_BILL,
+            the mask bit for bit with a host loop over the emitted bands,
+            host syncs no more than the weekly plan's); irls_iters=1 with
+            irls_carry=True within rel 2e-3 of the exact irls_iters=1 plan
+            and closer to it than irls_iters=0; 32 regime futures under
+            the breach cadence with calibration (per-scenario masks, one
+            cube, scenario 0 bit for bit with the breach plan, wall time,
+            peak memory); breach, calibration, provenance and carry
+            together on 16 pools, card vs CPU (masks equal, the bill
+            within rel 1e-4); run_tournament with a SpanRecorder timed by
+            CUDA events, a span per policy
   tournament  run_tournament at the reference's defaults (every policy, 5
             families x 32 seeds x 3 pools x 48 weeks) on the card, against
             the CPU on the same paths (rel 1e-4 of each path's bill) and
@@ -280,6 +302,18 @@ SCEN_SAMPLED_POOLS = (0, 1, 511, NUM_POOLS - 1)
 # ROADMAP Queue 3; a CPU run at this size puts paths 1.07e-4 apart).
 TOURNAMENT_RTOL = 1e-4
 TOURNAMENT_LOOP_RTOL = 1e-3
+# Telemetry, the breach cadence and the carried IRLS moments on the main
+# fleet at phase plan's settings (grid solver, 234 sweep launches each):
+# the breach plan's bill as this script first printed it (within
+# BILL_RTOL from then on); the carried plan within CARRY_RTOL of the
+# exact irls_iters=1 plan, and closer to it than irls_iters=0 (the
+# reference's tests/test_api.py::TestIrlsCarry); N = 32 regime futures
+# under the breach cadence with calibration; 16 pools card vs CPU.
+BREACH_BILL = {"total_cost": 4317372928.0, "one_shot_cost": 5832199168.0,
+               "hindsight_cost": 5018841088.0}
+CARRY_RTOL = 2e-3
+TELEMETRY_SCEN_N = 32
+PROVENANCE_WEEKS = (0, 58, 116)      # evaluated weeks whose stack is rebuilt
 # Peak rates for the bound (NVIDIA data sheets, dense, at the full power
 # limit): FP32 on the CUDA cores, bf16 on the tensor cores, HBM bandwidth.
 PEAKS = {
@@ -1485,6 +1519,252 @@ def phase_tournament(dev):
          cr_min=float(card.competitive_ratio.min()))
 
 
+def breach_oracle(demand, lo_all, hi_all, start, band=(0.05, 0.95),
+                  tolerance=4.0):
+    """The breach decision mask replayed on the host by a python loop over
+    the emitted bands (S, P): integer hour counts against the integer
+    budgets, the whole fleet deciding when any pool breaches."""
+    q_lo, q_hi = band
+    allow_above = int(tolerance * (1.0 - q_hi) * 168)
+    allow_below = int(tolerance * q_lo * 168)
+    demand = np.asarray(demand)
+    demand = demand[:, :demand.shape[1] // 168 * 168].reshape(
+        demand.shape[0], -1, 168)
+    lo = np.zeros(demand.shape[0], np.float32)
+    hi = np.zeros(demand.shape[0], np.float32)
+    want = np.zeros(lo_all.shape[0], bool)
+    for i in range(lo_all.shape[0]):
+        w = start + i
+        d_prev = demand[:, w - 1]
+        above = (d_prev > hi[:, None]).sum(-1)
+        below = (d_prev < lo[:, None]).sum(-1)
+        want[i] = bool(((above > allow_above) | (below > allow_below)).any()
+                       or w == start)
+        if want[i]:
+            lo, hi = lo_all[i], hi_all[i]
+    return want
+
+
+def phase_telemetry(pools, grid_rep):
+    """Telemetry, the breach cadence and the carried IRLS moments on the
+    main fleet at phase plan's settings (a main path, launches counted
+    from 0 around each plan): the plain plan again (time, host syncs); the
+    plan with TelemetryConfig(calibration=True, provenance=True), bit for
+    bit phase plan's report, its ledger reconciled, its kernel stats the
+    shape of every sweep launch, the calibration coverage, the decision
+    log's holdings against the carried stack; the breach plan (234
+    launches, its mask against the host oracle over its bands, host syncs
+    no more than the weekly plan's, the bill pinned as BREACH_BILL); the
+    carried moments against the exact irls_iters=1 plan; N = 32 regime
+    futures under breach with calibration; breach, calibration,
+    provenance and carry together on 16 pools, card vs CPU; and the
+    tournament with a span recorder timed by CUDA events."""
+    from repro_torch import obs
+    from repro_torch.core import policy as pol
+    from repro_torch.core import tournament as tn
+    from repro_torch.core.api import (PlanRequest, RollingConfig,
+                                      ScenarioConfig, plan)
+    from repro_torch.core.demand import PoolSet
+    from repro_torch.core.replan import replan_fleet_pools
+    from repro_torch.kernels.commitment_sweep import commitment_sweep as ck
+    grid = dict(solver="grid", num_grid=NUM_GRID)
+    tele = obs.TelemetryConfig(calibration=True, provenance=True)
+    per_week = ("targets", "increments", "active", "committed_cost",
+                "on_demand_cost", "utilization", "one_shot_weekly_cost",
+                "hindsight_weekly_cost", "decision_mask")
+    bills = ("total_cost", "one_shot_cost", "hindsight_cost")
+    out = {}
+
+    def request(**kw):
+        rolling = {k: kw.pop(k) for k in list(kw)
+                   if k in RollingConfig.__dataclass_fields__}
+        return PlanRequest(pools=kw.pop("pools", pools), mode="rolling",
+                           rolling=RollingConfig(**grid, **rolling), **kw)
+
+    # The plain plan again, in this phase: its time and host syncs.
+    (plain, plain_syncs), plain_s, launches, _ = timed(
+        lambda: count_syncs(lambda: plan(request())), "commitment_sweep")
+    for name in per_week + ("hindsight_widths",):
+        bits_equal(f"plain plan {name}", getattr(plain, name),
+                   getattr(grid_rep, name))
+
+    # Telemetry on, recording the shape of every sweep launch.
+    shapes, launch = [], ck.commitment_sweep_cuda
+
+    def recording(f, w, cs):
+        shapes.append((f.shape[0], cs.shape[1], f.shape[1]))
+        return launch(f, w, cs)
+
+    ck.commitment_sweep_cuda = recording
+    try:
+        (rep, tele_syncs), secs, tele_launches, peak = timed(
+            lambda: count_syncs(lambda: plan(request(telemetry=tele))),
+            "commitment_sweep")
+    finally:
+        ck.commitment_sweep_cuda = launch
+    if tele_launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"{tele_launches} sweep launches with "
+                             "telemetry")
+    for name in per_week + ("hindsight_widths",):
+        bits_equal(f"telemetry plan {name}", getattr(rep, name),
+                   getattr(grid_rep, name))
+    bits_equal("telemetry plan weekly_cost", rep.weekly_cost,
+               grid_rep.weekly_cost)
+    for name in bills:
+        if getattr(rep, name) != getattr(grid_rep, name):
+            raise AssertionError(f"telemetry moved {name}")
+    ks = rep.kernel_stats
+    if (len(shapes) != tele_launches
+            or any(sh != (ks.p, ks.g, ks.t) for sh in shapes)
+            or (ks.p, ks.g, ks.t) != (MAIN_P, MAIN_G, MAIN_T)):
+        raise AssertionError(f"kernel stats {ks} against launches "
+                             f"{sorted(set(shapes))} x {len(shapes)}")
+    recon = rep.ledger.reconcile(rep)
+    if not recon["ok"]:
+        raise AssertionError(f"ledger does not reconcile: {recon}")
+    log, cube = rep.decision_log, rep.calibration
+    for i in PROVENANCE_WEEKS:
+        held = log.holdings(int(log.weeks[i]))
+        rebuilt = np.asarray([sum(t["width"] for t in held[e])
+                              for e in log.entities])
+        np.testing.assert_allclose(rebuilt, rep.active[i].sum(-1),
+                                   rtol=1e-5, atol=1e-4)
+    if not (np.isfinite(cube.pinball).all()
+            and cube.levels.shape == (len(rep.weeks), 1, NUM_POOLS, 5)):
+        raise AssertionError("calibration cube malformed")
+    out["telemetry_plan"] = dict(
+        wall_s=secs, plain_wall_s=plain_s, telemetry_cost_s=secs - plain_s,
+        host_syncs=tele_syncs, plain_host_syncs=plain_syncs,
+        max_memory_allocated=peak, sweep_launches=tele_launches,
+        bit_for_bit_with_plan=True, kernel_stats=ks.to_dict(),
+        ledger_total=rep.ledger.total, reconcile_max_rel=recon["max_rel"],
+        unit_economics=rep.ledger.unit_economics(),
+        coverage={str(q): float(c) for q, c in zip(cube.fractiles,
+                                                   cube.coverage())},
+        max_coverage_drift=cube.max_coverage_drift,
+        binding_counts=log.binding_counts(),
+        holdings_match_active_weeks=[int(log.weeks[i])
+                                     for i in PROVENANCE_WEEKS])
+    del rep, log, cube
+
+    # The breach cadence on the same fleet.
+    (brep, syncs), secs, launches, peak = timed(
+        lambda: count_syncs(lambda: plan(request(cadence="breach"))),
+        "commitment_sweep")
+    if launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"{launches} sweep launches in the breach plan")
+    oracle = breach_oracle(pools.demand, brep.breach_band_lo,
+                           brep.breach_band_hi, brep.start_weeks)
+    bits_equal("breach mask vs host oracle", brep.decision_mask, oracle)
+    if syncs > plain_syncs:
+        raise AssertionError(f"breach plan {syncs} host syncs, weekly "
+                             f"{plain_syncs}")
+    breach_costs = {k: getattr(brep, k) for k in bills}
+    breach_rel = {k: abs(breach_costs[k] - v) / v
+                  for k, v in BREACH_BILL.items()}
+    if max(breach_rel.values()) > BILL_RTOL:
+        raise AssertionError(f"the breach plan's bill moved: {breach_rel}")
+    out["breach_plan"] = dict(
+        wall_s=secs, max_memory_allocated=peak, sweep_launches=launches,
+        decision_weeks=int(brep.decision_mask.sum()),
+        weekly_decision_weeks=int(grid_rep.decision_mask.sum()),
+        bill_vs_weekly_rel=(brep.total_cost / grid_rep.total_cost - 1.0),
+        host_syncs=syncs, weekly_host_syncs=plain_syncs,
+        mask_equals_oracle=True, bill=breach_costs, bill_rel=breach_rel)
+
+    # The carried IRLS moments against the exact irls_iters=1 refits.
+    exact, exact_s, _, _ = timed(
+        lambda: plan(request(irls_iters=1, compare=False)),
+        "commitment_sweep")
+    carry, carry_s, carry_launches, _ = timed(
+        lambda: plan(request(irls_iters=1, irls_carry=True, compare=False)),
+        "commitment_sweep")
+    rel = abs(carry.total_cost - exact.total_cost) / exact.total_cost
+    rel_base = abs(grid_rep.total_cost - exact.total_cost) / exact.total_cost
+    if not (rel < CARRY_RTOL and rel < rel_base):
+        raise AssertionError(f"carried moments {rel} from the exact refit "
+                             f"(irls_iters=0: {rel_base})")
+    out["irls_carry"] = dict(
+        carry_wall_s=carry_s, exact_wall_s=exact_s,
+        sweep_launches=carry_launches, carry_total=carry.total_cost,
+        exact_total=exact.total_cost, carry_vs_exact_rel=rel,
+        base_vs_exact_rel=rel_base)
+    del exact, carry
+
+    # N = 32 regime futures under the breach cadence with calibration.
+    srep, secs, launches, peak = timed(
+        lambda: plan(request(cadence="breach", telemetry=obs.TelemetryConfig(
+            ledger=False, kernel_stats=False, calibration=True),
+            scenarios=ScenarioConfig(n_scenarios=TELEMETRY_SCEN_N,
+                                     family="regime"))),
+        "commitment_sweep")
+    if launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"{launches} sweep launches in the breach "
+                             "scenario plan")
+    scenario0_equal("breach scenario plan", srep, brep,
+                    per_week + ("breach_band_lo", "breach_band_hi"))
+    mask = srep.decision_mask
+    if (mask.shape != (len(srep.weeks), TELEMETRY_SCEN_N)
+            or srep.calibration.n_scenarios != TELEMETRY_SCEN_N):
+        raise AssertionError("per-scenario masks or the cube malformed")
+    out["breach_scenarios"] = dict(
+        scenarios=TELEMETRY_SCEN_N, family="regime", wall_s=secs,
+        max_memory_allocated=peak, sweep_launches=launches,
+        scenario0_bit_for_bit=True,
+        decision_weeks_per_scenario=mask.sum(0).tolist(),
+        scenario_coverage_min=srep.calibration.scenario_coverage().min(
+            0).tolist(),
+        scenario_coverage_max=srep.calibration.scenario_coverage().max(
+            0).tolist())
+    del srep, brep
+
+    # Breach, calibration, provenance and carry together on 16 pools.
+    sub = PoolSet(keys=pools.keys[:16], demand=pools.demand[:16],
+                  configs=pools.configs[:16])
+    kw = dict(grid, cadence="breach", irls_iters=1, irls_carry=True,
+              telemetry=tele, compare=False)
+    card = replan_fleet_pools(sub, **kw)
+    t0 = time.perf_counter()
+    cpu = replan_fleet_pools(sub, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    bits_equal("16 pools card vs CPU mask", card.decision_mask,
+               cpu.decision_mask)
+    for name in ("breach_band_lo", "breach_band_hi", "fractile_levels"):
+        bits_equal(f"16 pools card vs CPU {name}", getattr(card, name),
+                   getattr(cpu, name))
+    bits_equal("16 pools card vs CPU calibration hits", card.calibration.hits,
+               cpu.calibration.hits)
+    rel16 = abs(card.total_cost - cpu.total_cost) / cpu.total_cost
+    if rel16 > CARD_CPU_RTOL:
+        raise AssertionError(f"16 pools card vs CPU bill {rel16}")
+    out["card_vs_cpu_16"] = dict(
+        total_rel=rel16, masks_bands_levels_hits_equal=True,
+        cpu_wall_s=cpu_s, decision_weeks=int(card.decision_mask.sum()),
+        ledger_rel=abs(card.ledger.total / cpu.ledger.total - 1.0),
+        pinball_max_diff_of_scale=float(
+            np.abs(card.calibration.pinball - cpu.calibration.pinball).max()
+            / np.abs(cpu.calibration.pinball).max()))
+
+    # The tournament with a span recorder on the card (CUDA events).
+    rec = obs.SpanRecorder()
+    names = list(pol.POLICIES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tn.run_tournament(names, spans=rec)
+    summary = rec.summary()
+    host_s = time.perf_counter() - t0
+    want = {f"tournament/{n}" for n in names} | {"tournament/hindsight"}
+    if set(summary) != want or not all(v["total_s"] > 0
+                                       for v in summary.values()):
+        raise AssertionError(f"tournament spans: {summary}")
+    out["tournament_spans"] = dict(
+        timer=rec.timer, wall_s=host_s, device_s=rec.total_s,
+        by_span={k: v["total_s"] for k, v in summary.items()})
+    emit("telemetry", pools=NUM_POOLS, hours=NUM_HOURS, nvidia_smi=smi(),
+         **out)
+    return tele_launches
+
+
 def device_kernels(prof):
     """(device us, count, name) of every device-side event (kernels,
     memcpys, memsets), largest first: the aten ops on the host side carry
@@ -2547,6 +2827,10 @@ def phase_timing(dev, launches, errs, turnover):
             # carry 32 x the rows; that shape's times and bound
             "launches_per_scenario_plan":
                 launches["commitment_sweep_scenarios"],
+            # with telemetry=, cadence="breach" or scenarios= under the
+            # breach cadence, still one launch per replayed week
+            "launches_per_telemetry_breach_plan":
+                launches["commitment_sweep_telemetry"],
             "scenario_shape": {key: scen[key] for key in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")},
@@ -2671,6 +2955,7 @@ def main() -> int:
     scenario_launches = phase_scenarios(pools, grid_rep, plan_s,
                                         plan_profile, spot_rep, mig_pools,
                                         mig_rep)
+    telemetry_launches = phase_telemetry(pools, grid_rep)
     del pools, grid_rep, spot_rep, mig_pools, mig_rep
     phase_tournament(dev)
     phase_model_cpu(dev)
@@ -2679,7 +2964,8 @@ def main() -> int:
                 "revocation_walk": walk_launches,
                 "generation_turnover": turnover_launches,
                 "commitment_sweep_migration": migration_launches,
-                "commitment_sweep_scenarios": scenario_launches}
+                "commitment_sweep_scenarios": scenario_launches,
+                "commitment_sweep_telemetry": telemetry_launches}
     launches["flash_attention"], dense = phase_serve(
         "serve_dense", "stablelm-1.6b", dev, "flash_attention")
     launches["flash_by_kernel"] = dense["launches"]["flash_by_kernel"]

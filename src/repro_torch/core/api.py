@@ -18,10 +18,11 @@ bool or a :class:`repro_torch.core.spot.SpotConfig`), ``migration=``
 (None, a bool or a :class:`repro_torch.capacity.generations.
 MigrationConfig`) and ``convertible=`` (None, a bool or a list of
 convertible purchase options) run in both; ``scenarios=`` (an int or a
-:class:`ScenarioConfig`) and every registry ``policy=`` run in rolling
-mode.  ``telemetry``, ``cadence="breach"`` and ``irls_carry=True`` are
-accepted at construction, as in the reference, and raise
-``NotImplementedError`` naming their ROADMAP item when planned.
+:class:`ScenarioConfig`), every registry ``policy=``, ``telemetry=``
+(None or False, True, or a :class:`repro_torch.obs.TelemetryConfig`),
+``RollingConfig(cadence="breach")`` and ``RollingConfig(irls_carry=True)``
+run in rolling mode, so a rolling request accepts everything the
+reference's does.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from repro_torch.core import forecast as fc
 from repro_torch.core import policy as pol
 from repro_torch.core import spot as spot_mod
 from repro_torch.data.scenarios import ScenarioConfig, resolve_scenarios
+from repro_torch.obs.config import resolve_telemetry
 
 __all__ = ["PlanRequest", "RollingConfig", "ScenarioConfig", "plan"]
 
@@ -170,6 +172,7 @@ class PlanRequest:
                 f"known: {tuple(pol.POLICIES)}"
             )
         resolve_scenarios(self.scenarios)
+        resolve_telemetry(self.telemetry)
         if self.mode == "one_shot":
             if self.policy is not None:
                 raise ValueError("policy= applies to mode='rolling' only")
@@ -177,9 +180,10 @@ class PlanRequest:
                 raise ValueError(
                     "scenarios= applies to mode='rolling' only"
                 )
-            if self.telemetry is not None and self.telemetry is not False:
+            if resolve_telemetry(self.telemetry) is not None:
                 raise ValueError(
-                    "telemetry= applies to mode='rolling' only"
+                    "telemetry= applies to mode='rolling' only (the "
+                    "ledger decomposes the weekly replay)"
                 )
             if self.rolling != RollingConfig():
                 raise ValueError(

@@ -1,6 +1,9 @@
 """Structural time-series forecaster (paper §3.3.3, Prophet replacement):
 the one-shot fit (:func:`fit`, :func:`fit_batched`) and the prefix refits
-the rolling replay runs every week.
+the rolling replay runs every week, with their optional carried IRLS
+moments (:func:`irls_carry_init`), and the weekly fractile bands of the
+calibration telemetry and the breach cadence
+(:func:`anchored_fractile_levels`).
 
     log y = beta . [1, t, relu(t - cp_1..K),            # piecewise trend
                     fourier_daily, fourier_weekly, fourier_yearly,
@@ -356,6 +359,156 @@ def irls_refine(
               mask=mask)
         for blk in state.blocks()
     ])
+
+
+def _outer_rows(x: torch.Tensor) -> torch.Tensor:
+    """(T, D*D) hourly outer products x_t x_t^T of a design block (T, D):
+    a weighted gram over its hours is then one product w (P, T) @ this,
+    with no (P, T, D) weighted design in memory."""
+    d = x.shape[-1]
+    return (x[:, :, None] * x[:, None, :]).reshape(-1, d * d)
+
+
+def _adjustment_moments(state: PrefixFitState, beta: torch.Tensor,
+                        x: torch.Tensor, logy: torch.Tensor):
+    """The asymmetric-weight adjustment moments of the hours of design
+    block x (T, D) with targets logy (P, T) under ``beta`` (P, D): each
+    under-forecast hour (residual > 0) weighs ``asym_weight - 1`` on top
+    of the unweighted prefix sums.  Returns (gram_adj (P, D, D), rhs_adj
+    (P, D)), computed per row block."""
+    d = x.shape[-1]
+    outer = _outer_rows(x)
+    gram = torch.empty((beta.shape[0], d, d), dtype=x.dtype, device=x.device)
+    rhs = torch.empty((beta.shape[0], d), dtype=x.dtype, device=x.device)
+    for blk in state.blocks():
+        lb = logy[blk]
+        resid = lb - beta[blk] @ x.T
+        wadj = torch.where(resid > 0, state.cfg.asym_weight - 1.0, 0.0)
+        gram[blk] = (wadj @ outer).reshape(-1, d, d)
+        rhs[blk] = (wadj * lb) @ x
+    return gram, rhs
+
+
+def solve_prefix_adjusted(
+    state: PrefixFitState, week: int, gram_adj: torch.Tensor,
+    rhs_adj: torch.Tensor,
+) -> torch.Tensor:
+    """Prefix fit with carried IRLS weight-adjustment moments.
+
+    The asymmetric weights ``w = 1 + (asym-1)[resid > 0]`` split the
+    weighted normal equations into the unweighted prefix sums (already in
+    ``state``) plus an adjustment accumulated over under-forecast hours
+    only, ``gram_adj (P, D, D)`` and ``rhs_adj (P, D)``.  Solving
+
+        (gram_prefix[w] + gram_adj + ridge I) beta = rhs_prefix[w] + rhs_adj
+
+    gives a weighted fit without an O(T D^2) pass (see
+    :func:`irls_carry_init` and :func:`irls_carry_extend`)."""
+    g = state.gram_prefix[week - 1]
+    r = state.rhs_prefix[:, week - 1]
+    eye = state.cfg.ridge * torch.eye(g.shape[-1], dtype=g.dtype,
+                                      device=g.device)
+    return torch.cat([
+        torch.linalg.solve_ex(g + gram_adj[blk] + eye,
+                              (r[blk] + rhs_adj[blk])[..., None])[0][..., 0]
+        for blk in state.blocks()
+    ])
+
+
+def irls_carry_init(
+    state: PrefixFitState, week: int, iters: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact IRLS adjustment moments on the ``week``-period prefix:
+    ``iters`` passes from :func:`solve_prefix`, each classifying every
+    prefix hour's residual and re-solving with
+    :func:`solve_prefix_adjusted`; returns the last pass's (gram_adj
+    (P, D, D), rhs_adj (P, D)).  A replay starts from these and keeps
+    them current with :func:`irls_carry_extend`: O(period D^2) a week
+    instead of ``iters`` O(T D^2) passes."""
+    beta = solve_prefix(state, week)
+    n = week * state.period_hours
+    x, logy = state.x[:n], state.logy[:, :n]
+    d = x.shape[-1]
+    num_p = state.logy.shape[0]
+    g_adj = torch.zeros((num_p, d, d), dtype=x.dtype, device=x.device)
+    r_adj = torch.zeros((num_p, d), dtype=x.dtype, device=x.device)
+    for _ in range(max(iters, 0)):
+        g_adj, r_adj = _adjustment_moments(state, beta, x, logy)
+        beta = solve_prefix_adjusted(state, week, g_adj, r_adj)
+    return g_adj, r_adj
+
+
+def irls_carry_extend(
+    state: PrefixFitState,
+    beta: torch.Tensor,
+    gram_adj: torch.Tensor,
+    rhs_adj: torch.Tensor,
+    week: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The carried moments extended by period ``week``'s hours: only the
+    newest period's residuals are classified, under the current ``beta``,
+    so the moments cover the ``week + 1``-period prefix for the next
+    refit.  Older periods keep the class they had when appended (frozen-
+    weights IRLS), the approximation that makes a week O(period D^2)."""
+    ph = state.period_hours
+    hours = slice(week * ph, (week + 1) * ph)
+    dg, dr = _adjustment_moments(state, beta, state.x[hours],
+                                 state.logy[:, hours])
+    return gram_adj + dg, rhs_adj + dr
+
+
+def _quantile_linear(a: torch.Tensor, fractiles) -> torch.Tensor:
+    """(..., Q) quantiles of the last axis of float32 ``a`` with linear
+    interpolation, with the reference's bits: sort, pos = q (n - 1) in
+    float32, and lo (1 - h) + hi h evaluated as the reference's compiled
+    program does, the product hi h rounded to float32 and lo (1 - h)
+    fused into the add (one rounding, reproduced in float64, where the
+    product of two float32 values is exact).  ``torch.quantile`` rounds
+    both products and agrees bit for bit on ~90% of levels only.  The
+    positions and weights depend on (q, n) only, so they are host numbers:
+    nothing is copied to the device."""
+    n = a.shape[-1]
+    pos = torch.tensor(fractiles, dtype=torch.float32) * float(n - 1)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    hw = pos - low
+    lw = 1.0 - hw
+    srt = torch.sort(a, dim=-1).values
+    cols = [
+        (srt[..., hi] * h).double() + srt[..., lo].double() * wl
+        for lo, hi, h, wl in zip(low.clamp(0, n - 1).long().tolist(),
+                                 high.clamp(0, n - 1).long().tolist(),
+                                 hw.tolist(), lw.tolist())
+    ]
+    return torch.stack(cols, dim=-1).to(a.dtype)
+
+
+def weekly_fractile_levels(
+    yhat: torch.Tensor, fractiles, hours: int = HOURS_PER_WEEK,
+) -> torch.Tensor:
+    """(..., Q) fractile levels of the first ``hours`` of a forecast: the
+    model-only band, quantiles of the smooth fit's own hourly values.  The
+    calibration telemetry and the breach cadence use
+    :func:`anchored_fractile_levels` instead, because the smooth fit alone
+    under-disperses; this one remains for model-only diagnostics."""
+    return _quantile_linear(yhat[..., :hours], fractiles)
+
+
+#: Trailing realized weeks pooled into the anchored band's empirical
+#: spread.
+TRAIL_WEEKS = 4
+
+
+def anchored_fractile_levels(d_trail: torch.Tensor, fractiles) -> torch.Tensor:
+    """(..., Q) forecast fractile levels for the coming week: the
+    empirical quantiles of the trailing realized window ``d_trail``
+    ((..., TRAIL_WEEKS * 168) hours), the persistence-quantile forecast
+    of next week's hourly distribution.  The structural fit is not
+    blended in (ridge and the finite Fourier order shrink its seasonal
+    amplitude and it carries no residual noise), so the band keeps
+    coverage near nominal on predictable demand while a regime shift,
+    which a trailing window cannot see coming, degrades it: the signal the
+    calibration telemetry and the breach cadence key on."""
+    return _quantile_linear(d_trail, fractiles)
 
 
 def predict_from_beta(

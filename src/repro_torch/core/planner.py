@@ -43,23 +43,6 @@ from repro_torch.device import resolve_device
 
 pricing.validate_tables()
 
-#: Keywords whose subsystem the port does not have yet, by ROADMAP item.
-UNPORTED_BANDS = {
-    "telemetry": "item 14: telemetry emitters",
-}
-
-
-def reject_unported_bands(**kw) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for each
-    keyword of :data:`UNPORTED_BANDS` set to anything but None or False."""
-    for name, value in kw.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{name}= is not ported yet "
-                f"(ROADMAP Queue 1, {UNPORTED_BANDS[name]})"
-            )
-
-
 def _prefix_weighted_quantiles(
     yhat: torch.Tensor, w_hours: torch.Tensor, qs: torch.Tensor
 ) -> torch.Tensor:

@@ -22,8 +22,11 @@ stack, buy only the increments, bill the week.  A policy is two phases:
                              (arXiv 2004.04302): forecast-free ski rental
                              per capacity band.
 
-``is_decision`` is a host bool: the cadence rule depends on the week
-number only, so deciding it needs nothing from the device.
+``is_decision`` is a host bool under the weekly cadence rule, which
+depends on the week number only, so deciding it needs nothing from the
+device.  Under ``cadence_mode="breach"`` the rolling policy decides from
+realized demand instead, and ``is_decision`` is a per-row (R,) bool
+tensor on the device, uniform within each scenario block.
 
 The hedging policies cut the candidate range [0, top) of each pool into
 ``grid_size`` bands; each band accrues the on-demand spend it would have
@@ -74,6 +77,10 @@ class PolicyContext:
     state: fc.PrefixFitState
     solve_fn: Callable           # (state, week) -> beta  (scan or loop)
     irls_iters: int = 0
+    #: carry the IRLS weight-adjustment moments in the policy state
+    #: (frozen-weights incremental IRLS) instead of full masked passes per
+    #: week (``fc.irls_carry_init``)
+    irls_carry: bool = False
     # yhat (P, Wh*168) -> (targets (P, K), spot floor (P,) | None)
     targets_for: Callable | None = None
     # (yhat, week) -> yhat: the migration band's recomposition of pair-total
@@ -84,6 +91,18 @@ class PolicyContext:
     #: context per tournament path does (1: one draw over all rows, as its
     #: scenario-batched replay does)
     path_blocks: int = 1
+    #: "weekly" (the harness cadence rule) or "breach": re-solve only in
+    #: weeks where last week's realized demand left the band held since
+    #: the previous decision (and in the start week)
+    cadence_mode: str = "weekly"
+    #: (q_lo, q_hi) fractile pair of the breach band
+    breach_band: tuple = (0.05, 0.95)
+    #: a week breaches when more than ``breach_tolerance`` x the nominal
+    #: miss mass of its 168 hours leave the band
+    breach_tolerance: float = 4.0
+    #: scenario blocks of the rows: a breach decision is fleet-wide per
+    #: scenario, reduced over each block of ``num_pools / scenario_blocks``
+    scenario_blocks: int = 1
 
     @property
     def num_pools(self) -> int:
@@ -104,8 +123,12 @@ class Observation(NamedTuple):
     week: int                     # absolute week index
     active: torch.Tensor          # (P, K) committed stack after roll-offs
     #: (P, 168) last week's realized demand; None unless the policy sets
-    #: ``needs_prev_demand``
+    #: ``needs_prev_demand`` or the cadence is "breach"
     d_prev: torch.Tensor | None = None
+    #: (P, TRAIL_WEEKS*168) trailing realized demand, the anchor of
+    #: ``fc.anchored_fractile_levels``; gathered only under the breach
+    #: cadence or calibration telemetry
+    d_trail: torch.Tensor | None = None
 
 
 class Decision(NamedTuple):
@@ -114,7 +137,12 @@ class Decision(NamedTuple):
     targets: torch.Tensor         # (P, K) absolute stack widths to hold
     floor: torch.Tensor | None    # (P,) spot floor (forecasting + spot only)
     yhat: torch.Tensor | None     # (P, H) forecast (None = non-forecasting)
-    is_decision: bool             # may this week buy?
+    #: may this week buy?  A host bool, or a per-row (P,) bool tensor
+    #: under ``cadence_mode="breach"``
+    is_decision: "bool | torch.Tensor"
+    #: extra per-week tensors the harness forwards into the outputs (the
+    #: breach band held, ``band_lo``/``band_hi``); None otherwise
+    extras: dict | None = None
 
 
 class Policy:
@@ -149,21 +177,70 @@ class RollingPortfolioPolicy(Policy):
     forecasting = True
 
     def setup(self, ctx: PolicyContext):
+        carry_irls = ctx.irls_carry and ctx.irls_iters > 0
+        breach = ctx.cadence_mode == "breach"
+        # Carried IRLS: the policy state starts from the exact adjustment
+        # moments on the start prefix; each week solves against prefix +
+        # carried moments and appends only the newest week's block.
+        inner0 = (fc.irls_carry_init(ctx.state, ctx.start_weeks,
+                                     ctx.irls_iters)
+                  if carry_irls else ())
+        if breach:
+            q_lo, q_hi = ctx.breach_band
+            # Integer hour budgets: a week breaches when strictly more than
+            # tolerance x the nominal miss mass of its 168 hours leave the
+            # band, so a host loop over the emitted bands reproduces the
+            # mask exactly.
+            allow_above = int(
+                ctx.breach_tolerance * (1.0 - q_hi) * HOURS_PER_WEEK)
+            allow_below = int(ctx.breach_tolerance * q_lo * HOURS_PER_WEEK)
+            blocks = ctx.scenario_blocks
+            rows_per = ctx.num_pools // blocks
+            zeros = torch.zeros(ctx.num_pools, dtype=torch.float32,
+                                device=ctx.demand.device)
+            pstate0 = (inner0, (zeros, zeros))
+        else:
+            pstate0 = inner0
+
         def decide(pstate, obs: Observation):
             w = obs.week
-            beta = ctx.solve_fn(ctx.state, w)
-            beta = fc.irls_refine(ctx.state, beta, w, ctx.irls_iters)
+            inner, (lo, hi) = pstate if breach else (pstate, (None, None))
+            if carry_irls:
+                g_adj, r_adj = inner
+                beta = fc.solve_prefix_adjusted(ctx.state, w, g_adj, r_adj)
+                inner = fc.irls_carry_extend(ctx.state, beta, g_adj, r_adj,
+                                             w)
+            else:
+                beta = ctx.solve_fn(ctx.state, w)
+                beta = fc.irls_refine(ctx.state, beta, w, ctx.irls_iters)
             yhat = fc.predict_from_beta(
                 ctx.state, beta, w * HOURS_PER_WEEK, ctx.horizon_hours
             )
             if ctx.compose_forecast is not None:
                 yhat = ctx.compose_forecast(yhat, w)
             targets, floor = ctx.targets_for(yhat)
-            return pstate, Decision(
-                targets, floor, yhat, self._is_decision(ctx, w)
+            if not breach:
+                return inner, Decision(
+                    targets, floor, yhat, self._is_decision(ctx, w)
+                )
+            # Breach of the band held since the last decision week, on the
+            # most recent completed week; any breaching pool re-solves its
+            # whole scenario block.  All on the device: no host sync.
+            above = (obs.d_prev > hi[:, None]).sum(-1)
+            below = (obs.d_prev < lo[:, None]).sum(-1)
+            is_dec = (above > allow_above) | (below > allow_below)
+            if w == ctx.start_weeks:
+                is_dec = torch.ones_like(is_dec)
+            scen = is_dec.reshape(blocks, rows_per).any(dim=1)
+            is_dec = scen[:, None].expand(blocks, rows_per).reshape(-1)
+            band = fc.anchored_fractile_levels(obs.d_trail, (q_lo, q_hi))
+            lo = torch.where(is_dec, band[:, 0], lo)
+            hi = torch.where(is_dec, band[:, 1], hi)
+            return (inner, (lo, hi)), Decision(
+                targets, floor, yhat, is_dec, {"band_lo": lo, "band_hi": hi}
             )
 
-        return (), decide
+        return pstate0, decide
 
 
 class OneShotPolicy(RollingPortfolioPolicy):

@@ -19,9 +19,18 @@ is already committed (commitments are added any week and only expire):
 The reference runs this as one ``lax.scan``.  Here it is a Python loop over
 weeks that carries ``(active (P, K), rolloff (P, K, W), pstate)`` as tensors
 on the replay's device.  Nothing inside the loop reads a device value back
-on the host: the cadence rule is host arithmetic on the week number, and
-the per-week outputs are stacked on the device and copied to the host once
-after the loop.
+on the host: the weekly cadence rule is host arithmetic on the week number,
+the breach cadence's per-row decision stays a device tensor that masks the
+buys, and the per-week outputs are stacked on the device and copied to the
+host in one buffer after the loop (:func:`_to_host`).
+
+``telemetry=`` adds outputs to the same loop (per-SKU spend, usage,
+on-demand volume; each week's fractile levels and their calibration
+scores; roll-offs and binding flags) and materializes the
+``repro_torch.obs`` records from them; it changes nothing that is bought
+or billed.  ``cadence="breach"`` re-solves only when last week's demand
+left the band held since the last decision, ``irls_carry=True`` carries
+the IRLS moments in the policy state (:mod:`repro_torch.core.policy`).
 
 ``solver="grid"`` solves each week's per-horizon prefixes with the grid
 solver on the commitment sweep; on the card that is the hand-written CUDA
@@ -93,14 +102,17 @@ from repro_torch.core import portfolio as pf
 from repro_torch.core import spot as spot_mod
 from repro_torch.core.demand import HOURS_PER_WEEK
 from repro_torch.core.planner import (
-    UNPORTED_BANDS,
     _monotone_stack,
     _prefix_weighted_quantiles,
     _spot_floors,
-    reject_unported_bands,
 )
 from repro_torch.data import scenarios as sc
 from repro_torch.device import resolve_device
+from repro_torch.obs import calibration as obs_calib
+from repro_torch.obs import config as obs_config
+from repro_torch.obs import kernelstats as obs_kstats
+from repro_torch.obs import ledger as obs_ledger
+from repro_torch.obs import provenance as obs_prov
 
 pricing.validate_tables()
 
@@ -164,10 +176,8 @@ class RollingPlanReport:
     conv_alloc: np.ndarray | None = None              # (S, P) re-pinned
     conv_committed_cost: np.ndarray | None = None     # (S, C) weekly spend
     conv_ladders: ld.PoolLadderBook | None = None     # cloud-level book
-    # Which policy drove the weekly decisions (``core.policy``), and the
-    # weeks on which it could buy.
+    # Which policy drove the weekly decisions (``core.policy``).
     policy_name: str = "rolling_portfolio"
-    decision_mask: np.ndarray | None = None           # (S,) bool
     # Scenario batch (None / axis absent on single-path replays): with
     # n_scenarios > 1 every per-week array above gains an N axis at
     # position 1 ((S, N, P, K), cloud axes (S, N, C, Kc)),
@@ -185,6 +195,33 @@ class RollingPlanReport:
     # needs no side channel.
     od_rate: float | None = None
     scenario_config: "sc.ScenarioConfig | None" = None
+    # Telemetry (``repro_torch.obs``; all None when telemetry is off, and
+    # the replay then emits no extra outputs).  The usage arrays are replay
+    # outputs; ``ledger`` and ``kernel_stats`` the materialized records.
+    telemetry: "obs_config.TelemetryConfig | None" = None
+    committed_by_sku: np.ndarray | None = None         # (S, P, K) spend
+    conv_committed_by_sku: np.ndarray | None = None    # (S, C, Kc) spend
+    used_hours: np.ndarray | None = None               # (S, P) chip-hours
+    od_volume: np.ndarray | None = None                # (S, P) chip-hours
+    ledger: "obs_ledger.CostLedger | None" = None
+    kernel_stats: "obs_kstats.KernelStats | None" = None
+    # Decision cadence: "weekly" (the harness grid) or "breach" (re-solve
+    # only in weeks whose realized demand left the band held since the
+    # last decision).  ``decision_mask`` records which evaluated weeks
+    # decided: (S,), or (S, N) on a breach scenario batch (uniform within
+    # a scenario); the breach bands ride along so a host loop can replay
+    # the mask exactly.
+    cadence: str = "weekly"
+    decision_mask: np.ndarray | None = None            # (S,) / (S, N)
+    breach_band_lo: np.ndarray | None = None           # (S, P) / (S, N, P)
+    breach_band_hi: np.ndarray | None = None
+    # Calibration telemetry: the weekly forecast fractile levels and their
+    # scores against realized demand.
+    fractile_levels: np.ndarray | None = None      # (S, P, Q) / (S, N, P, Q)
+    calibration: "obs_calib.CalibrationCube | None" = None
+    # Decision provenance: per-week buys, roll-offs and binding constraints
+    # of scenario 0.
+    decision_log: "obs_prov.DecisionLog | None" = None
 
     @property
     def weekly_cost(self) -> np.ndarray:
@@ -204,8 +241,12 @@ class RollingPlanReport:
             "total_cost": self.total_cost,
             "savings_vs_on_demand": self.savings_vs_on_demand,
         }
+        if self.cadence != "weekly":
+            out["cadence"] = self.cadence
         if self.decision_mask is not None:
-            out["decision_weeks"] = int(self.decision_mask.sum())
+            dm0 = (self.decision_mask if self.decision_mask.ndim == 1
+                   else self.decision_mask[:, 0])
+            out["decision_weeks"] = int(dm0.sum())
         if self.spot_cost is not None:
             out["spot_cost"] = float(self.spot_cost.sum())
             out["spot_chip_hours"] = float(self.spot_volume.sum())
@@ -272,7 +313,10 @@ def _merge_scenario_reports(
                 "on_demand_cost", "utilization", "spot_floor", "spot_cost",
                 "spot_volume", "conv_targets", "conv_increments",
                 "conv_active", "conv_alloc", "conv_committed_cost",
-                "one_shot_weekly_cost", "hindsight_weekly_cost")
+                "committed_by_sku", "conv_committed_by_sku", "used_hours",
+                "od_volume", "breach_band_lo", "breach_band_hi",
+                "fractile_levels", "one_shot_weekly_cost",
+                "hindsight_weekly_cost")
     per_scen = ("hindsight_widths", "scenario_cost", "scenario_one_shot_cost",
                 "scenario_hindsight_cost", "scenario_cr", "scenario_regret")
     rep = dataclasses.replace(
@@ -281,6 +325,16 @@ def _merge_scenario_reports(
         **{name: cat(name, 0) for name in per_scen},
         n_scenarios=int(ns.sum()),
     )
+    if first.decision_mask.ndim == 2:
+        # Breach masks carry the scenario axis; weekly masks are (S,) and
+        # the same in every chunk.
+        rep.decision_mask = cat("decision_mask", 1)
+    if first.calibration is not None:
+        cubes = [p.calibration for p in parts]
+        rep.calibration = dataclasses.replace(cubes[0], **{
+            name: np.concatenate([getattr(c, name) for c in cubes], axis=1)
+            for name in ("levels", "hits", "pinball", "realized_mean",
+                         "realized_peak")})
     rep.total_cost = float(rep.scenario_cost.mean())
     rep.all_on_demand_cost = float(np.average(
         [p.all_on_demand_cost for p in parts], weights=ns))
@@ -313,25 +367,68 @@ def _validate(total_weeks: int, start_weeks: int, cadence_weeks: int):
         )
 
 
-def _reject_unported(**kw) -> None:
-    """Raise ``NotImplementedError`` for every keyword set to anything but
-    its disabled value whose subsystem the port does not have yet."""
-    reject_unported_bands(**{name: kw[name] for name in UNPORTED_BANDS})
-    if kw["cadence"] != "weekly":
-        if kw["cadence"] != "breach":
-            raise ValueError(
-                f"unknown cadence {kw['cadence']!r}; "
-                "known: ('weekly', 'breach')"
-            )
-        raise NotImplementedError(
-            "cadence='breach' is not ported yet (ROADMAP Queue 1, item 14: "
-            "telemetry emitters and breach cadence)"
-        )
-    if kw["irls_carry"]:
-        raise NotImplementedError(
-            "irls_carry=True is not ported yet (ROADMAP Queue 1, item 6: "
-            "carried IRLS moments)"
-        )
+def _to_host(outs: dict[str, list]) -> dict[str, np.ndarray]:
+    """The per-week device outputs, each key's weeks stacked, as host numpy
+    arrays, copied through one buffer per carrier type (float64 for the
+    float64 outputs, float32 for the rest; bool outputs come back as bool)
+    and so one copy each: the number of host syncs does not grow with the
+    number of outputs."""
+    ys = {}
+    for carrier in (torch.float32, torch.float64):
+        keys = [k for k, v in outs.items()
+                if (v[0].dtype == torch.float64) == (carrier == torch.float64)]
+        if not keys:
+            continue
+        shapes = {k: (len(outs[k]), *outs[k][0].shape) for k in keys}
+        sizes = {k: int(np.prod(shapes[k])) for k in keys}
+        flat = torch.empty(sum(sizes.values()), dtype=carrier,
+                           device=outs[keys[0]][0].device)
+        i = 0
+        for k in keys:
+            torch.stack([x.to(carrier) for x in outs[k]],
+                        out=flat[i:i + sizes[k]].view(shapes[k]))
+            i += sizes[k]
+        host = flat.cpu().numpy()
+        i = 0
+        for k in keys:
+            a = host[i:i + sizes[k]].reshape(shapes[k])
+            ys[k] = a.astype(bool) if outs[k][0].dtype == torch.bool else a
+            i += sizes[k]
+    return {k: ys[k] for k in outs}
+
+
+def _calibration_scores(d: torch.Tensor, levels: torch.Tensor,
+                        fractiles) -> dict[str, torch.Tensor]:
+    """One week's calibration scores on the replay's device, in float64:
+    the share of the realized hours ``d`` (R, H) at or below each fractile
+    level (R, Q), the pinball loss of each level, and the hours' mean and
+    peak.  The algebra of ``obs.calibration.calibration_from_arrays``;
+    the hours' sums run in another order, so the pinball loss may differ
+    from the host's in its last bits.  Hits (exact counts) and the mean of
+    float32 hours (an exact float64 sum) do not: every mean is a sum
+    divided by the hours as a tensor, a correctly rounded division on any
+    device (a division by a host scalar multiplies by its reciprocal on
+    the card)."""
+    dh = d.double()[:, :, None]                        # (R, H, 1)
+    lv = levels.double()[:, None, :]                   # (R, 1, Q)
+    over = torch.clamp(dh - lv, min=0.0)
+    under = torch.clamp(lv - dh, min=0.0)
+
+    def mean_hours(x):
+        total = x.sum(1)
+        return total / torch.full_like(total, float(x.shape[1]))
+
+    # one fractile at a time with host scalars: no tensor is copied to
+    # the device, so the loop stays free of host syncs
+    pinball = torch.stack([
+        mean_hours(q * over[..., j] + (1.0 - q) * under[..., j])
+        for j, q in enumerate(map(float, fractiles))], dim=-1)
+    return {
+        "calib_hits": mean_hours((dh <= lv).double()),
+        "calib_pinball": pinball,
+        "calib_mean": mean_hours(dh[:, :, 0]),
+        "calib_peak": dh[:, :, 0].amax(-1),
+    }
 
 
 def _block_sum(a: np.ndarray, s: int, rows: int) -> np.float32:
@@ -339,6 +436,67 @@ def _block_sum(a: np.ndarray, s: int, rows: int) -> np.float32:
     (S, R) array, summed as the contiguous (S, rows) array an unbatched
     replay holds, so scenario 0 sums to the unbatched bits."""
     return np.ascontiguousarray(a[:, s * rows:(s + 1) * rows]).sum()
+
+
+def _attach_telemetry(report: RollingPlanReport, tele, ys: dict,
+                      dec: np.ndarray, *, solver: str, sweep_shape: tuple,
+                      num_pools: int, num_scen: int, rep, conv,
+                      spot: bool) -> None:
+    """Materialize the telemetry records of ``tele`` on ``report`` from the
+    replay's host outputs ``ys``: the kernel stats of the grid solver's
+    weekly sweep launch (horizon prefixes folded into the rows), the
+    ledger, the calibration cube of every scenario (scored by the replay
+    against the demand it billed) and the decision log of scenario 0.
+    ``rep`` is the report's view of a per-week (S, R, ...) array, ``conv``
+    (options, clouds, count) of the convertible band or None."""
+    report.telemetry = tele
+    names = ["/".join(k) for k in report.keys]
+    if tele.kernel_stats and solver == "grid":
+        report.kernel_stats = obs_kstats.sweep_kernel_stats(*sweep_shape)
+    if tele.ledger:
+        report.committed_by_sku = rep(ys["committed_k"])
+        report.used_hours = rep(ys["used"])
+        report.od_volume = rep(ys["od_vol"])
+        if conv is not None:
+            report.conv_committed_by_sku = rep(ys["conv_committed_k"],
+                                               conv[2])
+        report.ledger = obs_ledger.ledger_from_report(report)
+    if tele.calibration:
+        report.fractile_levels = rep(ys["calib_levels"])
+        report.calibration = obs_calib.calibration_from_scores(
+            report.weeks, names, tele.fractiles, ys["calib_levels"],
+            ys["calib_hits"], ys["calib_pinball"], ys["calib_mean"],
+            ys["calib_peak"], n_scenarios=num_scen,
+            meta={"policy": report.policy_name, "cadence": report.cadence,
+                  "scenario_family": report.scenario_family},
+        )
+    if tele.provenance:
+        prov_kw = {}
+        if spot:
+            prov_kw["spot_bound"] = ys["prov_spot_bound"][:, :num_pools]
+        if conv is not None:
+            conv_opts, conv_clouds, num_clouds = conv
+            prov_kw.update(
+                conv_suppressed=ys["prov_conv_sup"][:, :num_pools],
+                conv_clouds=conv_clouds,
+                conv_skus=[o.name for o in conv_opts],
+                conv_term_weeks=[o.term_weeks for o in conv_opts],
+                conv_increments=ys["conv_inc"][:, :num_clouds],
+                conv_rolloffs=ys["prov_conv_expired"][:, :num_clouds],
+                conv_active=ys["conv_active"][:, :num_clouds],
+            )
+        report.decision_log = obs_prov.decision_log_from_arrays(
+            report.weeks, names, [o.name for o in report.options],
+            [o.term_weeks for o in report.options],
+            is_decision=dec,
+            targets=ys["target"][:, :num_pools],
+            increments=ys["inc"][:, :num_pools],
+            rolloffs=ys["prov_expired"][:, :num_pools],
+            active=ys["active"][:, :num_pools],
+            purchase_eps=float(ld.PURCHASE_EPS),
+            meta={"policy": report.policy_name, "cadence": report.cadence},
+            **prov_kw,
+        )
 
 
 def replan_fleet_pools(
@@ -389,13 +547,31 @@ def replan_fleet_pools(
     int or a :class:`~repro_torch.data.scenarios.ScenarioConfig`) batches
     the replay over N demand futures (module docstring); the report then
     carries per-scenario cost, competitive-ratio and regret distributions.
-    ``telemetry``, ``cadence="breach"`` and ``irls_carry=True`` belong to
-    subsystems the port does not have yet; setting any of them raises
-    ``NotImplementedError`` naming the ROADMAP item.  ``breach_band`` and
-    ``breach_tolerance`` only matter under ``cadence="breach"``."""
-    del use_kernel, breach_band, breach_tolerance
-    _reject_unported(telemetry=telemetry, cadence=cadence,
-                     irls_carry=irls_carry)
+    ``irls_carry`` (with ``irls_iters > 0``) carries the asymmetric-weight
+    moments in the policy state (frozen-weights incremental IRLS) instead
+    of ``irls_iters`` full masked passes every week.
+
+    ``telemetry`` (None or False, True, or a
+    :class:`~repro_torch.obs.config.TelemetryConfig`) makes the replay
+    emit per-SKU committed spend, usage hours and on-demand volume and
+    attaches a :class:`~repro_torch.obs.ledger.CostLedger` (plus, under the
+    grid solver, the :class:`~repro_torch.obs.kernelstats.KernelStats` of
+    its sweep launch); ``calibration=True`` emits each week's forecast
+    fractile levels, scored as a
+    :class:`~repro_torch.obs.calibration.CalibrationCube`;
+    ``provenance=True`` emits roll-offs and binding-constraint flags,
+    materialized as a :class:`~repro_torch.obs.provenance.DecisionLog`.
+    None of it changes what is bought or billed, and with
+    ``telemetry=None`` the replay emits nothing extra.
+
+    ``cadence="breach"`` (with ``cadence_weeks=1``) re-solves only in weeks
+    where last week's realized demand spent more than ``breach_tolerance``
+    x the nominal miss mass of its hours outside the ``breach_band``
+    fractile pair of the band anchored at the last decision (and in the
+    start week), fleet-wide per scenario.  The mask is decided on the
+    device, so the weekly loop still reads nothing back.  Calibration and
+    the breach cadence need a forecasting policy."""
+    del use_kernel
     if solver not in ("quantile", "grid"):
         raise ValueError(
             f"unknown solver {solver!r}; known: ('quantile', 'grid')"
@@ -412,6 +588,16 @@ def replan_fleet_pools(
         start_weeks = min(max(horizon_weeks, total_weeks // 4),
                           max(total_weeks - 1, 1))
     _validate(total_weeks, start_weeks, cadence_weeks)
+    if cadence not in ("weekly", "breach"):
+        raise ValueError(
+            f"unknown cadence {cadence!r}; known: ('weekly', 'breach')"
+        )
+    if cadence == "breach" and cadence_weeks != 1:
+        raise ValueError(
+            "cadence='breach' evaluates every week and masks decisions "
+            f"itself; use cadence_weeks=1, got {cadence_weeks}"
+        )
+    tele = obs_config.resolve_telemetry(telemetry)
 
     scen = sc.resolve_scenarios(scenarios)
     block = functools.partial(
@@ -421,6 +607,8 @@ def replan_fleet_pools(
         cfg=cfg, solver=solver, num_grid=num_grid, irls_iters=irls_iters,
         backend=backend, compare=compare, spot=spot, migration=migration,
         convertible=convertible, pcy=pol.get_policy(policy), scen=scen,
+        irls_carry=irls_carry, tele=tele, cadence=cadence,
+        breach_band=tuple(breach_band), breach_tolerance=breach_tolerance,
         dev=dev,
     )
     if scen is None:
@@ -457,6 +645,11 @@ def _replay_block(
     convertible,
     pcy: pol.Policy,
     scen: "sc.ScenarioConfig | None",
+    irls_carry: bool,
+    tele: "obs_config.TelemetryConfig | None",
+    cadence: str,
+    breach_band: tuple,
+    breach_tolerance: float,
     dev: torch.device,
 ) -> RollingPlanReport:
     """The replay of scenarios ``lo .. hi - 1`` of ``scen`` (the realized
@@ -552,12 +745,25 @@ def _replay_block(
                                    ("migration", use_mig),
                                    ("convertible", conv_opts is not None))
              if on]
-    if bands and not pcy.forecasting:
-        raise ValueError(
-            f"policy {pcy.name!r} does not forecast, but "
-            f"{'/'.join(bands)} bands key on the weekly forecast; use a "
-            "forecasting policy or disable the bands"
-        )
+    if not pcy.forecasting:
+        if bands:
+            raise ValueError(
+                f"policy {pcy.name!r} does not forecast, but "
+                f"{'/'.join(bands)} bands key on the weekly forecast; use a "
+                "forecasting policy or disable the bands"
+            )
+        if tele is not None and tele.calibration:
+            raise ValueError(
+                f"policy {pcy.name!r} does not forecast, but "
+                "TelemetryConfig(calibration=True) scores the weekly "
+                "forecast fractiles; use a forecasting policy"
+            )
+        if cadence == "breach":
+            raise ValueError(
+                f"policy {pcy.name!r} does not forecast, but "
+                "cadence='breach' triggers on the forecast band; use a "
+                "forecasting policy"
+            )
     w_hours = torch.arange(1, horizon_weeks + 1, device=dev) * HOURS_PER_WEEK
     opt_idx = torch.arange(num_opts, device=dev)
 
@@ -656,7 +862,8 @@ def _replay_block(
                                   share_state.t_max)
             return mg.compose_forecast(yhat, sh, row_edges)
 
-    def convertible_week(w, dec, active, active_c, rolloff_c):
+    def convertible_week(w, dec, dec_p, dec_c, active, active_c, rolloff_c,
+                         tele_w):
         """The convertible pass of week ``w``, decided before the standard
         buys: roll off, size the cloud band (truncated below the higher of
         this week's pool targets and the carried pool stacks, so surplus
@@ -664,15 +871,18 @@ def _replay_block(
         re-pin the live width onto each scenario's pools by the coming
         week's forecast peak above their stacks (allocating sunk capacity
         is free; a mean need would leave the diurnal peaks on demand), and
-        scale the standard buys down pro rata by that allocation.  Returns
-        (the standard increments (R, K), active_c, the cloud outputs)."""
-        active_c = active_c - rolloff_c[:, :, w]
+        scale the standard buys down pro rata by that allocation.
+        ``dec_p`` and ``dec_c`` are the decision flags of the pool and
+        cloud rows, ``tele_w`` the telemetry of this replay (or None).
+        Returns (the standard increments (R, K), active_c, the cloud
+        outputs)."""
+        expired_c = rolloff_c[:, :, w]
+        active_c = active_c - expired_c
         widths = dec.targets
         pool_top = torch.maximum(widths.sum(-1), active.sum(-1))
         widths_c = conv_targets_for(dec.yhat, pool_top)
         inc_c = torch.clamp(widths_c - active_c, min=0.0)
-        inc_c = torch.where((inc_c > ld.PURCHASE_EPS) & dec.is_decision,
-                            inc_c, 0.0)
+        inc_c = torch.where((inc_c > ld.PURCHASE_EPS) & dec_c, inc_c, 0.0)
         active_c = active_c + inc_c
         rolloff_c[:, conv_idx, w + conv_terms] += inc_c
         need = torch.clamp(
@@ -691,26 +901,46 @@ def _replay_block(
             torch.clamp(lift - alloc, min=0.0) / torch.clamp(lift, min=1e-9),
             0.0)
         inc = desired * scale[:, None]
-        inc = torch.where((inc > ld.PURCHASE_EPS) & dec.is_decision, inc, 0.0)
+        inc = torch.where((inc > ld.PURCHASE_EPS) & dec_p, inc, 0.0)
         outs = {"conv_target": widths_c, "conv_inc": inc_c,
                 "conv_active": active_c, "conv_alloc": alloc,
                 "conv_committed":
                     (conv_rates * active_c).sum(-1) * HOURS_PER_WEEK}
+        if tele_w is not None and tele_w.ledger:
+            outs["conv_committed_k"] = conv_rates * active_c * HOURS_PER_WEEK
+        if tele_w is not None and tele_w.provenance:
+            # Convertible suppression: the pool wanted a standard buy and
+            # live convertible capacity was allocated over it.
+            outs["prov_conv_expired"] = expired_c
+            outs["prov_conv_sup"] = ((alloc > ld.PURCHASE_EPS)
+                                     & (lift > ld.PURCHASE_EPS))
         return inc, active_c, outs
 
-    def replay(cadence_wk: int, solve_fn, step_policy: pol.Policy):
-        """One pass over the evaluation weeks; returns the per-week outputs
-        as host numpy arrays and the host decision flags."""
+    def replay(cadence_wk: int, solve_fn, step_policy: pol.Policy,
+               mode: str = "weekly", tele_w=None):
+        """One pass over the evaluation weeks under cadence ``mode``, with
+        the telemetry outputs of ``tele_w`` (None: none); returns the
+        per-week outputs as host numpy arrays and the decision flags, a
+        host (S,) array, or (S, R) under the breach cadence."""
         ctx = pol.PolicyContext(
             demand=demand, options=options, clouds=row_clouds, od=od,
             rates=rates, term_weeks=term_weeks, avail=avail, qs=qs,
             w_hours=w_hours, start_weeks=start_weeks,
             cadence_weeks=cadence_wk, horizon_weeks=horizon_weeks,
             total_weeks=total_weeks, state=state, solve_fn=solve_fn,
-            irls_iters=irls_iters, targets_for=targets_for,
-            compose_forecast=compose_forecast,
+            irls_iters=irls_iters, irls_carry=irls_carry,
+            targets_for=targets_for, compose_forecast=compose_forecast,
+            cadence_mode=mode, breach_band=breach_band,
+            breach_tolerance=breach_tolerance, scenario_blocks=num_scen,
         )
         pstate, decide = step_policy.setup(ctx)
+        needs_prev = step_policy.needs_prev_demand or mode == "breach"
+        # The trailing realized window of the fractile bands, gathered only
+        # under the breach cadence or calibration; its start clamps into
+        # the trace, so the first weeks of an early start see a shifted
+        # window.
+        needs_trail = mode == "breach" or (tele_w is not None
+                                           and tele_w.calibration)
         active = torch.zeros((num_rows, num_opts), device=dev)
         rolloff = torch.zeros((num_rows, num_opts, sched_len), device=dev)
         if conv_opts is not None:
@@ -721,21 +951,37 @@ def _replay_block(
         is_dec = []
         for w in range(start_weeks, total_weeks):
             # 1. tranches whose term ends at week w roll off the stack
-            active = active - rolloff[:, :, w]
+            expired = rolloff[:, :, w]
+            active = active - expired
             # 2-4. the policy decides this week's target stack; buys happen
             # only on decision weeks and only as increments
-            d_prev = (demand_wk[:, w - 1] if step_policy.needs_prev_demand
-                      else None)
+            d_prev = demand_wk[:, w - 1] if needs_prev else None
+            d_trail = None
+            if needs_trail:
+                t0 = min(max(w - fc.TRAIL_WEEKS, 0),
+                         total_weeks - fc.TRAIL_WEEKS)
+                d_trail = demand_wk[:, t0:t0 + fc.TRAIL_WEEKS].reshape(
+                    num_rows, -1)
             pstate, dec = decide(pstate, pol.Observation(
-                week=w, active=active, d_prev=d_prev))
+                week=w, active=active, d_prev=d_prev, d_trail=d_trail))
             widths = dec.targets
+            # A breach decision is a per-row tensor, uniform within each
+            # scenario block: a column for the pool rows, each scenario's
+            # flag repeated onto its cloud rows.
+            vec_dec = isinstance(dec.is_decision, torch.Tensor)
+            dec_p = dec.is_decision[:, None] if vec_dec else dec.is_decision
             if conv_opts is None:
                 inc = torch.clamp(widths - active, min=0.0)
-                buy = (inc > ld.PURCHASE_EPS) & dec.is_decision
+                buy = (inc > ld.PURCHASE_EPS) & dec_p
                 inc = torch.where(buy, inc, 0.0)
             else:
+                dec_c = dec_p
+                if vec_dec:
+                    dec_c = dec.is_decision.reshape(num_scen, num_pools)[
+                        :, :1].expand(num_scen, num_clouds).reshape(-1, 1)
                 inc, active_c, conv_vals = convertible_week(
-                    w, dec, active, active_c, rolloff_c)
+                    w, dec, dec_p, dec_c, active, active_c, rolloff_c,
+                    tele_w)
             active = active + inc
             # The tranche bought at w expires at w + term.  The schedule
             # has total_weeks + max_term + 1 columns and w < total_weeks,
@@ -771,20 +1017,45 @@ def _replay_block(
                             spot=s_lines.rate * spot_vol,
                             spot_peak=spot_over.amax(-1))
             vals["od"] = od * over
+            if tele_w is not None and tele_w.ledger:
+                vals.update(committed_k=rates * active * HOURS_PER_WEEK,
+                            used=used, od_vol=over)
+            if tele_w is not None and tele_w.calibration:
+                # the levels for the coming week, scored against it
+                levels = fc.anchored_fractile_levels(d_trail,
+                                                     tele_w.fractiles)
+                vals["calib_levels"] = levels
+                vals.update(_calibration_scores(d, levels, tele_w.fractiles))
+            if tele_w is not None and tele_w.provenance:
+                # The roll-offs, and whether the stack top reached the spot
+                # floor (the floor, not the envelope, sized it).
+                vals["prov_expired"] = expired
+                if sp_res is not None:
+                    vals["prov_spot_bound"] = (
+                        widths.sum(-1) >= dec.floor - 1e-3)
+            if dec.extras is not None:
+                vals.update(dec.extras)
             if conv_opts is not None:
                 vals.update(conv_vals)
+            if vec_dec:
+                vals["is_dec"] = dec.is_decision
+            else:
+                is_dec.append(dec.is_decision)
             for key, val in vals.items():
                 outs.setdefault(key, []).append(val)
-            is_dec.append(bool(dec.is_decision))
-        ys = {k: torch.stack(v).cpu().numpy() for k, v in outs.items()}
+        ys = _to_host(outs)
+        if "is_dec" in ys:
+            return ys, ys.pop("is_dec")
         return ys, np.asarray(is_dec, bool)
 
-    ys, dec = replay(
+    ys, dec_raw = replay(
         cadence_weeks,
         fc.solve_prefix if backend == "scan" else fc.solve_prefix_direct,
-        pcy,
+        pcy, cadence, tele,
     )
     weeks = np.arange(start_weeks, total_weeks)
+    # Books and baselines key on scenario 0, the first P rows.
+    dec = dec_raw[:, 0] if dec_raw.ndim == 2 else dec_raw
 
     # The purchases as a tranche book, from scenario 0 (the first P rows):
     # per-week targets (0 outside decision weeks, so the ladder planner's
@@ -845,6 +1116,7 @@ def _replay_block(
         all_on_demand_cost=all_od,
         savings_vs_on_demand=1.0 - total / all_od if all_od > 0 else 0.0,
         policy_name=pcy.name,
+        cadence=cadence,
         decision_mask=dec,
         n_scenarios=num_scen,
         scenario_family=scen.family if scen is not None else None,
@@ -852,6 +1124,13 @@ def _replay_block(
         od_rate=float(od),
         scenario_config=scen,
     )
+    if dec_raw.ndim == 2 and scen_axis:
+        # one flag per (week, scenario): the mask is uniform in a block
+        report.decision_mask = dec_raw.reshape(
+            len(weeks), num_scen, num_pools)[:, :, 0]
+    if "band_lo" in ys:
+        report.breach_band_lo = _rep(ys["band_lo"])
+        report.breach_band_hi = _rep(ys["band_hi"])
     if sp_res is not None:
         report.spot_config = s_cfg
         report.spot_lines = base_lines
@@ -886,6 +1165,14 @@ def _replay_block(
             np.asarray([o.term_weeks for o in conv_opts]) * HOURS_PER_WEEK,
             conv_clouds,
         )
+    if tele is not None:
+        _attach_telemetry(
+            report, tele, ys, dec, solver=solver,
+            sweep_shape=(num_rows * horizon_weeks, num_grid, horizon_hours),
+            num_pools=num_pools, num_scen=num_scen, rep=_rep,
+            conv=(None if conv_opts is None
+                  else (conv_opts, conv_clouds, num_clouds)),
+            spot=sp_res is not None)
     if not compare:
         return report
 

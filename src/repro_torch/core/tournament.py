@@ -44,6 +44,7 @@ from repro_torch.core import portfolio as pf
 from repro_torch.core.demand import HOURS_PER_WEEK
 from repro_torch.data import scenarios as sc
 from repro_torch.device import resolve_device
+from repro_torch.obs import spans as obs_spans
 
 pricing.validate_tables()
 
@@ -170,17 +171,20 @@ def _run_on_paths(
     cfg: fc.ForecastConfig,
     backend: str,
     device: torch.device,
+    spans=None,
 ) -> TournamentReport:
     """The tournament on given (F, N, P, T) demand paths: one replay per
-    policy over all F*N*P rows on ``device``."""
+    policy over all F*N*P rows on ``device``, each bracketed by a span of
+    ``spans`` (a ``SpanRecorder`` or None)."""
     num_f, num_seeds, num_pools = paths.shape[:3]
     num_paths = num_f * num_seeds
     clouds = tuple(c for c, _, _ in sc.scenario_keys(num_pools)) * num_paths
     demand = torch.from_numpy(np.ascontiguousarray(
         paths.reshape(num_paths * num_pools, -1), np.float32)).to(device)
-    hindsight = _hindsight_cost(
-        demand, options=options, clouds=clouds, od=od,
-        start_weeks=start_weeks, num_paths=num_paths)
+    with obs_spans.span(spans, "tournament/hindsight", phase="execute"):
+        hindsight = _hindsight_cost(
+            demand, options=options, clouds=clouds, od=od,
+            start_weeks=start_weeks, num_paths=num_paths)
     solve_fn = fc.solve_prefix if backend == "scan" else fc.solve_prefix_direct
     ctx = pol.make_context(
         demand, options, clouds=clouds, od_rate=od, cfg=cfg,
@@ -188,8 +192,11 @@ def _run_on_paths(
         horizon_weeks=horizon_weeks, solve_fn=solve_fn,
         path_blocks=num_paths,
     )
-    totals = torch.stack([_lean_replay(p, ctx, backend, num_paths)
-                          for p in resolved])
+    totals = []
+    for p in resolved:
+        with obs_spans.span(spans, f"tournament/{p.name}", phase="execute"):
+            totals.append(_lean_replay(p, ctx, backend, num_paths))
+    totals = torch.stack(totals)
     host = torch.cat([hindsight[None], totals]).cpu().numpy()
     hind = host[0].astype(np.float64).reshape(num_f, num_seeds)
     cost = host[1:].astype(np.float64).reshape(len(resolved), num_f,
@@ -232,13 +239,9 @@ def run_tournament(
     per-path hindsight.  Pool clouds cycle aws/azure/gcp as the synthetic
     fleet's do, so the Table-2 purchase options apply.
 
-    ``spans`` (the reference's wall-clock span recorder) belongs to the
-    telemetry subsystem, which is not ported; anything but None raises."""
-    if spans is not None:
-        raise NotImplementedError(
-            "spans= is not ported yet (ROADMAP Queue 1, item 14: telemetry "
-            "emitters)"
-        )
+    ``spans`` (a :class:`repro_torch.obs.spans.SpanRecorder`) brackets the
+    hindsight pass and each policy's replay with a span, phase
+    "execute"; ``spans=None`` does no timing work."""
     if backend not in ("scan", "loop"):
         raise ValueError(
             f"unknown backend {backend!r}; known: ('scan', 'loop')"
@@ -256,5 +259,5 @@ def run_tournament(
         cadence_weeks=cadence_weeks, horizon_weeks=horizon_weeks,
         options=options if options is not None else pf.options_from_pricing(),
         od=od_rate if od_rate is not None else pricing.on_demand_premium(),
-        cfg=cfg, backend=backend, device=dev,
+        cfg=cfg, backend=backend, device=dev, spans=spans,
     )

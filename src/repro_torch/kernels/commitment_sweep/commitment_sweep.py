@@ -29,11 +29,20 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels.commitment_sweep.ref import CANDIDATE_TILE
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "commitment_sweep.cu"
 _INT_MAX = 2**31 - 1
 # Candidate tiles of 128 run on grid.y, which CUDA caps at 65535 blocks.
-_MAX_CANDIDATES = 65535 * 128
+_MAX_CANDIDATES = 65535 * CANDIDATE_TILE
+#: The launch as the source sets it (kThreads, kTile): one block of
+#: THREADS threads per (row, tile of CANDIDATE_TILE candidates), each with
+#: SHARED_BYTES of static shared memory: the tile's float32 candidates and
+#: their uint8 order, three int64 bucket sums of tile + 1 entries, and five
+#: float32 partial sums per warp.
+THREADS = 128
+SHARED_BYTES = (5 * CANDIDATE_TILE + 3 * 8 * (CANDIDATE_TILE + 1)
+                + 5 * 4 * (THREADS // 32))
 
 #: Kernel launches made by :func:`commitment_sweep_cuda` in this process.
 LAUNCHES = 0

@@ -64,7 +64,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                  "repro_torch.core.policy",
                  "repro_torch.kernels.flash_attention.flash_attention",
                  "repro_torch.kernels.linrec.linrec",
-                 "repro_torch.kernels.build"):
+                 "repro_torch.kernels.build", "repro_torch.obs",
+                 "repro_torch.obs.ledger", "repro_torch.obs.calibration",
+                 "repro_torch.obs.provenance", "repro_torch.obs.spans",
+                 "repro_torch.obs.kernelstats", "repro_torch.obs.__main__"):
         assert name in mods
 
 
@@ -82,6 +85,37 @@ def test_no_import_of_jax_or_reference_in_source():
             for name in names:
                 if name.split(".")[0] in FORBIDDEN:
                     offenders.append(f"{path.relative_to(SRC)}: {name}")
+    assert offenders == []
+
+
+def test_obs_loads_no_jax_and_reads_no_clock():
+    """repro_torch.obs, imported alone, loads neither JAX nor the JAX
+    package; and no module of the port reads a ``time`` clock: the span
+    recorder times by CUDA events or a caller's clock."""
+    code = (
+        "import json, sys\n"
+        "import repro_torch.obs, repro_torch.obs.__main__\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0]"
+        f" in {FORBIDDEN!r})))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    offenders = []
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            bad = (
+                (isinstance(node, ast.Import)
+                 and any(a.name == "time" for a in node.names))
+                or (isinstance(node, ast.ImportFrom) and node.module == "time")
+                or (isinstance(node, ast.Attribute)
+                    and isinstance(node.value, ast.Name)
+                    and node.value.id == "time")
+            )
+            if bad:
+                offenders.append(f"{path.relative_to(SRC)}:{node.lineno}")
     assert offenders == []
 
 

@@ -28,7 +28,6 @@ pipeline run on the port's forecasts.  Tolerances:
 """
 
 import dataclasses
-import warnings
 
 import numpy as np
 import pytest
@@ -402,18 +401,6 @@ def test_compare_horizons(horizons, eval_weeks):
     assert float(tcm.commitment_cost(torch.from_numpy(yhat), 0.0)) == \
         pytest.approx(float(jcm.commitment_cost(jnp.asarray(yhat), 0.0)),
                       rel=1e-5)
-
-
-def test_unported_bands_name_their_item():
-    """The band still to come (telemetry) raises naming its ROADMAP item;
-    migration, convertible and scenarios are ported and not refused."""
-    assert sorted(tpl.UNPORTED_BANDS) == ["telemetry"]
-    for kw, item in (({"telemetry": True}, "item 14"),):
-        with warnings.catch_warnings():
-            warnings.simplefilter("error")
-            with pytest.raises(NotImplementedError, match=item):
-                tpl.reject_unported_bands(**kw)
-    tpl.reject_unported_bands(telemetry=False)
 
 
 # The spot band in the one-shot plan (spot=True), on the same two fleets:

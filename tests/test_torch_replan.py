@@ -312,27 +312,6 @@ def test_request_fields_match_reference():
         k: v for k, v in dataclasses.asdict(japi.RollingConfig()).items()})
 
 
-@pytest.mark.parametrize("kw", [
-    {"telemetry": True}, {"irls_carry": True}, {"cadence": "breach"},
-])
-def test_unported_keywords_raise(fleet, kw):
-    _, _, tpools, topts = fleet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trp.replan_fleet_pools(tpools, topts, device="cpu", **kw)
-
-
-def test_unported_modes_raise_on_plan(fleet):
-    tpools = fleet[2]
-    for kw, item in (({"telemetry": True}, "item 14"),):
-        with pytest.raises(NotImplementedError, match=item):
-            tapi.plan(tapi.PlanRequest(pools=tpools, mode="rolling", **kw),
-                      device="cpu")
-    req = tapi.PlanRequest(pools=tpools, mode="rolling",
-                           rolling=tapi.RollingConfig(cadence="breach"))
-    with pytest.raises(NotImplementedError, match="breach"):
-        tapi.plan(req, device="cpu")
-
-
 def test_no_silent_cpu(fleet):
     """Without a card, no device means an error that names device="cpu"."""
     if torch.cuda.is_available():

@@ -45,6 +45,7 @@ from repro_torch.capacity import pricing as tpr  # noqa: E402
 from repro_torch.core import forecast as tfc  # noqa: E402
 from repro_torch.core import policy as tpol  # noqa: E402
 from repro_torch.core import tournament as ttn  # noqa: E402
+from repro_torch.obs.spans import SpanRecorder  # noqa: E402
 
 FAMILIES = ("steady", "cyclic", "declining", "unpredictable")
 KW = dict(num_pools=3, num_weeks=30, num_seeds=4, start_weeks=12,
@@ -195,8 +196,8 @@ def test_hedge_can_beat_the_constant_hindsight():
 
 def test_run_tournament_on_the_port_paths():
     """The whole entry point on the port's own paths (3 families x 3
-    seeds): shapes, finite ratios, hindsight scoring 1, and the card-free
-    call refusing spans= (telemetry, not ported)."""
+    seeds): shapes, finite ratios, hindsight scoring 1, and a span per
+    policy (and one for the hindsight pass) in a recorder given."""
     rep = ttn.run_tournament(
         list(tpol.POLICIES), ("steady", "burst", "declining"),
         num_pools=3, num_weeks=30, num_seeds=3, start_weeks=12,
@@ -210,8 +211,19 @@ def test_run_tournament_on_the_port_paths():
     np.testing.assert_allclose(rep.regret, rep.cost - rep.hindsight_cost,
                                rtol=1e-12)
     assert "| policy |" in rep.to_markdown()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ttn.run_tournament(spans=object(), device="cpu")
+    ticks = iter(range(100))
+    rec = SpanRecorder(clock=lambda: float(next(ticks)))
+    spanned = ttn.run_tournament(
+        ["one_shot", "hindsight"], ("steady",), num_pools=3, num_weeks=30,
+        num_seeds=2, start_weeks=12, horizon_weeks=4, device="cpu",
+        spans=rec)
+    assert [s.name for s in rec.spans] == [
+        "tournament/hindsight", "tournament/one_shot",
+        "tournament/hindsight"]
+    assert all(s.phase == "execute" and s.duration_s == 1.0
+               for s in rec.spans)
+    np.testing.assert_allclose(spanned.cost[0], rep.cost[1, :1, :2],
+                               rtol=1e-4)
     with pytest.raises(ValueError, match="backend"):
         ttn.run_tournament(backend="vmap", device="cpu")
     if not torch.cuda.is_available():
