@@ -6,7 +6,8 @@ Drives the port's paths on the card — the commitment planner in both
 modes, without and with the spot band and its Monte-Carlo replay, with
 the migration and convertible bands on a fleet in generation turnover,
 batched over demand scenarios, with telemetry, the breach cadence and
-the carried IRLS moments, the policy tournament, and the serving
+the carried IRLS moments, the fleet simulator with the paper's §4 time
+shifting and §5 free pool, the policy tournament, and the serving
 engine on the published stablelm-1.6b and rwkv6-3b — and
 checks each of their kernels (commitment sweep, revocation walk,
 generation turnover, flash attention, RWKV6 recurrence) against its plain
@@ -126,6 +127,19 @@ JSON line and raising on failure:
             together on 16 pools, card vs CPU (masks equal, the bill
             within rel 1e-4); run_tournament with a SpanRecorder timed by
             CUDA events, a span per policy
+  fleet_sim the fleet simulator on the default fleet (ten architectures'
+            serving fleets, three training jobs, 12 pools): chips per
+            replica from the parameter counts; simulate_and_plan_pools()
+            (2 sweep launches), simulate_and_replan_pools() with the
+            default and the grid solver (2 sweep launches per replayed
+            week), with demand_migration=True (1 turnover launch) and with
+            spot=True, replayed by replay_spot_plan (1 walk launch);
+            plan_fleet and plan_fleet_portfolio with shiftable_frac=0.3;
+            the paper's §4 rows on 52 weeks (unused commitment, weekend
+            trough share, time-shift saving, shift_demand's conservation)
+            and Fig. 12 (static vs predicted free pool); every plan card
+            vs CPU on the same traces within rel 1e-4, the bills within
+            rel 1e-4 of FLEET_BILL
   tournament  run_tournament at the reference's defaults (every policy, 5
             families x 32 seeds x 3 pools x 48 weeks) on the card, against
             the CPU on the same paths (rel 1e-4 of each path's bill) and
@@ -314,6 +328,39 @@ BREACH_BILL = {"total_cost": 4317372928.0, "one_shot_cost": 5832199168.0,
 CARRY_RTOL = 2e-3
 TELEMETRY_SCEN_N = 32
 PROVENANCE_WEEKS = (0, 58, 116)      # evaluated weeks whose stack is rebuilt
+# The fleet simulator on the default fleet (the ten registry architectures'
+# serving fleets and three training jobs over 12 pools): chips per replica
+# from the parameter counts; the bills of simulate_and_replan_pools() (the
+# default quantile solver, solver="grid", demand_migration=True and
+# spot=True) and simulate_and_plan_pools() as this script first printed
+# them (within BILL_RTOL from then on); each plan card against the CPU on
+# the same traces within FLEET_CPU_RTOL (its committed and on-demand parts
+# as a share of its bill, as phase one_shot holds them).
+FLEET_CHIPS = {
+    "deepseek-v2-lite-16b": 3, "granite-moe-1b-a400m": 1,
+    "internlm2-20b": 4, "jamba-v0.1-52b": 9, "minicpm3-4b": 1,
+    "phi3-medium-14b": 3, "qwen2-vl-7b": 2, "rwkv6-3b": 1,
+    "stablelm-1.6b": 1, "whisper-small": 1}
+FLEET_BILL = {
+    "one_shot": {"total_cost": 238433.9967525035,
+                 "aggregate_cost": 224332.10542719412},
+    "replan": {"total_cost": 1273188.125, "one_shot_cost": 1373428.5,
+               "hindsight_cost": 1267282.625},
+    "replan_grid": {"total_cost": 1258303.75, "one_shot_cost": 1372896.875,
+                    "hindsight_cost": 1267282.625},
+    "replan_migration": {"total_cost": 1173464.125,
+                         "one_shot_cost": 1229900.0,
+                         "hindsight_cost": 1159077.5},
+    "replan_spot": {"total_cost": 1123645.0625, "one_shot_cost": 1279382.25,
+                    "hindsight_cost": 1267282.625},
+}
+FLEET_CPU_RTOL = 1e-4
+FLEET_ONE_SHOT_LAUNCHES = 2       # the spend's sweep: pools and aggregate
+FLEET_SHIFT_RTOL = 1e-6           # shift_demand's conservation of work
+# Paper rows (benchmarks/paper_benches.py): §4 on 52 weeks with 52 jobs of
+# 5% of the work, Fig. 12 on 8 weeks of history and the ninth held out.
+SEC4_WEEKS, SEC4_JOBS, SEC4_SEED = 52, 52, 4
+FIG12_WEEKS, FIG12_SEED = 8, 5
 # Peak rates for the bound (NVIDIA data sheets, dense, at the full power
 # limit): FP32 on the CUDA cores, bf16 on the tensor cores, HBM bandwidth.
 PEAKS = {
@@ -1805,6 +1852,195 @@ def profiled(fn):
                              for us, n, key in kernels[:8]]), kernels
 
 
+def fleet_rel(card, cpu, keys):
+    """Largest gap over ``keys`` of two plans' costs, each as a share of
+    its own bill, the committed and on-demand parts as a share of the
+    plan's total."""
+    def bill(k):
+        part = k in ("committed_cost", "on_demand_cost")
+        return abs(getattr(cpu, "total_cost" if part else k))
+    return max(abs(getattr(card, k) - getattr(cpu, k)) / bill(k)
+               for k in keys)
+
+
+def sec4_rows(dev):
+    """Paper §4 on the port's own 52-week trace: the level on ``dev``, the
+    trough supply and the EDF schedule (host numpy), and shift_demand's
+    conservation on ``dev`` (at the level, and at an over-full budget)."""
+    from repro_torch.core import commitment as cm
+    from repro_torch.core import demand as dm
+    from repro_torch.core import timeshift as ts
+    f = dm.synth_demand(SEC4_WEEKS * 168, generator=torch.Generator(
+        ).manual_seed(SEC4_SEED))
+    c = float(cm.optimal_commitment_quantile(f.to(dev)))
+    fn = f.numpy()
+    stats = ts.shiftable_supply_stats(fn, c)
+    work = fn.sum() * 0.05
+    jobs = [ts.Job(arrival=int(h), work=float(work / SEC4_JOBS),
+                   deadline=int(h) + 168)
+            for h in np.linspace(0, len(fn) - 168 - 1, SEC4_JOBS)]
+    out = ts.schedule_jobs(fn, c, jobs)
+    conserve = {}
+    for label, level, frac in (("at_level", c, 0.3),
+                               ("overfull", float(fn.min()) + 0.5, 0.9)):
+        g = ts.shift_demand(f.to(dev), level, frac).double().sum()
+        conserve[label] = abs(float(g) / float(f.double().sum()) - 1.0)
+    return dict(commitment=c, unused_frac=stats["unused_frac"],
+                weekend_share=stats["weekend_share"],
+                timeshift_od_saved_frac=out["on_demand_savings"]
+                / max(out["on_demand_cost_naive"], 1e-9),
+                on_demand_savings=out["on_demand_savings"],
+                shift_conservation_rel=conserve)
+
+
+def fig12(dev):
+    """Paper Fig. 12 on the port's own draws: 8 weeks of history, the
+    ninth week held out, p_over 1, p_under 10, lead time 1."""
+    from repro_torch.core import demand as dm
+    from repro_torch.core import freepool as fp
+    gen = torch.Generator().manual_seed(FIG12_SEED)
+    full = dm.synth_demand((FIG12_WEEKS + 1) * 168, generator=gen)
+    cfg = fp.FreePoolConfig(p_over=1.0, p_under=10.0, lead_time=1)
+    return fp.compare_static_vs_predicted(full[:-168], full[-168:], cfg,
+                                          device=dev)
+
+
+def phase_fleet_sim(dev):
+    """The fleet simulator on the card: default_fleet (chips per replica
+    held to FLEET_CHIPS), simulate_and_plan_pools() (2 sweep launches),
+    simulate_and_replan_pools() with the default solver and with
+    solver="grid" (2 sweep launches per replayed week: the rolling and the
+    one-shot replay), the replan with demand_migration=True (1 turnover
+    launch) and with spot=True, replayed by replay_spot_plan (1 walk
+    launch); plan_fleet and plan_fleet_portfolio with shiftable_frac=0.3
+    on the fleet total; the §4 rows on 52 weeks and Fig. 12 from the
+    port's generator.  Each plan card against the CPU on the same traces
+    within FLEET_CPU_RTOL, the bills against FLEET_BILL."""
+    from repro_torch.capacity import simulator as sim
+    t_phase = time.perf_counter()
+    fleets, jobs = sim.default_fleet()
+    chips = {f.arch: f.chips_per_replica for f in fleets}
+    if chips != FLEET_CHIPS or len(sim.default_pool_catalog()) != 12:
+        raise AssertionError(f"default fleet: {chips}")
+    cpu = torch.device("cpu")
+    walls, launches, rel, bills = {}, {}, {}, {}
+
+    def run(label, counted, fn, keys):
+        with warnings.catch_warnings():
+            # the reference's loose cadence_weeks/solver keywords
+            warnings.simplefilter("ignore", DeprecationWarning)
+            (pools, card), walls[label], launches[label], _ = timed(
+                lambda: fn(dev), counted)
+            t0 = time.perf_counter()
+            _, host = fn(cpu)
+            walls[label + "_cpu"] = time.perf_counter() - t0
+        rel[label] = fleet_rel(card, host, keys)
+        bills[label] = {k: getattr(card, k) for k in keys}
+        return pools, card
+
+    one_keys = ("total_cost", "committed_cost", "on_demand_cost",
+                "aggregate_cost")
+    roll_keys = ("total_cost", "one_shot_cost", "hindsight_cost")
+    pools, one = run("one_shot", "commitment_sweep",
+                     lambda d: sim.simulate_and_plan_pools(device=d),
+                     one_keys)
+    _, roll = run("replan", "commitment_sweep",
+                  lambda d: sim.simulate_and_replan_pools(device=d),
+                  roll_keys)
+    _, grid = run("replan_grid", "commitment_sweep",
+                  lambda d: sim.simulate_and_replan_pools(
+                      solver="grid", num_grid=NUM_GRID, device=d),
+                  roll_keys)
+    _, mig = run("replan_migration", "generation_turnover",
+                 lambda d: sim.simulate_and_replan_pools(
+                     demand_migration=True, device=d), roll_keys)
+    spot_pools, spot = run("replan_spot", "commitment_sweep",
+                           lambda d: sim.simulate_and_replan_pools(
+                               spot=True, device=d), roll_keys)
+    replay, walls["spot_replay"], launches["spot_replay"], _ = timed(
+        lambda: sim.replay_spot_plan(spot_pools, spot), "revocation_walk")
+    weeks = len(grid.weeks)
+    if one.widths.shape[0] != pools.num_pools or pools.num_pools != 12:
+        raise AssertionError("fleet_sim: the one-shot plan is not per pool")
+    for label, b in bills.items():
+        if not all(np.isfinite(v) and v > 0 for v in b.values()):
+            raise AssertionError(f"fleet_sim {label}: bills {b}")
+    if not (0 < one.total_cost < one.all_on_demand_cost):
+        raise AssertionError("fleet_sim: the one-shot plan saves nothing")
+    if abs(grid.total_cost / roll.total_cost - 1.0) > 0.02:
+        raise AssertionError("fleet_sim: grid total 2% away from quantile")
+    if not replay.meets_target:
+        raise AssertionError("fleet_sim: the spot replay misses its target")
+
+    demand = pools.aggregate().astype(np.float64)
+
+    def fleet_plans(d):
+        return (sim.plan_fleet(demand, shiftable_frac=0.3, device=d),
+                sim.plan_fleet_portfolio(demand, shiftable_frac=0.3,
+                                         device=d))
+    (single, port), walls["plan_fleet"], launches["plan_fleet"], _ = timed(
+        lambda: fleet_plans(dev), "commitment_sweep")
+    single_cpu, port_cpu = fleet_plans(cpu)
+    plan_keys = ("total_cost", "committed_cost", "on_demand_cost",
+                 "all_on_demand_cost")
+    rel["plan_fleet"] = fleet_rel(single, single_cpu, plan_keys)
+    rel["plan_fleet_portfolio"] = fleet_rel(
+        port, port_cpu, plan_keys + ("single_level_cost",))
+    if not (port.total_cost < port.all_on_demand_cost
+            and single.total_cost < single.all_on_demand_cost):
+        raise AssertionError("fleet_sim: a fleet-total plan saves nothing")
+
+    sec4, walls["sec4"], _, _ = timed(lambda: sec4_rows(dev),
+                                      "commitment_sweep")
+    sec4_cpu = sec4_rows(cpu)
+    shift_rel = max(*sec4["shift_conservation_rel"].values(),
+                    *sec4_cpu["shift_conservation_rel"].values())
+    if shift_rel > FLEET_SHIFT_RTOL or sec4["on_demand_savings"] < 0:
+        raise AssertionError(f"§4: {sec4}")
+    rel["sec4_commitment"] = abs(sec4["commitment"]
+                                 / sec4_cpu["commitment"] - 1.0)
+    f12, walls["fig12"], _, _ = timed(lambda: fig12(dev), "commitment_sweep")
+    f12_cpu = fig12(cpu)
+    rel["fig12"] = max(abs(f12[k] / f12_cpu[k] - 1.0) for k in (
+        "static_cost", "predicted_cost", "predicted_mean_size"))
+    if not f12["predicted_cost"] < f12["static_cost"]:
+        raise AssertionError(f"Fig. 12: {f12}")
+    if max(rel.values()) > FLEET_CPU_RTOL:
+        raise AssertionError(f"fleet_sim card vs CPU: {rel}")
+    bill_rel = {
+        f"{label}.{k}": abs(bills[label][k] - v) / v
+        for label, pinned in FLEET_BILL.items() for k, v in pinned.items()}
+    emit("fleet_sim", pools=pools.num_pools, hours=pools.num_hours,
+         one_shot_hours=24 * 7 * 40, replan_hours=24 * 7 * 60,
+         weeks_replayed=weeks, chips_per_replica=chips, launches=launches,
+         wall_s=walls, card_vs_cpu_rel=rel, bills=bills, bill_rel=bill_rel,
+         spot_replay=dict(fleet_availability=replay.fleet_availability,
+                          planned_cost=replay.planned_cost,
+                          realized_cost=replay.realized_cost),
+         plan_fleet=dict(commitment=single.commitment,
+                         total_cost=single.total_cost,
+                         savings_vs_on_demand=single.savings_vs_on_demand),
+         plan_fleet_portfolio=dict(
+             total_cost=port.total_cost, breakdown=port.breakdown,
+             savings_vs_single_level=port.savings_vs_single_level),
+         sec4=sec4, fig12=dict(f12, cost_reduction=1.0 - f12[
+             "predicted_cost"] / f12["static_cost"], under_minutes_ratio=f12[
+             "under_minutes_predicted"] / max(f12["under_minutes_static"],
+                                              1e-9)),
+         phase_s=time.perf_counter() - t_phase)
+    # checked after the line is printed, so a failing run shows them all
+    want = {"one_shot": FLEET_ONE_SHOT_LAUNCHES, "replan": 0,
+            "replan_grid": 2 * weeks, "replan_migration": 1,
+            "replan_spot": 0, "spot_replay": 1, "plan_fleet": 1}
+    if launches != want:
+        raise AssertionError(f"fleet_sim launches {launches}, expected {want}")
+    if FLEET_BILL.keys() != {"one_shot", "replan", "replan_grid",
+                             "replan_migration", "replan_spot"} or (
+            max(bill_rel.values()) > BILL_RTOL):
+        raise AssertionError(f"the fleet's bills moved: {bill_rel}")
+    return launches
+
+
 def phase_profile(pools, rep, plan_s):
     """Where the plan's time goes: the grid plan again under
     torch.profiler (device time by kernel, device busy share), and the
@@ -2831,6 +3067,16 @@ def phase_timing(dev, launches, errs, turnover):
             # breach cadence, still one launch per replayed week
             "launches_per_telemetry_breach_plan":
                 launches["commitment_sweep_telemetry"],
+            # the fleet simulator: simulate_and_plan_pools() (12 x 1 x
+            # 1344 and 1 x 1 x 1344), simulate_and_replan_pools(
+            # solver="grid") (96 x 128 x 1344 per replayed week, both
+            # replays), plan_fleet_portfolio (1 x 1 x 1344)
+            "launches_per_fleet_one_shot":
+                launches["fleet_sim"]["one_shot"],
+            "launches_per_fleet_grid_replan":
+                launches["fleet_sim"]["replan_grid"],
+            "launches_per_fleet_portfolio":
+                launches["fleet_sim"]["plan_fleet"],
             "scenario_shape": {key: scen[key] for key in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")},
@@ -2896,6 +3142,8 @@ def phase_timing(dev, launches, errs, turnover):
                              "walk, not a Pallas kernel",
             "launches": launches["revocation_walk"],
             "launches_per_spot_replay": launches["revocation_walk"],
+            "launches_per_fleet_spot_replay":
+                launches["fleet_sim"]["spot_replay"],
             "max_abs_err": errs["revocation_walk"], "ms": walk["ms"],
             "plain_ms": walk["plain_ms"], "bound_ms": walk["bound_ms"],
             "bound_by": walk["bound_by"], "library_ms": None,
@@ -2912,6 +3160,8 @@ def phase_timing(dev, launches, errs, turnover):
                              "kernel",
             "launches": launches["generation_turnover"],
             "launches_per_turnover_fleet": launches["generation_turnover"],
+            "launches_per_fleet_migration_replan":
+                launches["fleet_sim"]["replan_migration"],
             "max_abs_err": errs["generation_turnover"],
             "ms": turnover["ms"], "plain_ms": turnover["plain_ms"],
             "bound_ms": turnover["bound_ms"],
@@ -2957,6 +3207,7 @@ def main() -> int:
                                         mig_rep)
     telemetry_launches = phase_telemetry(pools, grid_rep)
     del pools, grid_rep, spot_rep, mig_pools, mig_rep
+    fleet_launches = phase_fleet_sim(dev)
     phase_tournament(dev)
     phase_model_cpu(dev)
     launches = {"commitment_sweep": sweep_launches,
@@ -2965,7 +3216,8 @@ def main() -> int:
                 "generation_turnover": turnover_launches,
                 "commitment_sweep_migration": migration_launches,
                 "commitment_sweep_scenarios": scenario_launches,
-                "commitment_sweep_telemetry": telemetry_launches}
+                "commitment_sweep_telemetry": telemetry_launches,
+                "fleet_sim": fleet_launches}
     launches["flash_attention"], dense = phase_serve(
         "serve_dense", "stablelm-1.6b", dev, "flash_attention")
     launches["flash_by_kernel"] = dense["launches"]["flash_by_kernel"]

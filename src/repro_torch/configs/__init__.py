@@ -1,35 +1,50 @@
 """Architecture registry of the port: ``get(name)`` and ``reduced(name)``.
 
 Each module holds the exact published config, copied from the JAX
-package's registry.  The port runs the dense and RWKV families so far;
-asking for any other architecture of the registry raises
-``NotImplementedError`` (ROADMAP Queue 1, item 16).
+package's registry, so all ten architectures resolve here.  The port runs
+the dense (GQA) and RWKV families; building any other family, or MLA
+attention, raises ``NotImplementedError`` in
+:func:`repro_torch.models.model.build` (ROADMAP Queue 1, item 16), while
+:func:`repro_torch.models.model.num_params` counts every one of them from
+its shape tables.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import rwkv6_3b, stablelm_1_6b
+from repro_torch.configs import (
+    deepseek_v2_lite,
+    granite_moe_1b,
+    internlm2_20b,
+    jamba_52b,
+    minicpm3_4b,
+    phi3_medium_14b,
+    qwen2_vl_7b,
+    rwkv6_3b,
+    stablelm_1_6b,
+    whisper_small,
+)
 from repro_torch.models.config import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (stablelm_1_6b, rwkv6_3b)
+    m.CONFIG.name: m.CONFIG
+    for m in (
+        stablelm_1_6b,
+        minicpm3_4b,
+        internlm2_20b,
+        phi3_medium_14b,
+        granite_moe_1b,
+        deepseek_v2_lite,
+        rwkv6_3b,
+        whisper_small,
+        jamba_52b,
+        qwen2_vl_7b,
+    )
 }
-
-# The reference registry's other architectures, not ported yet.
-UNPORTED = (
-    "deepseek-v2-lite-16b", "granite-moe-1b-a400m", "internlm2-20b",
-    "jamba-v0.1-52b", "minicpm3-4b", "phi3-medium-14b", "qwen2-vl-7b",
-    "whisper-small",
-)
 
 
 def get(name: str) -> ModelConfig:
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to PyTorch yet (ROADMAP Queue 1, "
-            f"item 16); ported: {sorted(ARCHS)}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]

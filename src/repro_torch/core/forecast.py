@@ -257,6 +257,10 @@ class PrefixFitState:
     period_hours: int
     row_block: int | None = None  # rows per block of the refits (None: all)
 
+    @property
+    def num_weeks(self) -> int:
+        return self.gram_prefix.shape[0]
+
     def blocks(self) -> list[slice]:
         """The row blocks the refits run on, in row order."""
         rows = self.rhs_prefix.shape[0]

@@ -52,6 +52,11 @@ from repro_torch.core import portfolio as pf
 from repro_torch.core.demand import HOURS_PER_WEEK
 from repro_torch.core.planner import _monotone_stack, _prefix_weighted_quantiles
 
+#: The hedges' competitive-ratio guarantees (Hedge Your Bets): break-even
+#: ski rental is 2-competitive, the randomized rule e/(e-1) in expectation.
+DETERMINISTIC_CR_BOUND = 2.0
+RANDOMIZED_CR_BOUND = math.e / (math.e - 1.0)
+
 
 @dataclasses.dataclass
 class PolicyContext:
@@ -165,6 +170,9 @@ class Policy:
         if ctx.cadence_weeks > 0:
             return (w - ctx.start_weeks) % ctx.cadence_weeks == 0
         return w == ctx.start_weeks
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}()"
 
 
 class RollingPortfolioPolicy(Policy):

@@ -44,6 +44,10 @@ from repro_torch.numerics import linspace
 pricing.validate_tables()
 
 
+#: The label of the on-demand line, beside the purchase options' names.
+ON_DEMAND = "on-demand"
+
+
 @dataclasses.dataclass(frozen=True)
 class PurchaseOption:
     """One purchasable commitment SKU.

@@ -68,6 +68,8 @@ class TournamentReport:
     hindsight_cost: np.ndarray     # (F, N) per-path hindsight optimum
     competitive_ratio: np.ndarray  # (Pol, F, N) cost / hindsight
     regret: np.ndarray             # (Pol, F, N) cost - hindsight
+    #: wall time, stamped by callers: the port reads no clock (rule R7)
+    elapsed_s: float = 0.0
 
     def family_stats(self, policy: str, family: str) -> dict:
         i = self.policies.index(policy)

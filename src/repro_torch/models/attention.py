@@ -13,8 +13,9 @@ reads q and the cache in their (B, S, H, D) layout in place, with per-row
 ``kv_len``; on the CPU its plain version.  Caches are laid out
 (B, S, Hkv, D), as the reference's, and are written in place.
 
-MLA (ROADMAP Queue 1, item 16) and the int8 KV cache (``kv_cache_dtype=
-"int8"``, same item) are not ported yet and raise.
+MLA's layer (ROADMAP Queue 1, item 16) and the int8 KV cache
+(``kv_cache_dtype="int8"``, same item) are not ported yet and raise; MLA's
+shape table (:func:`mla_specs`) is, for parameter counts.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.common import rope_for
+from repro_torch.models.common import rms_norm_spec, rope_for
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Spec, add_parameters
 
@@ -49,9 +50,42 @@ def gqa_specs(cfg: ModelConfig) -> dict[str, Spec]:
     }
 
 
+def mla_specs(cfg: ModelConfig) -> dict[str, Spec]:
+    """Multi-head latent attention's parameters (DeepSeek/MiniCPM): the
+    reference's shape table."""
+    d, h = cfg.d_model, cfg.num_heads
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    s: dict[str, Spec] = {}
+    if cfg.q_lora_rank:
+        s["wq_a"] = Spec((d, cfg.q_lora_rank), ("embed", "lora"), fan_in=d)
+        s["q_norm"] = rms_norm_spec(cfg.q_lora_rank)
+        s["wq_b"] = Spec(
+            (cfg.q_lora_rank, h, qk), ("lora", "heads", "head_dim"),
+            fan_in=cfg.q_lora_rank,
+        )
+    else:
+        s["wq"] = Spec((d, h, qk), ("embed", "heads", "head_dim"), fan_in=d)
+    s["wkv_a"] = Spec((d, cfg.kv_lora_rank), ("embed", "lora"), fan_in=d)
+    s["kv_norm"] = rms_norm_spec(cfg.kv_lora_rank)
+    s["wk_rope"] = Spec((d, cfg.qk_rope_dim), ("embed", "head_dim"), fan_in=d)
+    s["wk_b"] = Spec(
+        (cfg.kv_lora_rank, h, cfg.qk_nope_dim),
+        ("lora", "heads", "head_dim"), fan_in=cfg.kv_lora_rank,
+    )
+    s["wv_b"] = Spec(
+        (cfg.kv_lora_rank, h, cfg.v_head_dim),
+        ("lora", "heads", "head_dim"), fan_in=cfg.kv_lora_rank,
+    )
+    s["wo"] = Spec(
+        (h, cfg.v_head_dim, d), ("heads", "head_dim", "embed"),
+        fan_in=h * cfg.v_head_dim,
+    )
+    return s
+
+
 def attn_specs(cfg: ModelConfig) -> dict[str, Spec]:
-    _check_ported(cfg)
-    return gqa_specs(cfg)
+    """The attention parameters of ``cfg``'s layers (MLA or GQA)."""
+    return mla_specs(cfg) if cfg.attention == "mla" else gqa_specs(cfg)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> dict[str, Spec]:
@@ -87,8 +121,9 @@ class GQAAttention(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, dtype, device):
         super().__init__()
+        _check_ported(cfg)
         self.cfg = cfg
-        add_parameters(self, attn_specs(cfg), dtype, device)
+        add_parameters(self, gqa_specs(cfg), dtype, device)
 
     def forward(self, x, *, mode: str, cache, pos, positions):
         """x (B, S, d) -> y (B, S, d).  ``cache`` is this layer's

@@ -1,6 +1,7 @@
 """Feed-forward layers: the dense SwiGLU (or gelu) MLP.
 
-The MoE layer is not ported yet (ROADMAP Queue 1, item 16).
+The MoE layer is not ported yet (ROADMAP Queue 1, item 16); its shape table
+(:func:`moe_specs`) is, for parameter counts.
 """
 
 from __future__ import annotations
@@ -24,6 +25,22 @@ def mlp_specs(d_model: int, d_ff: int, act: str = "swiglu") -> dict[str, Spec]:
         "w_up": Spec((d_model, d_ff), ("embed", "ff"), fan_in=d_model),
         "w_down": Spec((d_ff, d_model), ("ff", "embed"), fan_in=d_ff),
     }
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    """A MoE layer's parameters: float32 router, stacked experts, and the
+    shared experts' MLP when the config has them (the reference's table)."""
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    s: dict = {
+        "router": Spec((d, e), ("embed", "experts"), fan_in=d,
+                       dtype=torch.float32),
+        "w_gate": Spec((e, d, f), ("experts", "embed", "moe_ff"), fan_in=d),
+        "w_up": Spec((e, d, f), ("experts", "embed", "moe_ff"), fan_in=d),
+        "w_down": Spec((e, f, d), ("experts", "moe_ff", "embed"), fan_in=f),
+    }
+    if cfg.num_shared_experts:
+        s["shared"] = mlp_specs(d, cfg.num_shared_experts * cfg.moe_d_ff)
+    return s
 
 
 class MLP(nn.Module):

@@ -7,8 +7,10 @@ in an ``nn.ModuleList``.  ``device=None`` means the card and raises without
 one (:func:`repro_torch.device.resolve_device`); the tests pass
 ``device="cpu"``, which runs the kernels' plain versions; ``device="meta"``
 builds a full-size model's shapes without allocating them.  The dense family
-(``transformer``) and the RWKV family (``rwkv``) are ported; the others
-raise (ROADMAP Queue 1, item 16).
+(``transformer``) and the RWKV family (``rwkv``) are ported; the others,
+and MLA attention, raise (ROADMAP Queue 1, item 16).  :func:`num_params`
+counts any registry architecture from its family's shape table without
+building a module.
 
 Caches are dictionaries of tensors stacked over layers, the slot (batch)
 axis second: ``cache[name][layer, slot]``.  ``apply`` updates the cache it
@@ -24,7 +26,12 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models.common import rms_norm, rms_norm_spec
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import Spec, add_parameters, init_module
+from repro_torch.models.params import (
+    Spec,
+    add_parameters,
+    count_params,
+    init_module,
+)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -135,3 +142,18 @@ def build(cfg: ModelConfig, *, device=None) -> Model:
             f"the {cfg.family!r} family is not ported yet (ROADMAP Queue 1, "
             "item 16)")
     return families[cfg.family](cfg, device=device)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The Spec tree of ``cfg``'s family: the reference's shape table."""
+    from repro_torch.models import jamba, rwkv, transformer, whisper
+
+    tables = {"dense": transformer, "moe": transformer, "vlm": transformer,
+              "ssm": rwkv, "hybrid": jamba, "audio": whisper}
+    return tables[cfg.family].param_specs(cfg)
+
+
+def num_params(cfg: ModelConfig) -> int:
+    """Parameters of ``cfg``'s model, counted from its shape table: nothing
+    is allocated, and every family counts, built or not."""
+    return count_params(param_specs(cfg))

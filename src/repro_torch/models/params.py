@@ -9,6 +9,11 @@ Spec's ``dtype`` overrides the model's (float32 norms, ``w0``, ``u``,
 they are not the reference's ``jax.random`` numbers: parity tests carry the
 reference's parameters across instead (``repro_torch.convert``).  The
 logical axes are kept for the record; the sharding helpers are not ported.
+
+A family's whole parameter table is a tree of Specs (nested dicts and
+lists, layers stacked on a leading ``"layers"`` dim as in the reference),
+so :func:`count_params` sizes a full published model without allocating
+anything.
 """
 
 from __future__ import annotations
@@ -68,3 +73,28 @@ def init_module(module: nn.Module, generator: torch.Generator) -> None:
         for name, spec in getattr(sub, "_param_specs", {}).items():
             fill(getattr(sub, name), spec, generator)
 
+
+
+def _spec_leaves(specs) -> list[Spec]:
+    """The Specs of a tree of nested dicts and lists, in order."""
+    if isinstance(specs, Spec):
+        return [specs]
+    if isinstance(specs, dict):
+        specs = specs.values()
+    return [leaf for sub in specs for leaf in _spec_leaves(sub)]
+
+
+def count_params(specs) -> int:
+    """Parameters declared by a tree of Specs."""
+    return sum(math.prod(s.shape) for s in _spec_leaves(specs))
+
+
+def stack_spec_tree(specs, num_layers: int):
+    """The tree with a leading stacked-layers dim on every Spec (the
+    reference's scanned-layer layout)."""
+    if isinstance(specs, Spec):
+        return dataclasses.replace(specs, shape=(num_layers, *specs.shape),
+                                   axes=("layers", *specs.axes))
+    if isinstance(specs, dict):
+        return {k: stack_spec_tree(v, num_layers) for k, v in specs.items()}
+    return [stack_spec_tree(v, num_layers) for v in specs]

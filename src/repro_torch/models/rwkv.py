@@ -22,7 +22,7 @@ from repro_torch.kernels.linrec.ops import rwkv6_linear_attention_logw
 from repro_torch.models.common import rms_norm, rms_norm_spec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
-from repro_torch.models.params import Spec, add_parameters
+from repro_torch.models.params import Spec, add_parameters, stack_spec_tree
 
 # Mix components order: r, k, v, w (decay), g (gate)
 _N_MIX = 5
@@ -59,6 +59,19 @@ def rwkv_layer_specs(cfg: ModelConfig) -> dict[str, Spec]:
         "cwk": Spec((d, dff), ("embed", "ff"), fan_in=d),
         "cwv": Spec((dff, d), ("ff", "embed"), fan_in=dff),
         "cwr": Spec((d, d), ("embed", "ff"), fan_in=d),
+    }
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The whole model's parameters, layers stacked (the reference's
+    table)."""
+    return {
+        "embed": Spec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                      fan_in=1),
+        "layers": stack_spec_tree(rwkv_layer_specs(cfg), cfg.num_layers),
+        "final_norm": rms_norm_spec(cfg.d_model),
+        "lm_head": Spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
+                        fan_in=cfg.d_model),
     }
 
 

@@ -67,7 +67,12 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                  "repro_torch.kernels.build", "repro_torch.obs",
                  "repro_torch.obs.ledger", "repro_torch.obs.calibration",
                  "repro_torch.obs.provenance", "repro_torch.obs.spans",
-                 "repro_torch.obs.kernelstats", "repro_torch.obs.__main__"):
+                 "repro_torch.obs.kernelstats", "repro_torch.obs.__main__",
+                 "repro_torch.core.timeshift", "repro_torch.core.freepool",
+                 "repro_torch.capacity.scheduler",
+                 "repro_torch.capacity.simulator",
+                 "repro_torch.models.mamba", "repro_torch.models.jamba",
+                 "repro_torch.models.whisper"):
         assert name in mods
 
 

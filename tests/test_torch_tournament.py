@@ -27,6 +27,8 @@ randomized hedge is fed the reference's ``jax.random`` thresholds.
   packages put the hedge's ratio at 0.959.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -36,6 +38,7 @@ import jax  # noqa: E402
 
 import repro.core  # noqa: E402,F401  (the reference package's import order)
 from repro.capacity import pricing as jpr  # noqa: E402
+from repro.core import forecast as jfc  # noqa: E402
 from repro.core import policy as jpol  # noqa: E402
 from repro.core import portfolio as jpf  # noqa: E402
 from repro.core import tournament as jtn  # noqa: E402
@@ -44,6 +47,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.capacity import pricing as tpr  # noqa: E402
 from repro_torch.core import forecast as tfc  # noqa: E402
 from repro_torch.core import policy as tpol  # noqa: E402
+from repro_torch.core import portfolio as tpf  # noqa: E402
 from repro_torch.core import tournament as ttn  # noqa: E402
 from repro_torch.obs.spans import SpanRecorder  # noqa: E402
 
@@ -229,3 +233,52 @@ def test_run_tournament_on_the_port_paths():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             ttn.run_tournament(num_seeds=1)
+
+
+@pytest.fixture(scope="module")
+def acceptance():
+    """``tests/test_policy.py::TestTournamentAcceptance``'s setting on the
+    port's own paths: the rolling planner and both hedges, steady and
+    declining, 8 seeds, the other knobs at their defaults."""
+    return ttn.run_tournament(
+        ("rolling_portfolio", "deterministic_hedge", "randomized_hedge"),
+        ("steady", "declining"), num_seeds=8, device="cpu")
+
+
+def test_deterministic_bound_on_steady(acceptance):
+    st = acceptance.family_stats("deterministic_hedge", "steady")
+    assert st["cr_max"] <= tpol.DETERMINISTIC_CR_BOUND
+
+
+def test_randomized_bound_on_steady(acceptance):
+    st = acceptance.family_stats("randomized_hedge", "steady")
+    assert st["cr_mean"] <= tpol.RANDOMIZED_CR_BOUND
+
+
+def test_rolling_beats_hedges_on_declining(acceptance):
+    roll = acceptance.family_stats("rolling_portfolio", "declining")
+    for hedge in ("deterministic_hedge", "randomized_hedge"):
+        other = acceptance.family_stats(hedge, "declining")
+        assert roll["cr_mean"] + 0.1 <= other["cr_mean"], hedge
+
+
+def test_public_names_match_reference():
+    """The bounds, ``TournamentReport.elapsed_s`` (a field callers stamp;
+    neither package reads a clock), ``PrefixFitState.num_weeks``,
+    ``portfolio.ON_DEMAND`` and ``Policy.__repr__``."""
+    assert tpol.DETERMINISTIC_CR_BOUND == jpol.DETERMINISTIC_CR_BOUND == 2.0
+    assert tpol.RANDOMIZED_CR_BOUND == jpol.RANDOMIZED_CR_BOUND
+    assert tpf.ON_DEMAND == jpf.ON_DEMAND == "on-demand"
+    fields = {f.name: f.default for f in
+              dataclasses.fields(ttn.TournamentReport)}
+    assert fields["elapsed_s"] == 0.0 == {
+        f.name: f.default for f in
+        dataclasses.fields(jtn.TournamentReport)}["elapsed_s"]
+    ys = np.random.default_rng(0).uniform(1, 2, (2, 6 * 168)).astype(
+        np.float32)
+    want = jfc.prefix_fit_state(ys, horizon_hours=2 * 168)
+    got = tfc.prefix_fit_state(torch.from_numpy(ys), horizon_hours=2 * 168)
+    assert got.num_weeks == want.num_weeks == got.gram_prefix.shape[0]
+    for name in tpol.POLICIES:
+        assert repr(tpol.get_policy(name)) == repr(jpol.get_policy(name))
+    assert repr(tpol.Policy()) == "Policy()"
