@@ -7,9 +7,10 @@ modes, without and with the spot band and its Monte-Carlo replay, with
 the migration and convertible bands on a fleet in generation turnover,
 batched over demand scenarios, with telemetry, the breach cadence and
 the carried IRLS moments, the fleet simulator with the paper's §4 time
-shifting and §5 free pool, the policy tournament, and the serving
-engine on the published stablelm-1.6b and rwkv6-3b — and
-checks each of their kernels (commitment sweep, revocation walk,
+shifting and §5 free pool, the policy tournament, the serving engine on
+the published stablelm-1.6b and rwkv6-3b, and the trainer on the
+published stablelm-1.6b (rwkv6-3b cut to two layers) — and checks each
+of their kernels (commitment sweep, revocation walk,
 generation turnover, flash attention, RWKV6 recurrence) against its plain
 PyTorch version.  Flash
 attention is three CUDA kernels, routed by dtype, head dim and query rows
@@ -175,6 +176,32 @@ JSON line and raising on failure:
             launches by kernel (exactly 24 x 16 prefill_tc, 24 x ticks
             decode_split, no simt), peak memory (a main path)
   serve_rwkv   the same for the full rwkv6-3b; RWKV6 launches (a main path)
+  train     training (a main path): flash_attention_trainable's output and
+            dq, dk, dv against autograd through the plain version on the
+            card (S 65 and 200, GQA groups 1 and 4, head dims 32-128, f32
+            and bf16, and the main (4, 2048, 32, 64) bf16), the same for
+            rwkv6_trainable (ragged T, a carried state, (1, 40, 2048, 64)
+            and the train path's (4, 40, 2048, 64): y and the state
+            against the chunked version, the gradients of r, k, v, logw,
+            u and the state against the step loop and the chunked form
+            at chunks of 16, algebras the op's backward does not run);
+            the reduced float32 stablelm-1.6b and rwkv6-3b 3 train steps
+            on the card and on the CPU (losses rel 1e-5, parameters as
+            TRAIN_CPU_TOL says, a CPU run at 1% more learning rate as the
+            control the update gate must catch); Trainer.fit on the full
+            stablelm-1.6b in bf16 (12 steps of 4 x 2048 tokens, AdamW lr
+            3e-4 warmup 5, remat "full"): step 1 twice bit for bit, the
+            losses finite and descending, exactly 2 x 24 prefill_tc
+            launches per step (forward and recompute), no simt or
+            decode_split, step seconds (median of steps 3-12), tokens/s,
+            peak memory, one step under torch.profiler (device busy, time
+            by kernel, the flash backward's and the embedding gradient's
+            shares) and the embedding gradient's sorted sum against the
+            gather's atomics; crash at step 6 and restart from the step-4
+            checkpoint at full width with 2 layers, the losses of steps
+            5-8 equal to an uninterrupted run's bit for bit, the save's
+            seconds and bytes; rwkv6-3b at full width with 2 layers, 3
+            steps, 2 RWKV6 launches per layer and step
   timing    each kernel's and its plain version's times at its main-path
             shape (the sweep also at the scenario plan's 262,144 x 128 x
             1,344; flash: prefill_tc at the bf16 prefill, decode_split at
@@ -386,6 +413,9 @@ FLASH_BF16 = dict(atol=1e-2, rtol=1e-2, row=2e-2)
 # the flash kernels' names as the profiler shows them (all hold "flash_")
 FLASH_PROFILE_NAMES = ("flash_prefill_tc_kernel", "flash_decode_split_kernel",
                        "flash_decode_combine_kernel", "flash_simt_kernel")
+# the port's torch.profiler.record_function ranges (the trainable flash
+# op's backward, the embedding's backward)
+ANNOTATIONS = ("flash_attention_backward", "embed_backward")
 # the three kernels of one RWKV6 call (all hold "rwkv6_")
 RWKV6_PROFILE_NAMES = ("rwkv6_chunk_kernel", "rwkv6_state_scan_kernel",
                        "rwkv6_inter_kernel")
@@ -1816,13 +1846,16 @@ def device_kernels(prof):
     """(device us, count, name) of every device-side event (kernels,
     memcpys, memsets), largest first: the aten ops on the host side carry
     their kernels' time too and would count twice; the profiler's own
-    buffer events are not the program's work."""
+    buffer events are not the program's work, and the port's annotated
+    ranges (ANNOTATIONS), which the profiler also draws on the device's
+    timeline, span kernels already counted."""
     kernels = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
         on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
-        if dev_us > 0 and on_device and "Buffer" not in ev.key:
+        if (dev_us > 0 and on_device and "Buffer" not in ev.key
+                and ev.key not in ANNOTATIONS):
             kernels.append((dev_us, ev.count, ev.key))
     return sorted(kernels, reverse=True)
 
@@ -2745,6 +2778,547 @@ def phase_model_cpu(dev):
     emit("model_cpu", flash_launches_by_kernel=flash, **out)
 
 
+# --------------------------------------------------------------- training
+# The train phase's settings: the main path (the full published config),
+# the restart at full width with 2 layers, RWKV at full width with 2
+# layers, the card-vs-CPU steps on the reduced float32 configs.
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 12
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=5)
+TRAIN_TIMED = slice(2, TRAIN_STEPS)          # steps 3-12 (1-based)
+TRAIN_NO_CKPT = 10**9                        # ckpt_every: never
+RESTART_LAYERS, RESTART_EVERY, RESTART_FAIL, RESTART_STEPS = 2, 4, 6, 8
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_STEPS = 2, 3
+TRAIN_CPU_STEPS, TRAIN_CPU_SEQ, TRAIN_CPU_BATCH = 3, 64, 2
+# float32 card vs CPU from the same weights and batches:
+# - step 1's gradients, each leaf within `grad` of its largest: the same
+#   float32 algebra in another order; for RWKV the kernel's forward (held
+#   to the chunked plain version at 2e-3, phase linrec) moves them by up
+#   to 7e-5 of their largest (measured on an H100 80GB HBM3);
+# - the losses of every step within rel `loss_rtol`;
+# - after the last step, each leaf's update (parameters minus the
+#   initial ones) within `update_rel` of its norm (the largest over the
+#   leaves), and every element within twice the learning rates summed
+#   (the steps' own bound): AdamW's direction m_hat / (sqrt(v_hat) + eps)
+#   turns a gradient's last bits into a full-size difference where
+#   sqrt(v_hat) is small, and three steps compound it (measured on an H100
+#   80GB HBM3: 1.6e-4 for stablelm, 6.3e-3 for rwkv6).  The control, a CPU
+#   run whose learning rate is 1% higher (`TRAIN_CPU_CONTROL_LR`), must
+#   read above `update_rel` (on the CPU: 2.3e-2 for stablelm, 0.20 for
+#   rwkv6), so the gate catches a 1% error in the step's size
+TRAIN_CPU_TOL = dict(grad={"stablelm-1.6b": 1e-5, "rwkv6-3b": 2e-4},
+                     loss_rtol=1e-5,
+                     update_rel={"stablelm-1.6b": 2e-3, "rwkv6-3b": 2e-2})
+TRAIN_CPU_CONTROL_LR = 1.01
+# the trainable ops' gradients against autograd through the plain version
+# on the card: both compute them in float32 from the same inputs, so only
+# summation order differs; bf16 gradients are rounded once at the end
+TRAIN_GRAD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+                  torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# the trainable RWKV6 op's gradients: the recurrence's own 2e-3, of each
+# gradient's largest element
+RWKV_GRAD_TOL = 2e-3
+
+
+def expect_launches(label, got, want):
+    if got != want:
+        raise AssertionError(f"train {label}: launches {got}, expected {want}")
+
+
+def train_flash_checks(dev):
+    """flash_attention_trainable on the card: its output against the plain
+    version (phase flash's tolerances) and its dq, dk, dv against autograd
+    through the plain version, ragged, GQA groups 1 and 4, f32 and bf16,
+    and the main path's (4, 2048, 32, 64) bf16 in the model's layout."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    cases = {  # (b, hq, hkv, s, d, layout)
+        "g1_s65": (1, 4, 4, 65, 64, "bhsd"),
+        "g4_s200": (2, 8, 2, 200, 64, "bshd"),
+        "g4_s65_d128": (1, 8, 2, 65, 128, "bhsd"),
+        "g1_s200_d32": (2, 4, 4, 200, 32, "bshd"),
+    }
+    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, 32, 64
+    errs, routes = {}, {}
+    runs = [(name, c, dtype) for name, c in cases.items()
+            for dtype in (torch.float32, torch.bfloat16)]
+    runs.append(("main", (b, h, h, s, d, "bshd"), torch.bfloat16))
+    for i, (name, (b, hq, hkv, s, d, layout), dtype) in enumerate(runs):
+        q, k, v = (x.requires_grad_() for x in flash_inputs(
+            dev, dtype, b, hq, hkv, s, s, d, 40 + i, layout))
+        g = flash_inputs(dev, dtype, b, hq, hq, s, s, d, 60 + i, layout)[0]
+        out, used = flash_routed(fk, lambda: ops.flash_attention_trainable(
+            q, k, v, layout=layout))
+        grads = torch.autograd.grad(out, (q, k, v), g)
+        if used != fk.route(dtype, d, s):
+            raise AssertionError(f"train flash {name}: launched {used}")
+        bhsd = [x.transpose(1, 2) if layout == "bshd" else x
+                for x in (q, k, v, g, out, *grads)]
+        want = attention_ref(*bhsd[:3], causal=True)
+        want_grads = torch.autograd.grad(want, bhsd[:3], bhsd[3])
+        key = f"{name}_{str(dtype)[6:]}"
+        tol = FLASH_F32 if dtype == torch.float32 else FLASH_BF16
+        errs[key] = {"out": flash_compare(f"train {key}", bhsd[4].detach(),
+                                          want.detach(), tol)[0]}
+        for label, a, w in zip(("dq", "dk", "dv"), bhsd[5:], want_grads):
+            torch.testing.assert_close(
+                a.float(), w.float(), **TRAIN_GRAD_TOL[dtype],
+                msg=lambda m: f"train flash {key} {label}: {m}")
+            errs[key][label] = float((a.float() - w.float()).abs().max())
+        routes[key] = used
+        del q, k, v, g, out, grads, bhsd, want, want_grads
+    return dict(max_abs_err=errs, routes=routes, tol_grad_f32=TRAIN_GRAD_TOL[
+        torch.float32], tol_grad_bf16=TRAIN_GRAD_TOL[torch.bfloat16])
+
+
+def train_rwkv6_checks(dev):
+    """rwkv6_trainable on the card: y and the final state against the
+    chunked plain version, and the gradients of r, k, v, logw, u and the
+    state against autograd through two algebras the op's backward (the
+    chunked form at the kernel's chunk of 32) does not run: the step loop
+    and the chunked form at chunks of 16.  Ragged T, a carried state,
+    (1, 40, 2048, 64), and the train path's (4, 40, 2048, 64), all in the
+    model's layout but the first."""
+    from repro_torch.kernels.linrec import ops
+    from repro_torch.kernels.linrec.ref import rwkv6_chunked_ref, rwkv6_ref
+    cases = {  # (b, h, t, d, layout)
+        "ragged_45": (2, 3, 45, 16, "bhtd"),
+        "ragged_70_d64": (1, 4, 70, 64, "bthd"),
+        "main": (*LINREC_MAIN, "bthd"),
+        "train": (TRAIN_BATCH, *LINREC_MAIN[1:], "bthd"),
+    }
+    plains = {
+        "step": lambda r, k, v, lw, u, s0: rwkv6_ref(r, k, v, lw.exp(), u,
+                                                     s0),
+        "chunked16": lambda *a: rwkv6_chunked_ref(*a, chunk=16),
+    }
+    errs = {}
+    for i, (name, (b, h, t, d, layout)) in enumerate(cases.items()):
+        ins = [x.requires_grad_() for x in linrec_inputs(
+            dev, b, h, t, d, 70 + i, lo=-3.0, hi=1.0, layout=layout)]
+        gen = torch.Generator().manual_seed(80 + i)
+        gy = torch.randn(ins[2].shape, generator=gen).to(dev)
+        gs = torch.randn(ins[5].shape, generator=gen).to(dev)
+        before = kernel_modules()["rwkv6"].LAUNCHES
+        y, s = ops.rwkv6_trainable(*ins, layout=layout)
+        expect_launches(f"rwkv6 {name}",
+                        kernel_modules()["rwkv6"].LAUNCHES - before, 1)
+        grads = torch.autograd.grad((y, s), ins, (gy, gs))
+        bhtd = [x.transpose(1, 2) if layout == "bthd" else x
+                for x in (*ins[:4], y, gy)]
+        with torch.no_grad():
+            wy, ws = rwkv6_chunked_ref(*bhtd[:4], *ins[4:])
+        torch.testing.assert_close(bhtd[4], wy, **LINREC_TOL)
+        torch.testing.assert_close(s, ws, **LINREC_TOL)
+        errs[name] = dict(y=float((bhtd[4].detach() - wy).abs().max()),
+                          state=float((s.detach() - ws).abs().max()))
+        del wy, ws
+        for plain_name, plain in plains.items():
+            wy, ws = plain(*bhtd[:4], *ins[4:])
+            # both in the inputs' layout: the transposes are in the graph
+            want = torch.autograd.grad((wy, ws), ins, (bhtd[5], gs))
+            del wy, ws
+            for label, a, w in zip(("r", "k", "v", "logw", "u", "state"),
+                                   grads, want):
+                scale = float(w.abs().max())
+                torch.testing.assert_close(
+                    a, w, rtol=RWKV_GRAD_TOL, atol=RWKV_GRAD_TOL * scale,
+                    msg=lambda m: f"train rwkv6 {name} d{label} vs "
+                                  f"{plain_name}: {m}")
+                errs[name][f"d{label}_vs_{plain_name}"] = float(
+                    (a - w).abs().max() / max(scale, 1e-30))
+            del want
+        del ins, y, s, grads, bhtd
+        torch.cuda.empty_cache()
+    return dict(max_rel_err=errs, tol_grad=RWKV_GRAD_TOL,
+                shapes={n: list(c[:4]) for n, c in cases.items()})
+
+
+def train_card_vs_cpu(dev):
+    """The reduced float32 stablelm-1.6b and rwkv6-3b on the card
+    (kernels) and on the CPU (plain versions) from the same weights and
+    batches: step 1's gradients, then TRAIN_CPU_STEPS train steps
+    (TRAIN_CPU_TOL), beside a CPU control run at TRAIN_CPU_CONTROL_LR
+    times the learning rate that the update gate must reject."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.model import build
+    from repro_torch.train.optimizer import (
+        AdamWConfig,
+        _schedule,
+        init_opt_state,
+    )
+    from repro_torch.train.step import (
+        build_loss_fn,
+        build_train_step,
+        init_train_state,
+    )
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2)
+    control = dataclasses.replace(opt, lr=opt.lr * TRAIN_CPU_CONTROL_LR)
+    bound = 2 * sum(_schedule(opt, s) for s in range(TRAIN_CPU_STEPS))
+
+    def updates_rel(params, want):
+        """The largest over the leaves of |update - wanted update| over
+        |wanted update|, and the largest element of the difference."""
+        rel, worst = 0.0, 0.0
+        for name, p in params.items():
+            diff = p.detach().cpu() - start[name] - want[name]
+            rel = max(rel, float(
+                diff.norm() / want[name].norm().clamp_min(1e-30)))
+            worst = max(worst, float(diff.abs().max()))
+        return rel, worst
+
+    out = {}
+    for arch in ("stablelm-1.6b", "rwkv6-3b"):
+        cfg = dataclasses.replace(configs.reduced(arch), dtype="float32")
+        models = [build(cfg, device="cpu"), build(cfg, device=dev),
+                  build(cfg, device="cpu")]
+        states = [init_train_state(models[0],
+                                   torch.Generator().manual_seed(0))]
+        for m in models[1:]:
+            m.load_state_dict(models[0].state_dict())
+            params = dict(m.named_parameters())
+            states.append((params, init_opt_state(params)))
+        start = {n: p.detach().clone() for n, p in states[0][0].items()}
+        pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=TRAIN_CPU_SEQ,
+                                        global_batch=TRAIN_CPU_BATCH))
+        batches = [pipe.next_batch() for _ in range(TRAIN_CPU_STEPS)]
+        grads = []
+        for model in models[:2]:
+            loss = build_loss_fn(model)(batches[0])
+            grads.append([g.cpu() for g in torch.autograd.grad(
+                loss, list(model.parameters()))])
+        grad_rel = max(float((b - a).abs().max() / a.abs().max())
+                       for a, b in zip(*grads) if a.abs().max() > 0)
+        if grad_rel > TRAIN_CPU_TOL["grad"][arch]:
+            raise AssertionError(f"train card vs CPU {arch}: gradients "
+                                 f"{grad_rel} of their largest apart")
+        steps = [build_train_step(m, o)
+                 for m, o in zip(models, (opt, opt, control))]
+        losses = [[], [], []]
+        for batch in batches:
+            for j in range(3):
+                loss, params, state = steps[j](*states[j], batch)
+                states[j] = (params, state)
+                losses[j].append(float(loss))
+        loss_rel = max(abs(a - b) / abs(a) for a, b in zip(*losses[:2]))
+        want = {n: p.detach() - start[n] for n, p in states[0][0].items()}
+        update_rel, worst = updates_rel(states[1][0], want)
+        control_rel, _ = updates_rel(states[2][0], want)
+        tol = TRAIN_CPU_TOL["update_rel"][arch]
+        if control_rel <= tol:
+            raise AssertionError(
+                f"train card vs CPU {arch}: the control at "
+                f"{TRAIN_CPU_CONTROL_LR}x the learning rate reads "
+                f"{control_rel}, within the gate {tol}")
+        if (loss_rel > TRAIN_CPU_TOL["loss_rtol"] or update_rel > tol
+                or worst > bound):
+            raise AssertionError(
+                f"train card vs CPU {arch}: losses {losses[1]} vs "
+                f"{losses[0]}, updates {update_rel} of their norm apart, "
+                f"{worst} at most (bound {bound})")
+        out[arch] = dict(losses_card=losses[1], losses_cpu=losses[0],
+                         loss_rel=loss_rel, grad_rel_to_max=grad_rel,
+                         update_rel_to_norm=update_rel,
+                         control_update_rel_to_norm=control_rel,
+                         param_max_abs=worst, param_bound=bound,
+                         params=sum(p.numel() for p in models[1].parameters()))
+    return dict(**out, steps=TRAIN_CPU_STEPS, seq=TRAIN_CPU_SEQ,
+                batch=TRAIN_CPU_BATCH, tol=TRAIN_CPU_TOL,
+                control_lr_scale=TRAIN_CPU_CONTROL_LR)
+
+
+def train_trainer(model, ckpt_dir, *, ckpt_every=TRAIN_NO_CKPT,
+                  steps=TRAIN_STEPS):
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    pipe = TokenPipeline(DataConfig(vocab_size=model.cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH))
+    trainer = Trainer(model, pipe, TrainerConfig(
+        total_steps=steps, ckpt_every=ckpt_every,
+        opt=AdamWConfig(**TRAIN_OPT)), str(ckpt_dir))
+    trainer.ckpt.keep_last = 1     # a full-width checkpoint is ~7 GB
+    return trainer
+
+
+def profile_train_step(trainer, step_s):
+    """One more step under torch.profiler (CPU and CUDA activity, so the
+    backward's annotated ranges carry their kernels): device busy, time by
+    kernel, and the device time of the flash backward (the recompute in
+    torch matmuls) and of the embedding's sorted backward, each as a share
+    of the step's device busy time and of its unprofiled time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.fit(trainer.step + 1)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    if not kernels:
+        raise AssertionError("train: the profiler recorded no device time")
+    busy = sum(k[0] for k in kernels) / 1e6
+
+    def ranged(label):
+        """Device time of the kernels launched inside the host-side
+        ranges named ``label`` (the profiler also shows each range on the
+        device's timeline, as an annotation: not counted again)."""
+        return sum(ev.device_time_total for ev in prof.events()
+                   if ev.name == label
+                   and str(ev.device_type).endswith("CPU")) / 1e6
+
+    flash_bwd, embed_bwd = ranged("flash_attention_backward"), ranged(
+        "embed_backward")
+    prefill = sum(k[0] for k in kernels if "flash_prefill_tc" in k[2]) / 1e6
+    text = [smi()] + [f"{us / 1e3:12.4f} ms {c:8d}x  {key}"
+                      for us, c, key in kernels]
+    path = ROOT / "build" / "chip_smoke"
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "profile_train_step.txt").write_text("\n".join(text) + "\n")
+    return dict(
+        device_busy_s=busy, unprofiled_step_s=step_s,
+        device_busy_share=busy / step_s,
+        flash_backward_device_s=flash_bwd,
+        flash_backward_share_of_busy=flash_bwd / busy,
+        flash_backward_share_of_step=flash_bwd / step_s,
+        prefill_tc_device_s=prefill,
+        prefill_tc_share_of_busy=prefill / busy,
+        embed_backward_device_s=embed_bwd,
+        embed_backward_share_of_busy=embed_bwd / busy,
+        top_kernels=[[round(us / 1e3, 3), n, key[:80]]
+                     for us, n, key in kernels[:10]])
+
+
+def embed_grad_cost(dev, cfg, tokens):
+    """The embedding's gradient at the main path's shape: the port's sorted
+    sum (float32, deterministic) against a float32 index_add_ (held to a
+    bf16 rounding of it) and against the gather's own bf16 backward
+    (atomics; its error from that sum, and its time): wall ms per call on
+    an idle card (the sorted sum syncs once, for the count of distinct
+    tokens)."""
+    from repro_torch.models.common import embed
+    table = torch.zeros(cfg.vocab_size, cfg.d_model, dtype=torch.bfloat16,
+                        device=dev, requires_grad=True)
+    g = torch.randn(*tokens.shape, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5)
+                    ).to(torch.bfloat16)
+    sorted_g = torch.autograd.grad(embed(table, tokens), table, g)[0]
+    want = torch.zeros(table.shape, device=dev).index_add_(
+        0, tokens.reshape(-1), g.reshape(-1, cfg.d_model).float())
+    torch.testing.assert_close(sorted_g.float(), want, atol=1e-2,
+                               rtol=2**-8)
+    atomic_g = torch.autograd.grad(table[tokens], table, g)[0]
+    return dict(
+        sorted_max_abs_err_vs_f32=float((sorted_g.float() - want).abs().max()),
+        gather_max_abs_err_vs_f32=float((atomic_g.float() - want).abs().max()),
+        sorted_ms=median_ms(lambda: torch.autograd.grad(
+            embed(table, tokens), table, g), 10, cover=False),
+        gather_atomic_ms=median_ms(lambda: torch.autograd.grad(
+            table[tokens], table, g), 10, cover=False),
+        rerun_bit_for_bit=bool(torch.equal(sorted_g, torch.autograd.grad(
+            embed(table, tokens), table, g)[0])))
+
+
+def train_main(dev):
+    """The main path: Trainer.fit on the full published stablelm-1.6b in
+    bf16 (random weights, seed 0 on the card), TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens, remat "full"; first a rerun of step 1
+    bit for bit."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.models.model import build
+    cfg = configs.get(TRAIN_ARCH)
+    root = ROOT / "build" / "chip_smoke" / "train_main"
+    model = build(cfg, device=dev)
+    first = train_trainer(model, root / "a")
+    first.init_or_restore()
+    first.fit(1)
+    snap = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loss0 = first.losses[0]
+    del first
+    main = train_trainer(model, root / "b")
+    main.init_or_restore()
+    torch.cuda.synchronize()
+    reset_launches()
+    main.fit(1)
+    rerun_equal = main.losses[0] == loss0 and all(
+        torch.equal(p, snap[n]) for n, p in model.named_parameters())
+    if not rerun_equal:
+        raise AssertionError("train: two runs of step 1 differ")
+    del snap
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    main.fit(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = list(main.losses)
+    per_step = 2 * cfg.num_layers          # forward and remat recompute
+    expect_launches("main flash_by_kernel", launches["flash_by_kernel"],
+                    dict(prefill_tc=per_step * TRAIN_STEPS, decode_split=0,
+                         simt=0))
+    expect_launches("main flash", launches["flash_attention"],
+                    per_step * TRAIN_STEPS)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train: non-finite losses {losses}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise AssertionError(f"train: losses do not descend: {losses}")
+    step_s = main.step_seconds()
+    med = statistics.median(step_s[TRAIN_TIMED])
+    prof = profile_train_step(main, med)
+    tokens = torch.from_numpy(main.pipeline.next_batch()["tokens"]).to(dev)
+    embed_cost = embed_grad_cost(dev, cfg, tokens)
+    n_params = model.num_params()
+    del main, model
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(
+        arch=TRAIN_ARCH, params=n_params, dtype=cfg.dtype,
+        layers=cfg.num_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, opt=TRAIN_OPT, remat=cfg.remat_policy,
+        losses=losses, step_s=step_s, step_s_median_3_12=med,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / med,
+        max_memory_allocated=peak, rerun_bit_for_bit=rerun_equal,
+        launches=launches, launches_per_step=dict(
+            prefill_tc=per_step, decode_split=0, simt=0),
+        profile=prof, embed_grad=embed_cost, nvidia_smi=smi())
+
+
+def train_restart(dev):
+    """Crash and restart at the full width with RESTART_LAYERS layers: an
+    uninterrupted run, a run that checkpoints every RESTART_EVERY steps
+    and fails at RESTART_FAIL, its restart to RESTART_STEPS; the losses
+    after the checkpoint equal the uninterrupted run's bit for bit.  Then
+    one asynchronous save of the same state timed: the host snapshot (the
+    train loop's wait) and the write."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.models.model import build
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH),
+                              num_layers=RESTART_LAYERS)
+    root = ROOT / "build" / "chip_smoke" / "train_restart"
+    shutil.rmtree(root, ignore_errors=True)
+    model = build(cfg, device=dev)
+    ref = train_trainer(model, root / "ref", steps=RESTART_STEPS)
+    ref.init_or_restore()
+    ref_losses = list(ref.fit())
+    del ref
+    crash = train_trainer(model, root / "crash", ckpt_every=RESTART_EVERY,
+                          steps=RESTART_STEPS)
+    crash.init_or_restore()
+    try:
+        crash.fit(fail_at_step=RESTART_FAIL)
+    except RuntimeError as exc:
+        if "injected failure" not in str(exc):
+            raise
+    else:
+        raise AssertionError("train restart: the injected failure did not "
+                             "happen")
+    crash_losses, ckpt_steps = list(crash.losses), crash.ckpt.all_steps()
+    del crash
+    resumed = train_trainer(model, root / "crash", ckpt_every=RESTART_EVERY,
+                            steps=RESTART_STEPS)
+    t0 = time.perf_counter()
+    start = resumed.init_or_restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    resumed_losses = list(resumed.fit())
+    if ckpt_steps != [RESTART_EVERY] or start != RESTART_EVERY:
+        raise AssertionError(f"train restart: checkpoints {ckpt_steps}, "
+                             f"resumed at {start}")
+    if (resumed_losses != ref_losses[RESTART_EVERY:]
+            or crash_losses != ref_losses[:RESTART_FAIL]):
+        raise AssertionError(f"train restart: {crash_losses} then "
+                             f"{resumed_losses} against {ref_losses}")
+    mgr = CheckpointManager(str(root / "timed"), keep_last=1)
+    tree = {"params": resumed.params, "opt": resumed.opt_state}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save_async(RESTART_STEPS, tree)
+    t1 = time.perf_counter()
+    mgr.wait()
+    t2 = time.perf_counter()
+    saved = root / "timed" / f"step_{RESTART_STEPS:08d}"
+    nbytes = sum(f.stat().st_size for f in saved.iterdir())
+    n_params = model.num_params()
+    del resumed, model, tree
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(arch=TRAIN_ARCH, layers=RESTART_LAYERS, params=n_params,
+                ckpt_every=RESTART_EVERY, fail_at=RESTART_FAIL,
+                steps=RESTART_STEPS, losses_uninterrupted=ref_losses,
+                losses_crashed=crash_losses, losses_resumed=resumed_losses,
+                bit_for_bit=True, restore_s=restore_s,
+                save_snapshot_s=t1 - t0, save_write_s=t2 - t1,
+                save_bytes=nbytes)
+
+
+def train_rwkv(dev):
+    """rwkv6-3b at full width with RWKV_TRAIN_LAYERS layers takes
+    RWKV_TRAIN_STEPS steps: finite losses, and the RWKV6 kernel launched
+    per layer and step for the forward and the remat recompute."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.models.model import build
+    cfg = dataclasses.replace(configs.get("rwkv6-3b"),
+                              num_layers=RWKV_TRAIN_LAYERS)
+    root = ROOT / "build" / "chip_smoke" / "train_rwkv"
+    model = build(cfg, device=dev)
+    trainer = train_trainer(model, root, steps=RWKV_TRAIN_STEPS)
+    trainer.init_or_restore()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses = trainer.fit()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = 2 * cfg.num_layers
+    expect_launches("rwkv rwkv6", launches["rwkv6"],
+                    per_step * RWKV_TRAIN_STEPS)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train rwkv: non-finite losses {losses}")
+    step_s = trainer.step_seconds()
+    n_params = model.num_params()
+    del trainer, model
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(arch="rwkv6-3b", layers=RWKV_TRAIN_LAYERS, params=n_params,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=losses,
+                step_s=step_s, max_memory_allocated=peak,
+                launches=launches["rwkv6"], launches_per_step=per_step)
+
+
+def phase_train(dev):
+    """Training on the card (module docstring, phase ``train``); returns
+    the main path's launches per step by kernel."""
+    flash = train_flash_checks(dev)
+    emit("train", part="flash_trainable", **flash)
+    rwkv_ops = train_rwkv6_checks(dev)
+    emit("train", part="rwkv6_trainable", **rwkv_ops)
+    emit("train", part="card_vs_cpu", **train_card_vs_cpu(dev))
+    main = train_main(dev)
+    emit("train", part="main", **main)
+    emit("train", part="restart", **train_restart(dev))
+    rwkv = train_rwkv(dev)
+    emit("train", part="rwkv", **rwkv)
+    return dict(flash_per_step=main["launches_per_step"],
+                flash_main=main["launches"]["flash_by_kernel"],
+                rwkv6_per_step_2_layers=rwkv["launches_per_step"],
+                rwkv6_run=rwkv["launches"])
+
+
 def flash_flops_bytes(b, h, sq, kv_lens, d, elem_bytes, causal):
     """Products (QK^T and PV, 2 flops per multiply-add) over the keys each
     query row attends to, and each input read and output written once
@@ -2861,6 +3435,21 @@ def timing_flash(dev, peak):
                                                    is_causal=True),
             flops, nbytes, flops_peak, peak)
         del q, k, v, qt, kt, vt
+    # prefill_tc at the train step's shape: every layer's forward and
+    # remat recompute (phase train)
+    bt = TRAIN_BATCH
+    q, k, v = flash_inputs(dev, torch.bfloat16, bt, h, h, s, s, 64, 21,
+                           layout="bshd")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lens_t = torch.full((bt,), s, dtype=torch.int32, device=dev)
+    flops, nbytes = flash_flops_bytes(bt, h, s, [s] * bt, 64, 2, True)
+    out["prefill_tc_train"] = flash_timed(
+        lambda: fk.flash_attention_cuda(
+            q, k, v, lens_t, causal=True, scale=64 ** -0.5, seq_dim=1),
+        lambda: attention_ref(qt, kt, vt, causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        flops, nbytes, peak["bf16_flops"], peak)
+    del q, k, v, qt, kt, vt
 
     dq, dk, dv, kv_len = decode_inputs(dev)
     dqt, dkt, dvt = (x.transpose(1, 2) for x in (dq, dk, dv))
@@ -2891,7 +3480,8 @@ def timing_linrec(dev, peak):
     from repro_torch.kernels.linrec.ref import rwkv6_chunked_ref
     out = {}
     for label, (b, h, t, d) in (("main", LINREC_MAIN),
-                                ("short", LINREC_SHORT)):
+                                ("short", LINREC_SHORT),
+                                ("train", (TRAIN_BATCH, *LINREC_MAIN[1:]))):
         r, k, v, logw, u, s0 = linrec_inputs(dev, b, h, t, d, 10,
                                              layout="bthd")
         rt, kt, vt, lt = (x.transpose(1, 2) for x in (r, k, v, logw))
@@ -3034,6 +3624,8 @@ def phase_timing(dev, launches, errs, turnover):
              prefill_tc=f"{FLASH_PREFILL} causal bfloat16",
              simt=f"{FLASH_PREFILL} causal float32",
              simt_d128=f"{FLASH_PREFILL[:3] + (128,)} causal float32",
+             prefill_tc_train=f"{(TRAIN_BATCH,) + FLASH_PREFILL[1:]} "
+                              "causal bfloat16",
              decode_split=f"{FLASH_DECODE} cache {SERVE_CACHE} bfloat16"),
              **fl),
          rwkv6=lin, revocation_walk=walk, generation_turnover=turnover)
@@ -3092,6 +3684,16 @@ def phase_timing(dev, launches, errs, turnover):
                 "src/repro/kernels/flash_attention/flash_attention.py:99",
             "launches": launches["flash_attention"],
             "launches_per_serve": launches["flash_attention"],
+            # the full stablelm-1.6b's train step: each layer's forward
+            # and its remat recompute (phase train)
+            "launches_per_train_step": launches["train"]["flash_per_step"],
+            "launches_per_train_run": launches["train"]["flash_main"],
+            "train_shape": dict(
+                shape=f"prefill {(TRAIN_BATCH,) + FLASH_PREFILL[1:]} "
+                      "causal bf16",
+                **{key: fl["prefill_tc_train"][key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}),
             "max_abs_err": errs["flash_attention"], "ms": pre["ms"],
             "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
             "bound_by": pre["bound_by"], "library_ms": pre["library_ms"],
@@ -3121,6 +3723,14 @@ def phase_timing(dev, launches, errs, turnover):
             "replaces": "src/repro/kernels/linrec/linrec.py:92",
             "launches": launches["rwkv6"],
             "launches_per_serve": launches["rwkv6"],
+            # rwkv6-3b's train step at 2 layers (phase train): forward and
+            # remat recompute per layer
+            "launches_per_train_step_2_layers":
+                launches["train"]["rwkv6_per_step_2_layers"],
+            "launches_per_train_run_2_layers":
+                launches["train"]["rwkv6_run"],
+            "train_shape": {key: lin["train"][key] for key in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by")},
             "max_abs_err": errs["rwkv6"], "ms": lin["main"]["ms"],
             "plain_ms": lin["main"]["plain_ms"],
             "bound_ms": lin["main"]["bound_ms"],
@@ -3223,6 +3833,7 @@ def main() -> int:
     launches["flash_by_kernel"] = dense["launches"]["flash_by_kernel"]
     launches["rwkv6"], _ = phase_serve(
         "serve_rwkv", "rwkv6-3b", dev, "rwkv6")
+    launches["train"] = phase_train(dev)
     phase_timing(dev, launches, errs, turnover)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

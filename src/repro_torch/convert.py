@@ -1,5 +1,6 @@
 """Carry a fleet, its purchase options, its spot lines, its successor
-table and a model's parameters across from the JAX package.
+table, a model's parameters, gradients and AdamW state across from the JAX
+package.
 
 The functions are duck-typed: they read plain fields (``keys``,
 ``demand``, ``configs`` of a pool set; ``name``, ``cloud``, ``rate``,
@@ -116,7 +117,8 @@ def model_params_from_reference(cfg, tree) -> dict[str, torch.Tensor]:
     ``layers`` subtree carry a leading layer axis, which is split into
     ``layers.<i>.<name>`` entries.  bfloat16 leaves pass through float32,
     which holds them exactly; ``load_state_dict`` casts each tensor to its
-    parameter's dtype."""
+    parameter's dtype.  A gradient tree of the JAX model has the
+    parameters' layout and carries across the same way."""
     out = dict(_flatten({k: v for k, v in tree.items() if k != "layers"}))
     for name, stacked in _flatten(tree["layers"]):
         arr = np.asarray(stacked)
@@ -127,3 +129,15 @@ def model_params_from_reference(cfg, tree) -> dict[str, torch.Tensor]:
         for i in range(cfg.num_layers):
             out[f"layers.{i}.{name}"] = arr[i]
     return {k: _tensor(v) for k, v in out.items()}
+
+
+def opt_state_from_reference(cfg, state) -> dict:
+    """The port's AdamW state (``repro_torch.train.optimizer``) holding the
+    JAX state's float32 ``master``, ``m`` and ``v`` (each in the layout of
+    :func:`model_params_from_reference`) and its ``step``."""
+    out = {key: {n: t.float() for n, t in
+                 model_params_from_reference(cfg, state[key]).items()}
+           for key in ("master", "m", "v")}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32)
+    return out

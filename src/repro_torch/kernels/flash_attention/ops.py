@@ -9,8 +9,12 @@ There is no fallback: on a CUDA tensor the routed kernel launches or the
 call raises.  The kernels mask ragged ``Sq`` and ``Skv`` themselves, so
 unlike the TPU entry point this one pads nothing.
 
-The training path's ``flash_attention_trainable`` (a backward that
-recomputes the reference) is not ported yet (ROADMAP Queue 1, item 16).
+:func:`flash_attention_trainable` is the training path's op, a
+``torch.autograd.Function``: its forward is :func:`flash_attention` (the
+routed kernel on the card), its backward the reference's, the VJP of causal
+attention recomputed from q, k and v (:func:`attention_vjp`), in query
+chunks of ``TRAIN_CHUNK`` with ``torch.matmul``.  The backward never calls
+``ref.py``, so the plain version stays off the card's path.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from repro_torch.kernels.flash_attention import flash_attention as _kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _SEQ_DIM = {"bhsd": 2, "bshd": 1}
+#: Query rows per block of the backward (the reference model's train chunk).
+TRAIN_CHUNK = 1024
 
 
 def flash_attention(
@@ -65,3 +71,97 @@ def flash_attention(
         return out.transpose(1, 2).contiguous()
     return attention_ref(q, k, v, causal=causal, kv_len=kv_len, scale=scale)
 
+
+
+def attention_vjp(q, k, v, g, *, scale: float, layout: str = "bhsd",
+                  chunk: int = TRAIN_CHUNK):
+    """Gradients (dq, dk, dv) of causal attention at (q, k, v) for the
+    output gradient ``g``, in the inputs' layout and dtypes.
+
+    The queries are the last Sq of Skv positions (no ``kv_len``).  Query
+    rows go in chunks of ``chunk``; each chunk recomputes, in float32,
+    P = softmax(scale q k^T) over the keys it can see, then
+    dV += P^T dO, dP = dO V^T, dS = P (dP - rowsum(dO O)) with O = P V,
+    dQ = scale dS K and dK += scale dS^T Q.  The query heads of a GQA
+    group ride one matmul against their kv head, so dK and dV come out
+    summed over the group.  At most two (B, Hkv, G x chunk, keys) float32
+    blocks are live: P and dP, which turns into dS in place."""
+    if layout not in _SEQ_DIM:
+        raise ValueError(f"layout must be one of {sorted(_SEQ_DIM)}")
+    if layout == "bshd":
+        q, k, v, g = (x.transpose(1, 2) for x in (q, k, v, g))
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
+    if sq > skv:
+        raise ValueError(f"{sq} queries over {skv} keys: causal attention "
+                         "needs Sq <= Skv")
+    grp, off = hq // hkv, skv - sq
+    kf, vf = k.float(), v.float()
+    dq = torch.empty((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, hkv, skv, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for a in range(0, sq, chunk):
+        e = min(a + chunk, sq)
+        n, keys = e - a, off + e
+        qc = q[:, :, a:e].float().reshape(b, hkv, grp * n, d)
+        gc = g[:, :, a:e].float().reshape(b, hkv, grp * n, d)
+        kc, vc = kf[:, :, :keys], vf[:, :, :keys]
+        p = torch.matmul(qc, kc.transpose(-1, -2)).mul_(scale)
+        row = torch.arange(off + a, off + e, device=q.device)
+        col = torch.arange(keys, device=q.device)
+        masked = (col[None, :] > row[:, None]).repeat(grp, 1)
+        p.masked_fill_(masked, float("-inf"))
+        p.sub_(p.amax(-1, keepdim=True)).exp_()
+        p.div_(p.sum(-1, keepdim=True))
+        dv[:, :, :keys] += torch.matmul(p.transpose(-1, -2), gc)
+        delta = (gc * torch.matmul(p, vc)).sum(-1, keepdim=True)
+        ds = torch.matmul(gc, vc.transpose(-1, -2)).sub_(delta).mul_(p)
+        del p
+        ds.mul_(scale)
+        dq[:, :, a:e] = torch.matmul(ds, kc).view(b, hq, n, d)
+        dk[:, :, :keys] += torch.matmul(ds.transpose(-1, -2), qc)
+        del ds
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    if layout == "bshd":
+        return tuple(x.transpose(1, 2) for x in grads)
+    return grads
+
+
+class _FlashTrainable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, layout):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.layout = scale, layout
+        return flash_attention(q, k, v, causal=True, scale=scale,
+                               layout=layout)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.profiler.record_function("flash_attention_backward"):
+            dq, dk, dv = attention_vjp(q, k, v, g, scale=ctx.scale,
+                                       layout=ctx.layout)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_trainable(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: float | None = None,
+    layout: str = "bhsd",
+) -> torch.Tensor:
+    """Causal attention with a backward: the queries are the last Sq of
+    Skv positions, as in :func:`flash_attention` without ``kv_len``.  The
+    forward launches the routed kernel on a CUDA tensor (``prefill_tc``
+    for bf16 at head dim 64 or 128) and runs the plain version on a CPU
+    tensor; the backward is :func:`attention_vjp` on either.  Under
+    ``torch.utils.checkpoint`` the forward runs again in the backward
+    pass, so a remat'ed layer launches the kernel twice per step."""
+    if layout not in _SEQ_DIM:
+        raise ValueError(f"layout must be one of {sorted(_SEQ_DIM)}")
+    scale = q.shape[3] ** -0.5 if scale is None else scale
+    return _FlashTrainable.apply(q, k, v, scale, layout)

@@ -12,6 +12,14 @@ them (``logw = -exp(w_raw)``); :func:`rwkv6_linear_attention` keeps the
 reference op's signature, decays ``w`` in (0, 1], and takes their log with
 the reference's 1e-30 clip.  :func:`rwkv6_step` is the single-token decode
 step, plain tensor math that needs no kernel.
+
+:func:`rwkv6_trainable` is the training path's op, a
+``torch.autograd.Function``: its forward is
+:func:`rwkv6_linear_attention_logw` (the kernel on the card), its backward
+autodiff of a recompute of the chunked algebra (``rwkv6_chunked_ref``, the
+chunks of the kernel), which is the JAX package's own training backward
+(autodiff of its chunked ``_chunked_wkv``).  It gives the gradients of r,
+k, v, logw, u and the initial state.
 """
 
 from __future__ import annotations
@@ -81,3 +89,56 @@ def rwkv6_step(r, k, v, w, u, state):
     y = torch.einsum("bhk,bhkv->bhv", r, att)
     return y, w[..., :, None] * state + kv
 
+
+
+class _RWKV6Trainable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state, layout):
+        ctx.save_for_backward(r, k, v, logw, u, state)
+        ctx.layout = layout
+        ctx.set_materialize_grads(False)
+        return rwkv6_linear_attention_logw(r, k, v, logw, u, state,
+                                           layout=layout)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        saved = ctx.saved_tensors
+        if gy is None and gs is None:
+            return (None,) * 7
+        with torch.enable_grad():
+            ins = [None if x is None else x.detach().float().requires_grad_()
+                   for x in saved]
+            r, k, v, logw, u, state = ins
+            if ctx.layout == "bthd":
+                r, k, v, logw = (x.transpose(1, 2) for x in (r, k, v, logw))
+                if gy is not None:
+                    gy = gy.transpose(1, 2)
+            y, s = rwkv6_chunked_ref(r, k, v, logw, u, state,
+                                     chunk=_kernel.CHUNK)
+            outs = [(o, g) for o, g in ((y, gy), (s, gs)) if g is not None]
+            leaves = [x for x in ins if x is not None]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in outs], leaves, [g for _, g in outs],
+                allow_unused=True))
+        out = []
+        for x, orig in zip(ins, saved):
+            if x is None:
+                out.append(None)
+                continue
+            gx = next(grads)
+            out.append(None if gx is None else gx.to(orig.dtype))
+        return (*out, None)
+
+
+def rwkv6_trainable(r, k, v, logw, u, state=None, *, layout: str = "bhtd"):
+    """:func:`rwkv6_linear_attention_logw` with a backward: returns (y,
+    final state) as it does, and gives gradients to r, k, v, logw, u and
+    ``state`` (when given).  The forward launches the kernel on a CUDA
+    tensor and runs the chunked plain version on a CPU tensor; the
+    backward recomputes the chunked algebra under autograd on either.
+    Under ``torch.utils.checkpoint`` the forward runs again in the
+    backward pass, so a remat'ed layer launches the kernel twice per
+    step."""
+    if layout not in _TIME_DIM:
+        raise ValueError(f"layout must be one of {sorted(_TIME_DIM)}")
+    return _RWKV6Trainable.apply(r, k, v, logw, u, state, layout)

@@ -7,10 +7,12 @@ Three execution modes share one set of weights:
   * decode   — the new token(s) against the cache at fill level ``pos``,
                a scalar or one level per batch row (per slot).
 
-Every mode goes through the flash-attention op
-(``repro_torch.kernels.flash_attention.ops``): on the card its CUDA kernel
+Every mode goes through the flash-attention ops
+(``repro_torch.kernels.flash_attention.ops``): on the card the CUDA kernel
 reads q and the cache in their (B, S, H, D) layout in place, with per-row
-``kv_len``; on the CPU its plain version.  Caches are laid out
+``kv_len``; on the CPU the plain version.  Train mode takes the trainable
+op (``flash_attention_trainable``), whose backward recomputes attention
+from q, k and v.  Caches are laid out
 (B, S, Hkv, D), as the reference's, and are written in place.
 
 MLA's layer (ROADMAP Queue 1, item 16) and the int8 KV cache
@@ -25,7 +27,10 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention,
+    flash_attention_trainable,
+)
 from repro_torch.models.common import rms_norm_spec, rope_for
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Spec, add_parameters
@@ -147,8 +152,8 @@ class GQAAttention(nn.Module):
 
         scale = 1.0 / math.sqrt(hd)
         if mode == "train":
-            out = flash_attention(q, k, v, kv_len=s, scale=scale,
-                                  layout="bshd")
+            out = flash_attention_trainable(q, k, v, scale=scale,
+                                            layout="bshd")
         elif mode == "prefill":
             update_cache(cache["k"], k, pos)
             update_cache(cache["v"], v, pos)

@@ -1,11 +1,20 @@
-"""Shared layer primitives: RMSNorm and RoPE (standard and partial).
+"""Shared layer primitives: RMSNorm and RoPE (standard and partial), the
+token embedding with a deterministic gradient, and the per-layer
+rematerialization of the train forward.
 
 M-RoPE (qwen2-vl) is not ported yet (ROADMAP Queue 1, item 16).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Spec
@@ -49,3 +58,67 @@ def rope_for(cfg: ModelConfig, x: torch.Tensor,
         raise NotImplementedError(
             "M-RoPE is not ported yet (ROADMAP Queue 1, item 16)")
     return apply_rope(x, positions, cfg.rope_theta)
+
+
+class _EmbedLookup(torch.autograd.Function):
+    """``table[tokens]`` whose backward sums the rows of each token in a
+    fixed order: tokens sorted (stably), each run of equal tokens summed
+    by ``segment_reduce`` in float32, one write per distinct token.  The
+    gather's own backward accumulates with atomics on CUDA, so two runs
+    of one step could differ in the last bits."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.rows = table.shape[0]
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        with torch.profiler.record_function("embed_backward"):
+            flat = tokens.reshape(-1)
+            g = g.reshape(flat.numel(), g.shape[-1])
+            toks, order = torch.sort(flat, stable=True)
+            uniq, counts = torch.unique_consecutive(toks, return_counts=True)
+            sums = torch.segment_reduce(g[order].float(), "sum",
+                                        lengths=counts)
+            grad = g.new_zeros((ctx.rows, g.shape[-1]))
+            grad[uniq.long()] = sums.to(g.dtype)
+        return grad, None
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` (V, d) at integer ``tokens`` (B, S) -> (B, S, d),
+    with a deterministic gradient (:class:`_EmbedLookup`)."""
+    return _EmbedLookup.apply(table, tokens)
+
+
+# matmul outputs: what the reference's "dots" policy (dots_saveable) keeps
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def checkpoint_body(body, cfg: ModelConfig):
+    """``body`` under ``torch.utils.checkpoint`` (non-reentrant) with the
+    configured policy: ``"full"`` saves only the body's inputs and
+    recomputes the rest in the backward pass (least memory); ``"dots"``
+    also keeps every matmul output, so the backward recomputes no matmul.
+    Hand kernels (flash attention, RWKV6) run again under either policy.
+    No layer draws random numbers, so the RNG state is not stashed."""
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+    def run(*args, **kwargs):
+        return checkpoint(body, *args, **kw, **kwargs)
+
+    return run

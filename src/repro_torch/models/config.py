@@ -5,8 +5,9 @@ and ``__post_init__``, so a configuration means the same model in both
 packages.  Fields of families the port does not run yet (MLA, MoE, hybrid,
 audio, M-RoPE, the int8 KV cache) are kept so that the copy stays whole;
 the model modules raise on them (ROADMAP Queue 1, item 16).
-``unroll_layers`` and ``remat_policy`` steer the JAX package's compiler
-and mean nothing here.
+``unroll_layers`` steers the JAX package's compiler and means nothing
+here; ``remat_policy`` picks what the train forward's per-layer checkpoint
+keeps (``models.common.checkpoint_body``).
 """
 
 from __future__ import annotations

@@ -12,6 +12,12 @@ and MLA attention, raise (ROADMAP Queue 1, item 16).  :func:`num_params`
 counts any registry architecture from its family's shape table without
 building a module.
 
+Two forwards share the weights: :meth:`Model.apply` (no gradients) runs
+prefill, decode and a train-mode forward for serving and checks, and
+:meth:`Model.forward` is the training forward, with gradients, each layer
+rematerialized in the backward pass by default (``remat=True``, the
+configured ``remat_policy``), as the JAX package's train forward is.
+
 Caches are dictionaries of tensors stacked over layers, the slot (batch)
 axis second: ``cache[name][layer, slot]``.  ``apply`` updates the cache it
 is given in place and returns it, so a view of some slots
@@ -24,7 +30,12 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models.common import rms_norm, rms_norm_spec
+from repro_torch.models.common import (
+    checkpoint_body,
+    embed,
+    rms_norm,
+    rms_norm_spec,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import (
     Spec,
@@ -99,28 +110,44 @@ class Model(nn.Module):
     @torch.no_grad()
     def apply(self, tokens: torch.Tensor, *, mode: str = "train",
               cache: dict | None = None, pos=0):
-        """tokens (B, S) integer -> (logits float32, cache).  Logits are
-        (B, S, V), or (B, 1, V) in prefill: next-token logits only.  ``pos``
-        is an int or a (B,) tensor of per-row offsets (decode: the fill
-        levels).  ``cache`` is updated in place and returned."""
+        """tokens (B, S) integer -> (logits float32, cache), without
+        gradients.  Logits are (B, S, V), or (B, 1, V) in prefill:
+        next-token logits only.  ``pos`` is an int or a (B,) tensor of
+        per-row offsets (decode: the fill levels).  ``cache`` is updated
+        in place and returned."""
+        return self._run(tokens, mode=mode, cache=cache, pos=pos,
+                         remat=False)
+
+    def forward(self, tokens: torch.Tensor, *, remat: bool = True):
+        """The training forward: tokens (B, S) -> logits (B, S, V) float32
+        with gradients, attention and the RWKV6 recurrence through their
+        trainable ops.  ``remat`` checkpoints every layer
+        (:func:`repro_torch.models.common.checkpoint_body`)."""
+        logits, _ = self._run(tokens, mode="train", cache=None, pos=0,
+                              remat=remat)
+        return logits
+
+    def _run(self, tokens, *, mode, cache, pos, remat):
         tokens = tokens.to(self.device)
         if isinstance(pos, torch.Tensor):
             pos = pos.to(self.device)
-        x = self.embed[tokens]
+        # the sorted, deterministic gradient only where one is taken;
+        # serving (prefill, decode) gathers directly
+        x = (embed(self.embed, tokens) if torch.is_grad_enabled()
+             else self.embed[tokens])
         positions = _positions(pos, *tokens.shape, self.device)
         for i, layer in enumerate(self.layers):
             cache_l = None if cache is None else {
                 name: t[i] for name, t in cache.items()}
-            x = layer(x, mode=mode, cache=cache_l, pos=pos,
-                      positions=positions)
+            body = checkpoint_body(layer, self.cfg) if remat else layer
+            x = body(x, mode=mode, cache=cache_l, pos=pos,
+                     positions=positions)
         if mode == "prefill":
             # next-token logits only: a long prompt's full (S, V) float32
             # logits are vocab-head work and traffic nobody reads
             x = x[:, -1:]
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return (x @ self.lm_head).float(), cache
-
-    forward = apply
 
 
 def _positions(pos, b: int, s: int, device) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """RWKV-6 "Finch" (data-dependent decay linear attention) — arch rwkv6-3b.
 
 Attention-free: a per-head (hs x hs) state instead of a KV cache.  Prefill
-and train run the time mix's recurrence through the linrec op
-(``repro_torch.kernels.linrec.ops``): on the card its CUDA kernel reads the
-(B, T, H, hs) projections in place; on the CPU its chunked plain version.
+and train run the time mix's recurrence through the linrec ops
+(``repro_torch.kernels.linrec.ops``): on the card the CUDA kernel reads the
+(B, T, H, hs) projections in place; on the CPU the chunked plain version.
+Train mode takes the trainable op (``rwkv6_trainable``), whose backward
+recomputes the chunked algebra under autograd.
 A single-token decode step is the inline outer-product update, as in the
 JAX package: it needs no kernel.  The layer's state (token shifts and the
 float32 recurrence state) is written in place.
@@ -18,7 +20,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.linrec.ops import rwkv6_linear_attention_logw
+from repro_torch.kernels.linrec.ops import (
+    rwkv6_linear_attention_logw,
+    rwkv6_trainable,
+)
 from repro_torch.models.common import rms_norm, rms_norm_spec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
@@ -135,6 +140,8 @@ class RWKVLayer(nn.Module):
             att = s0 + u[None, :, :, None] * kv
             y = torch.einsum("bhi,bhij->bhj", r[:, 0], att)[:, None]
             s_new = torch.exp(logw[:, 0])[..., None] * s0 + kv
+        elif mode == "train":
+            y, s_new = rwkv6_trainable(r, k, v, logw, u, layout="bthd")
         else:
             y, s_new = rwkv6_linear_attention_logw(r, k, v, logw, u, s0,
                                                    layout="bthd")

@@ -126,11 +126,12 @@ class SpanRecorder:
             else:
                 self._events[idx][1] = self._event()
 
-    def resolve(self) -> "SpanRecorder":
-        """Fill in the times of every closed span from its events (a no-op
-        under a clock); waits for the device to reach each end event."""
+    def resolve(self, first: int = 0) -> "SpanRecorder":
+        """Fill in the times of every closed span from index ``first`` on
+        from its events (a no-op under a clock); waits for the device to
+        reach each end event."""
         if self._clock is None:
-            for i, (start, end) in enumerate(self._events):
+            for i, (start, end) in enumerate(self._events[first:], first):
                 if end is None:          # still open
                     continue
                 end.synchronize()

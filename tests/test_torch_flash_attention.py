@@ -267,3 +267,114 @@ def test_split_decode_algebra_gives_zeros_without_keys():
     torch.testing.assert_close(
         out[1:2], attention_ref(q[1:2], k[1:2], v[1:2], causal=True),
         atol=2e-6, rtol=1e-5)
+
+
+# ------------------------------------------------------- the trainable op
+#
+# flash_attention_trainable's gradients against jax.vjp of the JAX
+# package's flash_attention_trainable (its Pallas forward in interpret
+# mode, its backward the VJP of the reference): float32 within atol 1e-5 /
+# rtol 1e-4 of the output's own tolerance, bf16 within 2e-2 (the
+# gradients are computed in float32 from bf16 inputs and rounded once).
+
+from jax import vjp as jvjp  # noqa: E402
+
+from repro.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention_trainable as jtrainable,
+)
+
+GRAD_TOL = {"float32": dict(atol=1e-5, rtol=1e-4),
+            "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", [
+    (1, 4, 4, 65, 65, 64),      # group 1, ragged
+    (2, 4, 2, 200, 200, 32),    # group 2, ragged
+    (1, 8, 2, 127, 127, 64),    # group 4
+    (1, 4, 1, 48, 100, 32),     # group 4, queries the last 48 of 100
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_trainable_grads_match_jax_vjp(b, hq, hkv, sq, skv, d, dtype):
+    q, k, v = _qkv(sq + 3 * hq + d, b, hq, hkv, sq, skv, d)
+    g = _randn(np.random.default_rng(sq), b, hq, sq, d)
+    jargs = [jnp.asarray(x, dtype=dtype) for x in (q, k, v)]
+    jout, pullback = jvjp(jtrainable, *jargs)
+    jgrads = pullback(jnp.asarray(g, dtype=dtype))
+    targs = [torch.from_numpy(np.array(x, np.float32)).to(
+        getattr(torch, dtype)).requires_grad_() for x in jargs]
+    out = tops.flash_attention_trainable(*targs)
+    grads = torch.autograd.grad(out, targs, torch.from_numpy(np.array(
+        jnp.asarray(g, dtype=dtype), np.float32)).to(out.dtype))
+    tol = GRAD_TOL[dtype]
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               np.asarray(jout, np.float32), **tol)
+    for name, got, want in zip("qkv", grads, jgrads):
+        assert got.dtype == targs[0].dtype and got.shape == want.shape, name
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), **tol,
+                                   err_msg=f"d{name}")
+
+
+def test_trainable_q_k_v_get_the_reference_gradients():
+    """Through the op, q, k and v get gradients, equal to autograd through
+    the plain version; bshd (the model's layout) equals bhsd."""
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv(5, 2, 8, 2, 90, 90, 64))
+    g = torch.randn(2, 8, 90, 64, generator=torch.Generator().manual_seed(1))
+    tops.flash_attention_trainable(q, k, v).backward(g)
+    got = [x.grad.clone() for x in (q, k, v)]
+    for x in (q, k, v):
+        x.grad = None
+    attention_ref(q, k, v, causal=True).backward(g)
+    for a, x in zip(got, (q, k, v)):
+        assert a.abs().max() > 0
+        torch.testing.assert_close(a, x.grad, **GRAD_TOL["float32"])
+    qs, ks, vs = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    out = tops.flash_attention_trainable(qs, ks, vs, layout="bshd")
+    out.backward(g.transpose(1, 2))
+    for a, x in zip(got, (qs, ks, vs)):
+        torch.testing.assert_close(x.grad.transpose(1, 2), a, atol=1e-6,
+                                   rtol=1e-6)
+
+
+def test_attention_vjp_chunks_equal_one_block():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(8, 1, 4, 2, 70, 100, 32))
+    g = torch.randn(1, 4, 70, 32, generator=torch.Generator().manual_seed(2))
+    whole = tops.attention_vjp(q, k, v, g, scale=0.2)
+    for chunk in (1, 16, 33):
+        parts = tops.attention_vjp(q, k, v, g, scale=0.2, chunk=chunk)
+        for a, b in zip(parts, whole):
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+
+
+def test_model_train_mode_calls_the_trainable_op(monkeypatch):
+    """mode="train" goes through flash_attention_trainable; the raw op is
+    left to prefill and decode."""
+    from repro_torch import configs
+    from repro_torch.models import attention
+    from repro_torch.models.model import build
+
+    tm = build(configs.reduced("stablelm-1.6b"), device="cpu")
+    tm.init(torch.Generator().manual_seed(0))
+    calls = {"trainable": 0, "raw": 0}
+    real_t, real_r = (attention.flash_attention_trainable,
+                      attention.flash_attention)
+
+    def trainable(*a, **kw):
+        calls["trainable"] += 1
+        return real_t(*a, **kw)
+
+    def raw(*a, **kw):
+        calls["raw"] += 1
+        return real_r(*a, **kw)
+
+    monkeypatch.setattr(attention, "flash_attention_trainable", trainable)
+    monkeypatch.setattr(attention, "flash_attention", raw)
+    tok = torch.randint(0, 512, (2, 12), generator=torch.Generator())
+    tm(tok, remat=False).sum().backward()
+    assert calls == {"trainable": tm.cfg.num_layers, "raw": 0}
+    assert all(p.grad is not None for p in tm.parameters())
+    tm.apply(tok, mode="prefill", cache=tm.init_cache(2, 16), pos=0)
+    assert calls == {"trainable": tm.cfg.num_layers,
+                     "raw": tm.cfg.num_layers}

@@ -72,7 +72,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                  "repro_torch.capacity.scheduler",
                  "repro_torch.capacity.simulator",
                  "repro_torch.models.mamba", "repro_torch.models.jamba",
-                 "repro_torch.models.whisper"):
+                 "repro_torch.models.whisper",
+                 "repro_torch.train.step", "repro_torch.train.optimizer",
+                 "repro_torch.train.trainer", "repro_torch.ckpt.manager",
+                 "repro_torch.data.pipeline"):
         assert name in mods
 
 

@@ -233,3 +233,100 @@ def test_zero_decay_chunk_zeroes_the_carried_state():
     torch.testing.assert_close(y, cy, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(s, cs_, atol=1e-5, rtol=1e-5)
 
+
+
+# ------------------------------------------------------- the trainable op
+#
+# rwkv6_trainable's gradients against jax.vjp of the JAX package's step
+# oracle (rwkv6_ref, a lax.scan) at the same decays (w = exp(logw)), with
+# a carried state: the reference's 2e-3, scaled to each gradient's
+# largest element.
+
+from jax import vjp as jvjp  # noqa: E402
+
+from repro.kernels.linrec.ref import rwkv6_ref as jrwkv6_ref  # noqa: E402
+
+
+def _grad_close(got, want, tol=2e-3):
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol,
+                               atol=tol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("b,h,t,d", [
+    (1, 2, 20, 16),    # shorter than a chunk
+    (2, 3, 45, 16),    # ragged, B = 2
+    (1, 2, 70, 32),    # three chunks, the last ragged
+])
+def test_trainable_grads_match_jax_vjp(b, h, t, d):
+    r, k, v, logw, u, s0 = _model_range(t * 3 + d, b, h, t, d, lo=-3.0,
+                                        hi=1.0)
+    rng = np.random.default_rng(t)
+    gy = rng.normal(size=(b, h, t, d)).astype(np.float32)
+    gs = rng.normal(size=(b, h, d, d)).astype(np.float32)
+
+    def jf(r, k, v, logw, u, s0):
+        return jrwkv6_ref(r, k, v, jnp.exp(logw), u, s0)
+
+    (jy, js), pullback = jvjp(jf, *(jnp.asarray(x) for x in
+                                    (r, k, v, logw, u, s0)))
+    jgrads = pullback((jnp.asarray(gy), jnp.asarray(gs)))
+    targs = [torch.from_numpy(x).requires_grad_()
+             for x in (r, k, v, logw, u, s0)]
+    y, s = tops.rwkv6_trainable(*targs)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(s.detach().numpy(), np.asarray(js), **TOL)
+    grads = torch.autograd.grad((y, s), targs,
+                                (torch.from_numpy(gy), torch.from_numpy(gs)))
+    for name, got, want in zip(("r", "k", "v", "logw", "u", "state"), grads,
+                               jgrads):
+        assert got.shape == want.shape, name
+        _grad_close(got, want)
+
+
+def test_trainable_bthd_without_state_equals_bhtd():
+    r, k, v, logw, u, _ = _t(*_model_range(4, 2, 3, 40, 16, lo=-3.0,
+                                           hi=1.0))
+    g = torch.randn(2, 3, 40, 16, generator=torch.Generator().manual_seed(0))
+    ins = [x.clone().requires_grad_() for x in (r, k, v, logw, u)]
+    y, _ = tops.rwkv6_trainable(*ins)
+    want = torch.autograd.grad(y, ins, g)
+    lay = [x.transpose(1, 2).contiguous().requires_grad_()
+           for x in (r, k, v, logw)] + [u.clone().requires_grad_()]
+    y2, _ = tops.rwkv6_trainable(*lay, layout="bthd")
+    torch.testing.assert_close(y2.transpose(1, 2), y.detach())
+    got = torch.autograd.grad(y2, lay, g.transpose(1, 2))
+    for a, b in zip(got[:4], want[:4]):
+        torch.testing.assert_close(a.transpose(1, 2), b, atol=1e-6,
+                                   rtol=1e-5)
+    torch.testing.assert_close(got[4], want[4], atol=1e-6, rtol=1e-5)
+
+
+def test_model_train_mode_calls_the_trainable_op(monkeypatch):
+    """mode="train" goes through rwkv6_trainable; prefill keeps the raw
+    op; every parameter gets a finite gradient at T = 64 (two chunks)."""
+    from repro_torch import configs
+    from repro_torch.models import rwkv
+    from repro_torch.models.model import build
+
+    tm = build(configs.reduced("rwkv6-3b"), device="cpu")
+    tm.init(torch.Generator().manual_seed(0))
+    calls = {"trainable": 0, "raw": 0}
+    real_t, real_r = rwkv.rwkv6_trainable, rwkv.rwkv6_linear_attention_logw
+
+    def trainable(*a, **kw):
+        calls["trainable"] += 1
+        return real_t(*a, **kw)
+
+    def raw(*a, **kw):
+        calls["raw"] += 1
+        return real_r(*a, **kw)
+
+    monkeypatch.setattr(rwkv, "rwkv6_trainable", trainable)
+    monkeypatch.setattr(rwkv, "rwkv6_linear_attention_logw", raw)
+    tok = torch.randint(0, 512, (2, 64), generator=torch.Generator())
+    tm(tok, remat=False).float().logsumexp(-1).mean().backward()
+    assert calls == {"trainable": tm.cfg.num_layers, "raw": 0}
+    assert all(torch.isfinite(p.grad).all() for p in tm.parameters())
+    tm.apply(tok, mode="prefill", cache=tm.init_cache(2, 64), pos=0)
+    assert calls["raw"] == tm.cfg.num_layers
