@@ -8,7 +8,8 @@ the migration and convertible bands on a fleet in generation turnover,
 batched over demand scenarios, with telemetry, the breach cadence and
 the carried IRLS moments, the fleet simulator with the paper's §4 time
 shifting and §5 free pool, the policy tournament, the serving engine on
-the published stablelm-1.6b and rwkv6-3b, and the trainer on the
+the published stablelm-1.6b, rwkv6-3b, granite-moe-1b-a400m (MoE) and
+deepseek-v2-lite-16b (MoE with MLA), and the trainer on the
 published stablelm-1.6b (rwkv6-3b cut to two layers) — and checks each
 of their kernels (commitment sweep, revocation walk,
 generation turnover, flash attention, RWKV6 recurrence) against its plain
@@ -16,7 +17,8 @@ PyTorch version.  Flash
 attention is three CUDA kernels, routed by dtype, head dim and query rows
 (``flash_attention.route``): a tensor-core bf16 prefill (``prefill_tc``),
 a split-KV decode (``decode_split``) and the SIMT kernel (``simt``: f32
-prefill, bf16 with head dim 32).  Phases, in this order, each printing one
+prefill, bf16 with head dim 32); the prefill kernels also take MLA's
+value head dim of its own, (Dqk, Dv) = (192, 128) and (96, 64).  Phases, in this order, each printing one
 JSON line and raising on failure:
 
   device    card name and power limit, torch and CUDA versions
@@ -153,8 +155,11 @@ JSON line and raising on failure:
             bf16 and f32, and a batched decode (8 slots, 32 heads, one
             query) against a 4096-long cache with 8 different kv_len, in
             bf16 and f32, held also against the split-KV algebra's plain
-            version; each bf16 query row's error norm against its
-            reference norm as well as element by element
+            version; MLA's head dims (192, 128) and (96, 64), ragged, one
+            query, a wrapped ring, in f32 (simt) and bf16 (prefill_tc),
+            and the bf16 prefills (1, 2048, 16, 192/128) and (1, 2048,
+            40, 96/64) causal (FLASH_MLA); each bf16 query row's error
+            norm against its reference norm as well as element by element
   linrec    RWKV6 kernels (chunk, state scan, inter: one call) vs plain
             version: ragged T, strong decay, a carried state, the model's
             whole decay range, a chunk whose decay is exactly 0, B = 2 at
@@ -166,9 +171,14 @@ JSON line and raising on failure:
             starts, hazard 0 with recovery 1, and the main shape (32 draws
             x 1024 pools x 117 weeks of hours); states and interruptions
             bit for bit, prices within 1e-6, a rerun bit for bit
-  model_cpu both reduced float32 configs served on the CPU (plain
-            versions) and on the card (kernels): tokens equal, logits
-            close; flash decode on decode_split, f32 prefill on simt
+  model_cpu the reduced float32 stablelm-1.6b, rwkv6-3b,
+            granite-moe-1b-a400m, deepseek-v2-lite-16b and minicpm3-4b
+            (the MLA two at minicpm3's head dims, MLA_CARD_DIMS) served on
+            the CPU (plain versions) and on the card (kernels): tokens
+            equal, logits close; flash decode on decode_split, f32 prefill
+            on simt (MLA's at (96, 64)), no flash launch in MLA's decode;
+            the MoE layer alone at capacity factor 1.0 over 512 tokens,
+            dropped counts equal, outputs within 1e-5 of the largest
   serve_dense  the full published stablelm-1.6b in bf16, random weights
             from a seeded generator on the card: an engine of 8 slots and
             cache 4096 serves 16 requests (prompts of 128-2048 tokens, 32
@@ -176,6 +186,16 @@ JSON line and raising on failure:
             launches by kernel (exactly 24 x 16 prefill_tc, 24 x ticks
             decode_split, no simt), peak memory (a main path)
   serve_rwkv   the same for the full rwkv6-3b; RWKV6 launches (a main path)
+  serve_moe    the same for the full granite-moe-1b-a400m (GQA, MoE in
+            every layer): 24 x 16 prefill_tc, 24 x ticks decode_split, the
+            decode tick's expert products against the bytes of every
+            expert's weights (a main path)
+  serve_mla    the same for the full deepseek-v2-lite-16b (MLA, a dense
+            first layer, MoE with shared experts): 27 x 16 prefill_tc at
+            (192, 128), no decode_split (the absorbed decode), the tick's
+            expert products and absorbed decode by profiler range (a
+            main path); every serve phase's flash launches by kernel are
+            expected_flash_mix's, exactly
   train     training (a main path): flash_attention_trainable's output and
             dq, dk, dv against autograd through the plain version on the
             card (S 65 and 200, GQA groups 1 and 4, head dims 32-128, f32
@@ -204,9 +224,10 @@ JSON line and raising on failure:
             steps, 2 RWKV6 launches per layer and step
   timing    each kernel's and its plain version's times at its main-path
             shape (the sweep also at the scenario plan's 262,144 x 128 x
-            1,344; flash: prefill_tc at the bf16 prefill, decode_split at
-            the bf16 decode, simt at the f32 prefill, and at head dim 128
-            beside the library; RWKV6 also at a short prompt's T = 128;
+            1,344; flash: prefill_tc at the bf16 prefill and MLA's two
+            prefill shapes (with the backend SDPA took there),
+            decode_split at the bf16 decode, simt at the f32 prefill, and
+            at head dim 128 beside the library; RWKV6 also at a short prompt's T = 128;
             the revocation walk at its main shape; the turnover kernel's
             from phase turnover),
             library times,
@@ -410,19 +431,42 @@ FLASH_F32 = dict(atol=2e-5, rtol=1e-4)
 # not of |out|), and each query row's error norm at most `row` times the
 # row's reference norm, which holds a whole row to ~1/50 of its size
 FLASH_BF16 = dict(atol=1e-2, rtol=1e-2, row=2e-2)
-# the flash kernels' names as the profiler shows them (all hold "flash_")
-FLASH_PROFILE_NAMES = ("flash_prefill_tc_kernel", "flash_decode_split_kernel",
-                       "flash_decode_combine_kernel", "flash_simt_kernel")
+# MLA's prefill shapes (B, H, S, Dqk, Dv): deepseek-v2-lite's and
+# minicpm3's head dims at a 2048-token prompt
+FLASH_MLA = {"mla_192_128": (1, 16, 2048, 192, 128),
+             "mla_96_64": (1, 40, 2048, 96, 64)}
+# the flash kernels' names as the profiler shows them (all hold "flash_"),
+# by route
+FLASH_PROFILE_NAMES = {
+    "prefill_tc": ("flash_prefill_tc_kernel",),
+    "decode_split": ("flash_decode_split_kernel",
+                     "flash_decode_combine_kernel"),
+    "simt": ("flash_simt_kernel",)}
 # the port's torch.profiler.record_function ranges (the trainable flash
-# op's backward, the embedding's backward)
-ANNOTATIONS = ("flash_attention_backward", "embed_backward")
+# op's backward, the embedding's backward, the MoE's expert products, MLA's
+# absorbed decode)
+ANNOTATIONS = ("flash_attention_backward", "embed_backward", "moe_experts",
+               "mla_absorbed_decode")
+SERVE_RANGES = ("moe_experts", "mla_absorbed_decode")
 # the three kernels of one RWKV6 call (all hold "rwkv6_")
 RWKV6_PROFILE_NAMES = ("rwkv6_chunk_kernel", "rwkv6_state_scan_kernel",
                        "rwkv6_inter_kernel")
 LINREC_TOL = dict(atol=2e-3, rtol=2e-3)
 # card vs CPU logits of the reduced float32 models (the tolerances of the
 # CPU parity tests against the JAX package)
-MODEL_TOL = {"stablelm-1.6b": 1e-4, "rwkv6-3b": 2e-3}
+MODEL_TOL = {"stablelm-1.6b": 1e-4, "rwkv6-3b": 2e-3,
+             "granite-moe-1b-a400m": 1e-4, "deepseek-v2-lite-16b": 1e-4,
+             "minicpm3-4b": 1e-4}
+# phase model_cpu gives the reduced MLA configs minicpm3's published head
+# dims (qk_nope 64, qk_rope 32, v 64: Dqk, Dv = 96, 64), so that their
+# float32 prefill runs simt at a pair the kernels are built for; the CPU
+# tests keep configs.reduced's (16, 8, 16), which no kernel takes
+MLA_CARD_DIMS = dict(qk_nope_dim=64, qk_rope_dim=32, v_head_dim=64,
+                     head_dim=96)
+# the MoE layer alone, card vs CPU: the reduced deepseek-v2-lite at
+# capacity factor 1.0 over this many tokens, so that assignments drop;
+# outputs within MOE_TOL of the largest
+MOE_DROP_TOKENS, MOE_TOL = 512, 1e-5
 FLOPS_PER_TRIPLE = 6        # sub, 2 max, 2 fma (2 flops each) per hour
 OPS_PER_HOUR = 6            # bucketed sweep: 2 subs, 4 muls of the terms
 OPS_PER_OUTPUT = 4          # its scan: sub, 2 muls, add per candidate
@@ -2127,12 +2171,16 @@ def median_ms(fn, reps, cover=True):
     return statistics.median(times)
 
 
-def flash_inputs(dev, dtype, b, hq, hkv, sq, skv, d, seed, layout="bhsd"):
+def flash_inputs(dev, dtype, b, hq, hkv, sq, skv, d, seed, layout="bhsd",
+                 dv=None):
+    """q, k of head dim d and v of head dim dv (default d), normal."""
     gen = torch.Generator().manual_seed(seed)
+    dv = d if dv is None else dv
     shape_q = (b, hq, sq, d) if layout == "bhsd" else (b, sq, hq, d)
     shape_kv = (b, hkv, skv, d) if layout == "bhsd" else (b, skv, hkv, d)
+    shape_v = shape_kv[:3] + (dv,)
     return [torch.randn(s_, generator=gen).to(dev, dtype)
-            for s_ in (shape_q, shape_kv, shape_kv)]
+            for s_ in (shape_q, shape_kv, shape_v)]
 
 
 def decode_inputs(dev, dtype=torch.bfloat16):
@@ -2177,9 +2225,12 @@ def phase_flash(dev):
     """Every flash kernel against the plain version: the ragged cases in
     f32 and bf16 and both layouts, each checked to have launched the
     kernel its route names (f32 prefill and bf16 D = 32 on simt, bf16
-    D = 64/128 prefill on prefill_tc, one query on decode_split), then the
-    prefill and decode main shapes, the decode also against the split-KV
-    algebra's plain version.  Returns the largest error over all cases."""
+    D = 64/128 prefill on prefill_tc, one query on decode_split; MLA's
+    (Dqk, Dv) = (192, 128) and (96, 64) on prefill_tc in bf16, one query
+    too, and on simt in f32), then the prefill and decode main shapes and
+    MLA's two prefill shapes (FLASH_MLA, bf16), the decode also against
+    the split-KV algebra's plain version.  Returns the largest error over
+    all cases."""
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (
@@ -2214,20 +2265,33 @@ def phase_flash(dev):
         "seam_kv_len_d32": (2, 4, 1, 200, 256, 32, True,
                             torch.tensor([230, 256], dtype=torch.int32)),
         "seam_noncausal": (1, 4, 1, 65, 200, 64, False, 127),
+        # MLA's head dims (Dqk, Dv): ragged, tile seams, GQA, kv_len,
+        # one query (no split decode at Dqk != Dv), prefill_tc's ring
+        "mla192_ragged": (2, 4, 2, 300, 520, 192, True,
+                          torch.tensor([400, 520], dtype=torch.int32), 128),
+        "mla192_seam_65": (1, 4, 4, 65, 65, 192, True, None, 128),
+        "mla192_one_query": (2, 4, 4, 1, 77, 192, True, None, 128),
+        "mla96_ragged": (2, 4, 4, 77, 77, 96, True, None, 64),
+        "mla96_kv_len": (2, 4, 2, 130, 300, 96, True,
+                         torch.tensor([300, 250], dtype=torch.int32), 64),
+        "mla96_one_query": (1, 4, 4, 1, 70, 96, True, None, 64),
+        "mla96_ring_wrap": (1, 4, 4, 520, 700, 96, True, None, 64),
     }
-    for i, (name, (b, hq, hkv, sq, skv, d, causal, kvl)) in enumerate(
+    for i, (name, (b, hq, hkv, sq, skv, d, causal, kvl, *dv)) in enumerate(
             cases.items()):
+        dv = dv[0] if dv else d
         kvl = kvl.to(dev) if isinstance(kvl, torch.Tensor) else kvl
         for dtype, tol in ((torch.float32, FLASH_F32),
                            (torch.bfloat16, FLASH_BF16)):
             for layout in ("bhsd", "bshd"):
                 q, k, v = flash_inputs(dev, dtype, b, hq, hkv, sq, skv, d, i,
-                                       layout)
+                                       layout, dv)
                 got, used = flash_routed(fk, lambda: ops.flash_attention(
                     q, k, v, causal=causal, kv_len=kvl, layout=layout))
-                if used != fk.route(dtype, d, sq):
+                want_route = fk.route(dtype, d, sq, dv=dv)
+                if used != want_route:
                     raise AssertionError(f"flash {name}: launched {used}, "
-                                         f"route {fk.route(dtype, d, sq)}")
+                                         f"route {want_route}")
                 if layout == "bshd":
                     q, k, v, got = (x.transpose(1, 2) for x in (q, k, v, got))
                 want = attention_ref(q, k, v, causal=causal, kv_len=kvl)
@@ -2247,6 +2311,19 @@ def phase_flash(dev):
         errs[key], rows[key] = flash_compare(
             "prefill", got.transpose(1, 2), want, tol)
         routes[key] = used
+    for key, (b, h, s, d, dv) in FLASH_MLA.items():
+        q, k, v = flash_inputs(dev, torch.bfloat16, b, h, h, s, s, d, 21,
+                               layout="bshd", dv=dv)
+        got, used = flash_routed(fk, lambda: ops.flash_attention(
+            q, k, v, causal=True, layout="bshd"))
+        if used != fk.route(torch.bfloat16, d, s, dv=dv):
+            raise AssertionError(f"flash {key}: launched {used}")
+        want = attention_ref(
+            *(x.transpose(1, 2) for x in (q, k, v)), causal=True)
+        errs[key], rows[key] = flash_compare(
+            key, got.transpose(1, 2), want, FLASH_BF16)
+        routes[key] = used
+        del q, k, v, got, want
     for dtype, tol in ((torch.bfloat16, FLASH_BF16), (torch.float32,
                                                        FLASH_F32)):
         q, k, v, kv_len = decode_inputs(dev, dtype)
@@ -2267,6 +2344,7 @@ def phase_flash(dev):
     emit("flash", max_abs_err=errs, row_err_over_norm=rows, routes=routes,
          tol_f32=FLASH_F32,
          tol_bf16=FLASH_BF16, prefill_shape=list(FLASH_PREFILL),
+         mla_shapes={k: list(v) for k, v in FLASH_MLA.items()},
          decode=dict(slots=FLASH_DECODE[0], heads=FLASH_DECODE[1],
                      head_dim=FLASH_DECODE[2], cache=SERVE_CACHE,
                      kv_len=decode_inputs(dev)[3].tolist()))
@@ -2584,9 +2662,39 @@ def serve(engine, requests):
                 ttft=ttft, prefill_one=prefill_one)
 
 
+def expected_flash_mix(cfg, ticks):
+    """A serve run's flash launches by kernel, from the config: every
+    prompt (more than one token) prefills each layer once on the kernel
+    the route names for the layer's head dims; a GQA model decodes each
+    layer once a tick, on the route of one query; an MLA model decodes in
+    the absorbed form, with no flash launch."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    dtype = getattr(torch, cfg.dtype)
+    mix = dict.fromkeys(fk.SOURCES, 0)
+    per_prompt = cfg.num_layers * SERVE_REQUESTS
+    if cfg.attention == "mla":
+        dqk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        mix[fk.route(dtype, dqk, PROMPT_MIN, dv=cfg.v_head_dim)] += per_prompt
+    else:
+        mix[fk.route(dtype, cfg.head_dim, PROMPT_MIN)] += per_prompt
+        mix[fk.route(dtype, cfg.head_dim, 1)] += cfg.num_layers * ticks
+    return mix
+
+
+def moe_tick_bytes(cfg):
+    """Bytes of expert weights one decode tick's MoE layers read: at the
+    tick's capacity (8 slots: the floor of 8 rows an expert) every
+    expert's buffer holds rows, so the batched products read all E
+    experts' w_gate, w_up and w_down in every MoE layer."""
+    moe_layers = cfg.num_layers - cfg.first_dense_layers
+    elem = getattr(torch, cfg.dtype).itemsize
+    return moe_layers * 3 * cfg.num_experts * cfg.d_model * cfg.moe_d_ff * elem
+
+
 def phase_serve(name, arch, dev, counted):
     """The full published ``arch`` served by the engine: the main path of
-    the kernel named ``counted``."""
+    the kernel named ``counted``; the flash launches by kernel are
+    ``expected_flash_mix``'s, exactly."""
     from repro_torch import configs
     from repro_torch.models.model import build
     from repro_torch.serve.engine import Request, ServeEngine
@@ -2619,20 +2727,19 @@ def phase_serve(name, arch, dev, counted):
     if launches[counted] == 0:
         raise AssertionError(f"{name}: no {counted} launch on its main path")
     ticks = stats["ticks"]
+    mix = None
     if counted == "flash_attention":
-        want = cfg.num_layers * (SERVE_REQUESTS + ticks)
+        mix = expected_flash_mix(cfg, ticks)
+        want = sum(mix.values())
     else:  # prefill only: a one-token decode step needs no kernel
         want = cfg.num_layers * SERVE_REQUESTS
     if launches[counted] != want:
         raise AssertionError(
             f"{name}: {launches[counted]} {counted} launches, expected {want}")
-    if counted == "flash_attention":  # every prompt is > 1 token, bf16, D 64
-        mix = dict(prefill_tc=cfg.num_layers * SERVE_REQUESTS,
-                   decode_split=cfg.num_layers * ticks, simt=0)
-        if launches["flash_by_kernel"] != mix:
-            raise AssertionError(f"{name}: flash launches by kernel "
-                                 f"{launches['flash_by_kernel']}, expected "
-                                 f"{mix}")
+    if mix is not None and launches["flash_by_kernel"] != mix:
+        raise AssertionError(f"{name}: flash launches by kernel "
+                             f"{launches['flash_by_kernel']}, expected "
+                             f"{mix}")
     # The engine against a direct prefill of the first request in a fresh
     # one-slot cache: finite logits and the engine's first token.
     cache = model.init_cache(1, SERVE_CACHE)
@@ -2643,7 +2750,10 @@ def phase_serve(name, arch, dev, counted):
     if int(logits[0, -1].argmax()) != reqs[0].generated[0]:
         raise AssertionError(f"{name}: engine's first token != direct "
                              "prefill's")
-    prof = profile_serving(name, engine, reqs, stats, counted)
+    names = (RWKV6_PROFILE_NAMES if mix is None else tuple(
+        n for kern, count in mix.items() if count
+        for n in FLASH_PROFILE_NAMES[kern]))
+    prof = profile_serving(name, engine, reqs, stats, counted, names)
     ttft = sorted(stats["ttft"].values())
     out = dict(
         arch=arch, params=model.num_params(), dtype=cfg.dtype,
@@ -2658,20 +2768,37 @@ def phase_serve(name, arch, dev, counted):
         decode_tokens=stats["decode_tokens"],
         decode_tokens_per_s=stats["decode_tokens"] / stats["decode_s"],
         ttft_p50_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
-        ttft_first_s=ttft[0], launches=launches,
+        ttft_first_s=ttft[0], launches=launches, expected_flash_mix=mix,
         max_memory_allocated=peak, profile=prof)
+    if cfg.num_experts:
+        # the decode tick's expert products against the bytes they must
+        # read: every expert's weights (moe_tick_bytes)
+        peak_rates = PEAKS["pcie" if "PCIe" in torch.cuda.get_device_name(0)
+                           else "sxm"]
+        nbytes = moe_tick_bytes(cfg)
+        bound_s = nbytes / peak_rates["bytes"]
+        experts_s = prof["decode_tick"]["ranges_device_s"]["moe_experts"]
+        out["moe_decode_tick"] = dict(
+            expert_bytes=nbytes, bytes_bound_s=bound_s,
+            experts_device_s=experts_s,
+            bound_share=bound_s / experts_s if experts_s else None,
+            experts_share_of_tick=experts_s
+            / prof["decode_tick"]["unprofiled_s"])
     emit(name, **out)
     del engine, model, cache
     torch.cuda.empty_cache()
     return launches[counted], out
 
 
-def profile_serving(name, engine, reqs, stats, counted):
+def profile_serving(name, engine, reqs, stats, counted, names):
     """Where serving time goes, under torch.profiler on the drained engine:
     the longest request's prefill again, then PROFILE_TICKS ticks with
     every slot busy.  Device busy time is set against the same work's
     unprofiled host-clock time from the timed run (the profiler slows the
     host), so ``device_busy_share`` is the device's share of real time.
+    ``names`` are the path's kernels, each given its device time per step;
+    the port's ranges (SERVE_RANGES: the MoE's expert products, MLA's
+    absorbed decode) their device time per step and share of real time.
     Full tables in build/chip_smoke/profile_<name>.txt."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2705,13 +2832,20 @@ def profile_serving(name, engine, reqs, stats, counted):
         n = 1 if label == "prefill_longest" else PROFILE_TICKS
         by_name = {  # device seconds per step of each of the port's kernels
             part: sum(k[0] for k in kernels if part in k[2]) / 1e6 / n
-            for part in (FLASH_PROFILE_NAMES if counted == "flash_attention"
-                         else RWKV6_PROFILE_NAMES)}
+            for part in names}
+        ranges = {  # device seconds per step of the kernels in each range
+            label: sum(ev.device_time_total for ev in prof.events()
+                       if ev.name == label
+                       and str(ev.device_type).endswith("CPU")) / 1e6 / n
+            for label in SERVE_RANGES}
         out[label] = dict(
             unprofiled_s=real_s / n, device_busy_s=busy / n,
             device_busy_share=busy / real_s, kernel_device_s=own / n,
             kernel_device_s_by_name=by_name,
             kernel_share_of_busy=own / busy if busy else None,
+            ranges_device_s=ranges,
+            ranges_share_of_real={k: v * n / real_s
+                                  for k, v in ranges.items()},
             device_events=launches / n,
             prompt_tokens=len(longest.prompt) if n == 1 else None,
             top=[[round(us / 1e3 / n, 4), c // n, key[:60]]
@@ -2726,18 +2860,63 @@ def profile_serving(name, engine, reqs, stats, counted):
     return out
 
 
-def phase_model_cpu(dev):
-    """Both reduced float32 configs, one set of weights, served on the CPU
-    (plain versions) and on the card (kernels)."""
+def moe_drops_card_vs_cpu(dev):
+    """The MoE layer alone, card against CPU in float32: the reduced
+    deepseek-v2-lite at capacity factor 1.0 over MOE_DROP_TOKENS tokens,
+    so that assignments drop.  The dropped counts must be equal (and not
+    0), the outputs within MOE_TOL of the largest."""
     import dataclasses
 
     from repro_torch import configs
+    from repro_torch.models.ffn import MoE
+    from repro_torch.models.params import init_module
+    cfg = dataclasses.replace(configs.reduced("deepseek-v2-lite-16b"),
+                              dtype="float32", moe_capacity_factor=1.0)
+    cpu = MoE(cfg, dtype=torch.float32, device="cpu")
+    init_module(cpu, torch.Generator().manual_seed(3))
+    card = MoE(cfg, dtype=torch.float32, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(1, MOE_DROP_TOKENS, cfg.d_model,
+                    generator=torch.Generator().manual_seed(4))
+    outs, dropped = [], []
+    with torch.no_grad():
+        for layer, xx in ((cpu, x), (card, x.to(dev))):
+            outs.append(layer(xx).cpu())
+            valid = layer.dispatch(xx.view(-1, cfg.d_model))[3]
+            dropped.append(int((~valid).sum()))
+    if dropped[0] != dropped[1] or dropped[0] == 0:
+        raise AssertionError(f"model_cpu moe: dropped {dropped} (CPU, card)")
+    err = float((outs[0] - outs[1]).abs().max())
+    largest = float(outs[0].abs().max())
+    if err > MOE_TOL * largest:
+        raise AssertionError(f"model_cpu moe: card vs CPU {err} > "
+                             f"{MOE_TOL} x {largest}")
+    return dict(tokens=MOE_DROP_TOKENS, assignments=MOE_DROP_TOKENS
+                * cfg.top_k, dropped=dropped[0], max_abs_err=err,
+                largest=largest, tol_of_largest=MOE_TOL)
+
+
+def phase_model_cpu(dev):
+    """The reduced float32 configs of every served family (dense GQA,
+    RWKV, MoE GQA, MoE MLA, dense MLA), one set of weights each, served on
+    the CPU (plain versions) and on the card (kernels); the MLA configs at
+    minicpm3's head dims (MLA_CARD_DIMS), so that their prefill runs simt
+    at (Dqk, Dv) = (96, 64) and their decode no flash kernel.  Then the
+    MoE layer alone, with drops (moe_drops_card_vs_cpu)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.models.model import build
     from repro_torch.serve.engine import Request, ServeEngine
     out = {}
     reset_launches()
-    for arch in ("stablelm-1.6b", "rwkv6-3b"):
+    for arch in ("stablelm-1.6b", "rwkv6-3b", "granite-moe-1b-a400m",
+                 "deepseek-v2-lite-16b", "minicpm3-4b"):
         cfg = dataclasses.replace(configs.reduced(arch), dtype="float32")
+        if cfg.attention == "mla":
+            cfg = dataclasses.replace(cfg, **MLA_CARD_DIMS)
+        before = dict(fk.LAUNCHES_BY_KERNEL)
         cpu = build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
         card = build(cfg, device=dev)
         card.load_state_dict(cpu.state_dict())
@@ -2768,13 +2947,23 @@ def phase_model_cpu(dev):
                 b, a, atol=tol, rtol=tol,
                 msg=lambda m: f"model_cpu {arch} {label}: {m}")
             errs[label] = float((a - b).abs().max())
+        used = {k: n - before[k] for k, n in fk.LAUNCHES_BY_KERNEL.items()}
+        if cfg.attention == "mla" and (used["decode_split"] or not used[
+                "simt"]):  # the absorbed decode launches no flash kernel
+            raise AssertionError(f"model_cpu {arch}: flash launches {used}")
         out[arch] = dict(tokens_equal=True, max_abs_err=errs, tol=tol,
-                         requests=len(specs))
+                         requests=len(specs), flash_launches_by_kernel=used,
+                         head_dims_qk_v=(
+                             [cfg.qk_nope_dim + cfg.qk_rope_dim,
+                              cfg.v_head_dim] if cfg.attention == "mla"
+                             else [cfg.head_dim] * 2 if cfg.family != "ssm"
+                             else None))
     # float32: the decode on decode_split, the prefill (and train) on simt
     flash = read_launches()["flash_by_kernel"]
     if not (flash["decode_split"] > 0 and flash["simt"] > 0
             and flash["prefill_tc"] == 0):
         raise AssertionError(f"model_cpu: flash launches by kernel {flash}")
+    out["moe_drops"] = moe_drops_card_vs_cpu(dev)
     emit("model_cpu", flash_launches_by_kernel=flash, **out)
 
 
@@ -3319,19 +3508,20 @@ def phase_train(dev):
                 rwkv6_run=rwkv["launches"])
 
 
-def flash_flops_bytes(b, h, sq, kv_lens, d, elem_bytes, causal):
-    """Products (QK^T and PV, 2 flops per multiply-add) over the keys each
-    query row attends to, and each input read and output written once
-    (K/V only up to each row's kv_len)."""
+def flash_flops_bytes(b, h, sq, kv_lens, d, elem_bytes, causal, dv=None):
+    """Products (QK^T over head dim d, PV over dv, default d; 2 flops per
+    multiply-add) over the keys each query row attends to, and each input
+    read and output written once (K/V only up to each row's kv_len)."""
+    dv = d if dv is None else dv
     keys = 0
     for n in kv_lens:
         if causal:  # query i sees n - sq + i + 1 keys
             keys += sum(n - sq + i + 1 for i in range(sq))
         else:
             keys += sq * n
-    flops = 4 * h * d * keys
-    kv_read = 2 * h * d * sum(kv_lens) * elem_bytes
-    nbytes = kv_read + 2 * b * h * sq * d * elem_bytes
+    flops = 2 * h * (d + dv) * keys
+    kv_read = h * (d + dv) * sum(kv_lens) * elem_bytes
+    nbytes = kv_read + b * h * sq * (d + dv) * elem_bytes
     return flops, nbytes
 
 
@@ -3404,13 +3594,23 @@ def flash_timed(kernel, plain, library, flops, nbytes, flops_peak, peak):
                 library_idle_call_ms=median_ms(library, 25, cover=False))
 
 
+def sdpa_backend(q, k, v, **kw):
+    """The backend scaled_dot_product_attention takes for these inputs
+    (flash, memory-efficient, cuDNN or the math path): the dispatcher's
+    own choice, ``torch._fused_sdp_choice``, by its SDPBackend name."""
+    from torch.nn.attention import SDPBackend
+    names = {int(b): name for name, b in SDPBackend.__members__.items()}
+    return names[torch._fused_sdp_choice(q, k, v, **kw)]
+
+
 def timing_flash(dev, peak):
     """Each flash kernel at the main shape its route serves, with its
     plain version and scaled_dot_product_attention in the same call:
-    prefill_tc at the bf16 prefill, decode_split at the bf16 decode, simt
-    at the same prefill in float32 (the reduced models' dtype) and at head
-    dim 128 (a shape no main path gives it, timed for ranking); the bounds
-    from this run's inputs."""
+    prefill_tc at the bf16 prefill and at MLA's two prefill shapes
+    (FLASH_MLA, with the backend SDPA took there), decode_split at the bf16
+    decode, simt at the same prefill in float32 (the reduced models'
+    dtype) and at head dim 128 (a shape no main path gives it, timed for
+    ranking); the bounds from this run's inputs."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention as fk
@@ -3450,6 +3650,24 @@ def timing_flash(dev, peak):
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
         flops, nbytes, peak["bf16_flops"], peak)
     del q, k, v, qt, kt, vt
+
+    for name, (b, h, s, d, dv) in FLASH_MLA.items():
+        q, k, v = flash_inputs(dev, torch.bfloat16, b, h, h, s, s, d, 22,
+                               layout="bshd", dv=dv)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        assert fk.route(torch.bfloat16, d, s, dv=dv) == "prefill_tc"
+        lens_m = torch.full((b,), s, dtype=torch.int32, device=dev)
+        flops, nbytes = flash_flops_bytes(b, h, s, [s] * b, d, 2, True, dv)
+        out[name] = flash_timed(
+            lambda: fk.flash_attention_cuda(
+                q, k, v, lens_m, causal=True, scale=d ** -0.5, seq_dim=1),
+            lambda: attention_ref(qt, kt, vt, causal=True),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True),
+            flops, nbytes, peak["bf16_flops"], peak)
+        out[name]["library_backend"] = sdpa_backend(qt, kt, vt,
+                                                    is_causal=True)
+        del q, k, v, qt, kt, vt
 
     dq, dk, dv, kv_len = decode_inputs(dev)
     dqt, dkt, dvt = (x.transpose(1, 2) for x in (dq, dk, dv))
@@ -3626,6 +3844,8 @@ def phase_timing(dev, launches, errs, turnover):
              simt_d128=f"{FLASH_PREFILL[:3] + (128,)} causal float32",
              prefill_tc_train=f"{(TRAIN_BATCH,) + FLASH_PREFILL[1:]} "
                               "causal bfloat16",
+             **{name: f"(B, H, S, Dqk, Dv) = {shape} causal bfloat16"
+                for name, shape in FLASH_MLA.items()},
              decode_split=f"{FLASH_DECODE} cache {SERVE_CACHE} bfloat16"),
              **fl),
          rwkv6=lin, revocation_walk=walk, generation_turnover=turnover)
@@ -3684,6 +3904,10 @@ def phase_timing(dev, launches, errs, turnover):
                 "src/repro/kernels/flash_attention/flash_attention.py:99",
             "launches": launches["flash_attention"],
             "launches_per_serve": launches["flash_attention"],
+            # the MoE family's serve runs: granite-moe-1b-a400m (GQA, as
+            # serve_dense) and deepseek-v2-lite-16b (MLA: prefill only)
+            "launches_per_serve_moe": launches["serve_moe"],
+            "launches_per_serve_mla": launches["serve_mla"],
             # the full stablelm-1.6b's train step: each layer's forward
             # and its remat recompute (phase train)
             "launches_per_train_step": launches["train"]["flash_per_step"],
@@ -3710,6 +3934,18 @@ def phase_timing(dev, launches, errs, turnover):
                     ("decode_split",
                      f"decode {FLASH_DECODE} cache {SERVE_CACHE} bf16"),
                     ("simt", f"prefill {FLASH_PREFILL} causal f32"))},
+            # MLA's prefill: (192, 128) on serve_mla's main path (27 x 16
+            # launches), (96, 64) minicpm3's (no full-size main path here;
+            # model_cpu runs it on simt in float32)
+            "mla_shapes": {
+                name: dict(
+                    shape=f"prefill (B, H, S, Dqk, Dv) = {shape} causal bf16",
+                    launches=(launches["serve_mla"]["prefill_tc"]
+                              if name == "mla_192_128" else 0),
+                    **{key: fl[name][key] for key in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "library_backend")})
+                for name, shape in FLASH_MLA.items()},
             # simt at head dim 128, which no main path gives it: a shape
             # timed for ranking, beside the library call
             "simt_d128": dict(
@@ -3833,6 +4069,10 @@ def main() -> int:
     launches["flash_by_kernel"] = dense["launches"]["flash_by_kernel"]
     launches["rwkv6"], _ = phase_serve(
         "serve_rwkv", "rwkv6-3b", dev, "rwkv6")
+    for name, arch in (("serve_moe", "granite-moe-1b-a400m"),
+                       ("serve_mla", "deepseek-v2-lite-16b")):
+        launches[name] = phase_serve(name, arch, dev, "flash_attention")[1][
+            "launches"]["flash_by_kernel"]
     launches["train"] = phase_train(dev)
     phase_timing(dev, launches, errs, turnover)
     print(smi(), flush=True)

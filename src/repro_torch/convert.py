@@ -113,21 +113,34 @@ def model_params_from_reference(cfg, tree) -> dict[str, torch.Tensor]:
     """The port model's ``state_dict`` holding the JAX model's parameters.
 
     ``tree`` is the reference's parameter pytree (nested dicts and lists of
-    arrays, any array type numpy can read); the leaves of its stacked
-    ``layers`` subtree carry a leading layer axis, which is split into
-    ``layers.<i>.<name>`` entries.  bfloat16 leaves pass through float32,
-    which holds them exactly; ``load_state_dict`` casts each tensor to its
-    parameter's dtype.  A gradient tree of the JAX model has the
-    parameters' layout and carries across the same way."""
-    out = dict(_flatten({k: v for k, v in tree.items() if k != "layers"}))
+    arrays, any array type numpy can read).  The port keeps every layer in
+    one list: the reference's ``first_dense_layers`` unstacked ``prefix``
+    layers become ``layers.<i>.<name>``, and the leaves of its stacked
+    ``layers`` subtree, which carry a leading layer axis, are split into
+    ``layers.<first_dense_layers + j>.<name>`` entries.  bfloat16 leaves
+    pass through float32, which holds them exactly; ``load_state_dict``
+    casts each tensor to its parameter's dtype.  A gradient tree of the
+    JAX model has the parameters' layout and carries across the same
+    way."""
+    first = cfg.first_dense_layers
+    prefix = tree.get("prefix", [])
+    if len(prefix) != first:
+        raise ValueError(f"the tree has {len(prefix)} prefix layers, the "
+                         f"config {first}")
+    out = dict(_flatten({k: v for k, v in tree.items()
+                         if k not in ("layers", "prefix")}))
+    for i, layer in enumerate(prefix):
+        for name, leaf in _flatten(layer):
+            out[f"layers.{i}.{name}"] = leaf
+    stacked_layers = cfg.num_layers - first
     for name, stacked in _flatten(tree["layers"]):
         arr = np.asarray(stacked)
-        if arr.shape[0] != cfg.num_layers:
+        if arr.shape[0] != stacked_layers:
             raise ValueError(
                 f"layers.{name} stacks {arr.shape[0]} layers, the config "
-                f"has {cfg.num_layers}")
-        for i in range(cfg.num_layers):
-            out[f"layers.{i}.{name}"] = arr[i]
+                f"has {stacked_layers} after {first} prefix layers")
+        for j in range(stacked_layers):
+            out[f"layers.{first + j}.{name}"] = arr[j]
     return {k: _tensor(v) for k, v in out.items()}
 
 

@@ -4,6 +4,9 @@
 //   o[b, h, i, :] = softmax_j(scale * q[b, h, i, :] . k[b, h / group, j, :]
 //                             masked) @ v[b, h / group, :, :]
 //
+// q and k have head dim DQK, v and o head dim DV: (32, 32), (64, 64),
+// (128, 128), and MLA's prefill pairs (192, 128) and (96, 64).
+//
 // masked: column j is dropped when j >= kv_len[b], and, when causal, when
 // j > kv_len[b] - Sq + i (the queries are the last Sq positions of a
 // context of kv_len[b] tokens).  kv_len is a (B,) int32 device array.
@@ -18,9 +21,9 @@
 // Routing: this kernel serves what the two Hopper kernels beside it do not
 // take: float32 prefill (the reduced float32 models, whose atol 2e-5 /
 // rtol 1e-4 tolerance neither bf16 nor TF32 tensor cores meet) and bf16
-// with head dim 32.  bf16 prefill at head dim 64/128 goes to
-// flash_prefill_tc.cu and every one-query decode to flash_decode_split.cu
-// (flash_attention.py::route).
+// with head dim 32.  bf16 prefill at the other pairs goes to
+// flash_prefill_tc.cu and every one-query decode with DQK = DV to
+// flash_decode_split.cu (flash_attention.py::route).
 //
 // Bound: a float32 prefill call of (1, 32, 2048, 64) causal is 17.2 GFLOP
 // of products against 67 MB of q, k, v and o, so operations bound it: 0.26
@@ -37,11 +40,13 @@
 // Design: a register-tiled SGEMM inside the online softmax.  One block of
 // 128 threads per (64 query rows, q head, batch row); K/V tiles of 64 keys.
 // The scaled query tile stays in shared memory; K and V tiles go through a
-// 2-stage cp.async ring, so the next tile loads while this one computes.
+// 2-stage cp.async ring, so the next tile loads while this one computes
+// (at DQK = 192 two stages do not fit in 227 KB: one stage, loaded after
+// each tile is done).
 // Thread (row group g = tid / 8, column group c = tid % 8) holds a 4 x 8
 // score micro-tile (rows 4g .. 4g + 3, keys c + 8n) and a 4 x D/8 output
-// micro-tile (dims 4c + 32m .. + 3) in registers.  S = Q K^T reads Q and K
-// as float4 along the head dim: 12 loads per 128 FMAs.  A row's max and sum
+// micro-tile (dims 4c + 32m .. + 3 of DV) in registers.  S = Q K^T reads
+// Q and K as float4 along the head dim: 12 loads per 128 FMAs.  A row's max and sum
 // are shuffles among the 8 threads of its row group.  P goes through shared
 // memory once per tile, transposed, so O += P V reads 4 rows of P and 4
 // dims of V per float4: (1 + D/32) loads per 4 x D/8 FMAs, 3 per 32 at
@@ -69,7 +74,7 @@ namespace {
 
 constexpr int kRows = 64;      // query rows per block
 constexpr int kKeys = 64;      // keys per K/V tile
-constexpr int kStages = 2;
+constexpr int kSmemMax = 232448;  // a block's shared memory on sm_90
 constexpr int kThreads = 128;  // 16 row groups (4 rows) x 8 column groups
 constexpr int kPStride = kRows + 4;  // P^T row, 16-byte pad
 constexpr int kMaxDevices = 64;
@@ -82,16 +87,23 @@ struct Strides {
   long long b, h, s;
 };
 
-// Shared memory in floats: Q tile, K and V rings, P^T.
-template <int D>
+// Shared memory in floats: Q tile, K and V rings of kStages stages (2,
+// or 1 where 2 do not fit), P^T.
+template <int DQK, int DV>
 struct Smem {
-  static constexpr int kStride = D + 4;  // row of Q, K or V, 16-byte pad
-  static constexpr int kTile = kKeys * kStride;
+  static constexpr int kQKStride = DQK + 4;  // row of Q or K, 16-byte pad
+  static constexpr int kVStride = DV + 4;    // row of V
+  static constexpr int kQKTile = kKeys * kQKStride;
+  static constexpr int kVTile = kKeys * kVStride;
+  static constexpr int kFloats2 =
+      3 * kQKTile + 2 * kVTile + kKeys * kPStride;  // with 2 stages
+  static constexpr int kStages = kFloats2 * 4 <= kSmemMax ? 2 : 1;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTile;
-  static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kP = kV + kStages * kTile;
+  static constexpr int kK = kQ + kQKTile;
+  static constexpr int kV = kK + kStages * kQKTile;
+  static constexpr int kP = kV + kStages * kVTile;
   static constexpr int kBytes = (kP + kKeys * kPStride) * 4;
+  static_assert(kBytes <= kSmemMax, "one stage must fit");
 };
 
 // 16 bytes of T as floats.
@@ -151,8 +163,8 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // A tile of 64 rows x D from rows row0 .. of `base` (element stride
 // `stride`), rows at or past `valid` as zeros, times `mul`, stored as
-// float32 with plain loads.
-template <typename T, int D>
+// float32 rows of SD floats with plain loads.
+template <typename T, int D, int SD>
 __device__ __forceinline__ void load_tile(float* dst, const T* base,
                                           long long stride, int row0,
                                           int valid, float mul) {
@@ -169,7 +181,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* base,
     }
 #pragma unroll
     for (int e = 0; e < kVec; e += 4) {
-      store4(dst + row * Smem<D>::kStride + c + e, mul * f[e],
+      store4(dst + row * SD + c + e, mul * f[e],
              mul * f[e + 1], mul * f[e + 2], mul * f[e + 3]);
     }
   }
@@ -177,7 +189,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* base,
 
 // The same for a float32 K or V tile, through cp.async (zeros past
 // `valid`, reading nothing there).
-template <int D>
+template <int D, int SD>
 __device__ __forceinline__ void load_tile_async(float* dst, const float* base,
                                                 long long stride, int row0,
                                                 int valid) {
@@ -185,37 +197,39 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* base,
   for (int idx = threadIdx.x; idx < kKeys * kPerRow; idx += kThreads) {
     const int row = idx / kPerRow, c = (idx % kPerRow) * 4;
     const bool ok = row < valid;
-    cp_async16(dst + row * Smem<D>::kStride + c,
+    cp_async16(dst + row * SD + c,
                ok ? base + (row0 + row) * stride + c : base, ok);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __device__ __forceinline__ void load_kv(float* ks, float* vs, const T* kb,
                                         const T* vb, long long kstride,
                                         long long vstride, int c0,
                                         int valid) {
+  using L = Smem<DQK, DV>;
   if constexpr (std::is_same<T, float>::value) {
-    load_tile_async<D>(ks, kb, kstride, c0, valid);
-    load_tile_async<D>(vs, vb, vstride, c0, valid);
+    load_tile_async<DQK, L::kQKStride>(ks, kb, kstride, c0, valid);
+    load_tile_async<DV, L::kVStride>(vs, vb, vstride, c0, valid);
   } else {
-    load_tile<T, D>(ks, kb, kstride, c0, valid, 1.0f);
-    load_tile<T, D>(vs, vb, vstride, c0, valid, 1.0f);
+    load_tile<T, DQK, L::kQKStride>(ks, kb, kstride, c0, valid, 1.0f);
+    load_tile<T, DV, L::kVStride>(vs, vb, vstride, c0, valid, 1.0f);
   }
   cp_async_commit();  // an empty group for bf16
 }
 
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o,
                   const int* __restrict__ kv_len, int Hq, int Hkv, int Sq,
                   int Skv, Strides qs, Strides ks, Strides vs, Strides os,
                   float scale_log2, int causal) {
-  using L = Smem<D>;
-  constexpr int kDims = D / 8;   // output dims per thread
-  constexpr int kDV = D / 32;    // their float4 groups
+  using L = Smem<DQK, DV>;
+  constexpr int kStages = L::kStages;
+  constexpr int kDims = DV / 8;   // output dims per thread
+  constexpr int kDV = DV / 32;    // their float4 groups
   extern __shared__ __align__(16) float smem[];
   float* qsm = smem + L::kQ;
   float* psm = smem + L::kP;
@@ -243,10 +257,10 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const int n_tiles = kv_end > 0 ? (kv_end + kKeys - 1) / kKeys : 0;
 
-  load_tile<T, D>(qsm, qb, qs.s, q0, Sq - q0, scale_log2);
+  load_tile<T, DQK, L::kQKStride>(qsm, qb, qs.s, q0, Sq - q0, scale_log2);
   if (n_tiles > 0) {
-    load_kv<T, D>(smem + L::kK, smem + L::kV, kb, vb, ks.s, vs.s, 0,
-                  min(kKeys, kv_end));
+    load_kv<T, DQK, DV>(smem + L::kK, smem + L::kV, kb, vb, ks.s, vs.s, 0,
+                        min(kKeys, kv_end));
   }
 
   float m[4], l[4], acc[4][kDims];
@@ -261,20 +275,20 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it % kStages;
     const int c0 = it * kKeys;
-    if (it + 1 < n_tiles) {
+    if (kStages == 2 && it + 1 < n_tiles) {
       // The stage it overwrites was last read in tile it - 1, which every
       // thread has finished (the barrier at the end of the loop).
       const int c1 = c0 + kKeys;
-      load_kv<T, D>(smem + L::kK + (1 - st) * L::kTile,
-                    smem + L::kV + (1 - st) * L::kTile, kb, vb, ks.s, vs.s,
-                    c1, min(kKeys, kv_end - c1));
+      load_kv<T, DQK, DV>(smem + L::kK + (1 - st) * L::kQKTile,
+                          smem + L::kV + (1 - st) * L::kVTile, kb, vb, ks.s,
+                          vs.s, c1, min(kKeys, kv_end - c1));
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* ksm = smem + L::kK + st * L::kTile;
-    const float* vsm = smem + L::kV + st * L::kTile;
+    const float* ksm = smem + L::kK + st * L::kQKTile;
+    const float* vsm = smem + L::kV + st * L::kVTile;
 
     // S = Q K^T for rows 4g + rr and keys c + 8n.
     float s[4][8];
@@ -284,17 +298,17 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int n = 0; n < 8; ++n) s[rr][n] = 0.0f;
     }
 #pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DQK; d += 4) {
       float4 qv[4], kv[8];
 #pragma unroll
       for (int rr = 0; rr < 4; ++rr) {
         qv[rr] = *reinterpret_cast<const float4*>(
-            qsm + (4 * g + rr) * L::kStride + d);
+            qsm + (4 * g + rr) * L::kQKStride + d);
       }
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         kv[n] = *reinterpret_cast<const float4*>(
-            ksm + (c + 8 * n) * L::kStride + d);
+            ksm + (c + 8 * n) * L::kQKStride + d);
       }
 #pragma unroll
       for (int rr = 0; rr < 4; ++rr) {
@@ -376,7 +390,7 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int mm = 0; mm < kDV; ++mm) {
         const float4 vv = *reinterpret_cast<const float4*>(
-            vsm + j * L::kStride + 4 * c + 32 * mm);
+            vsm + j * L::kVStride + 4 * c + 32 * mm);
 #pragma unroll
         for (int rr = 0; rr < 4; ++rr) {
           acc[rr][4 * mm + 0] = fmaf(pr[rr], vv.x, acc[rr][4 * mm + 0]);
@@ -387,6 +401,11 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();  // this stage and P^T are read before they are reused
+    if (kStages == 1 && it + 1 < n_tiles) {
+      const int c1 = c0 + kKeys;
+      load_kv<T, DQK, DV>(smem + L::kK, smem + L::kV, kb, vb, ks.s, vs.s, c1,
+                          min(kKeys, kv_end - c1));
+    }
   }
 
   T* ob = o + b * os.b + h * os.h;
@@ -404,7 +423,7 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o,
            const int* kv_len, int B, int Hq, int Hkv, int Sq, int Skv,
            const long long* strides, float scale, int causal,
@@ -413,7 +432,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
   const Strides os{strides[9], strides[10], strides[11]};
-  const int smem = Smem<D>::kBytes;
+  const int smem = Smem<DQK, DV>::kBytes;
   // The shared-memory opt-in is a per-device attribute of each template's
   // kernel: set it at the first launch on each device.
   static bool smem_set[kMaxDevices] = {};
@@ -422,14 +441,14 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_simt_kernel<T, D>,
+    err = cudaFuncSetAttribute(flash_simt_kernel<T, DQK, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set[dev] = true;
   }
   const dim3 grid((Sq + kRows - 1) / kRows, Hq, B);
-  flash_simt_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_simt_kernel<T, DQK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), kv_len, Hq, Hkv, Sq, Skv,
       qs, ks, vs, os, scale * kLog2e, causal);
@@ -437,51 +456,51 @@ int launch(const void* q, const void* k, const void* v, void* o,
 }
 
 template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o,
-             const int* kv_len, int B, int Hq, int Hkv, int Sq, int Skv,
-             const long long* strides, float scale, int causal,
+int launch_d(int D, int Dv, const void* q, const void* k, const void* v,
+             void* o, const int* kv_len, int B, int Hq, int Hkv, int Sq,
+             int Skv, const long long* strides, float scale, int causal,
              cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, kv_len, B, Hq, Hkv, Sq, Skv, strides,
-                           scale, causal, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, kv_len, B, Hq, Hkv, Sq, Skv, strides,
-                           scale, causal, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, kv_len, B, Hq, Hkv, Sq, Skv, strides,
-                            scale, causal, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define SIMT_PAIR(DQK, DV)                                                  \
+  if (D == DQK && Dv == DV)                                                 \
+    return launch<T, DQK, DV>(q, k, v, o, kv_len, B, Hq, Hkv, Sq, Skv,      \
+                              strides, scale, causal, stream);
+  SIMT_PAIR(32, 32)
+  SIMT_PAIR(64, 64)
+  SIMT_PAIR(128, 128)
+  SIMT_PAIR(192, 128)
+  SIMT_PAIR(96, 64)
+#undef SIMT_PAIR
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o like q, each given by its
-// element strides {batch, head, seq} in `strides` (12 int64 on the host:
-// q, k, v, o), the head dim contiguous; q, k and v 16-byte aligned with
-// strides that are multiples of 16 bytes; dtype 0 = float32, 1 = bfloat16
-// for all four.  kv_len: (B,) int32 on the device.  D in {32, 64, 128}.
+// q (B, Hq, Sq, D), k (B, Hkv, Skv, D), v (B, Hkv, Skv, Dv), o (B, Hq, Sq,
+// Dv), each given by its element strides {batch, head, seq} in `strides`
+// (12 int64 on the host: q, k, v, o), the head dim contiguous; q, k and v
+// 16-byte aligned with strides that are multiples of 16 bytes; dtype 0 =
+// float32, 1 = bfloat16 for all four.  kv_len: (B,) int32 on the device.
+// (D, Dv) in {(32, 32), (64, 64), (128, 128), (192, 128), (96, 64)}.
 // Launches on `stream` and returns cudaGetLastError() as an int.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const int* kv_len, int B, int Hq,
                                       int Hkv, int Sq, int Skv, int D,
-                                      const long long* strides, float scale,
-                                      int causal, int dtype, void* stream) {
+                                      int Dv, const long long* strides,
+                                      float scale, int causal, int dtype,
+                                      void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 ||
       Skv <= 0 || B > 65535 || Hq > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_d<float>(D, q, k, v, o, kv_len, B, Hq, Hkv, Sq, Skv,
+    return launch_d<float>(D, Dv, q, k, v, o, kv_len, B, Hq, Hkv, Sq, Skv,
                            strides, scale, causal, s);
   }
   if (dtype == 1) {
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, kv_len, B, Hq, Hkv, Sq,
-                                   Skv, strides, scale, causal, s);
+    return launch_d<__nv_bfloat16>(D, Dv, q, k, v, o, kv_len, B, Hq, Hkv,
+                                   Sq, Skv, strides, scale, causal, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,6 +1,7 @@
 // Flash attention forward on Hopper's tensor cores (sm_90a): bf16 inputs,
-// head dim 64 or 128, any number of query rows.  CUDA C++ with a plain C
-// entry point for ctypes.
+// head dims (Dqk, Dv) of q/k and of v in {(64, 64), (128, 128), (192, 128),
+// (96, 64)} (the last two are MLA's prefill: deepseek-v2-lite, minicpm3),
+// any number of query rows.  CUDA C++ with a plain C entry point for ctypes.
 //
 //   o[b, h, i, :] = softmax_j(scale * q[b, h, i, :] . k[b, h / group, j, :]
 //                             masked) @ v[b, h / group, :, :]
@@ -45,6 +46,11 @@
 //     while tile j - 1's P V product does; across the two, they take turns
 //     issuing products (named barriers), so one's softmax runs while the
 //     other's products hold the tensor cores;
+//   * Dqk and Dv are counted in 64-column slices, QH of them for Q and K
+//     (the S product's depth) and VH for V (the P V product's N and the O
+//     accumulator); Dqk = 96 is one and a half slices, so its second slice
+//     is loaded as a whole box whose last 32 columns lie past the tensor's
+//     head dim and are zero-filled by TMA: they add nothing to S;
 //   * causal: tiles wholly past the block's last row are never loaded, a
 //     warpgroup skips tiles past its own last row, and only tiles that
 //     reach past a row's limit are masked; the longest query blocks are
@@ -67,23 +73,24 @@ constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 32;  // + one producer warp
 constexpr int kMaxDevices = 64;  // devices whose smem opt-in is tracked
 
-// Dynamic shared memory for head dim D and BC keys per K/V tile.  A
-// 64-column slice of a bf16 tile is 128 bytes a row, the span of the
-// 128-byte swizzle; D = 128 tiles are two such slices ("halves") one
-// after the other.  Every slice starts on 1024 bytes, the swizzle's
-// period.
-template <int D, int BC>
+// Dynamic shared memory for QH 64-column slices of Q and K, VH of V, and
+// BC keys per K/V tile.  A 64-column slice of a bf16 tile is 128 bytes a
+// row, the span of the 128-byte swizzle; a wider tile is its slices
+// ("halves") one after the other.  Every slice starts on 1024 bytes, the
+// swizzle's period.
+template <int QH, int VH, int BC>
 struct Smem {
-  static constexpr int kHalves = D / 64;
   static constexpr int kQHalf = kBr * 128;
   static constexpr int kKVHalf = BC * 128;
-  static constexpr int kQBytes = kHalves * kQHalf;
-  static constexpr int kKVBytes = kHalves * kKVHalf;  // one K or V stage
+  static constexpr int kQBytes = QH * kQHalf;
+  static constexpr int kKBytes = QH * kKVHalf;  // one K stage
+  static constexpr int kVBytes = VH * kKVHalf;  // one V stage
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBytes;
-  static constexpr int kV = kK + kStages * kKVBytes;
-  static constexpr int kBar = kV + kStages * kKVBytes;
+  static constexpr int kV = kK + kStages * kKBytes;
+  static constexpr int kBar = kV + kStages * kVBytes;
   static constexpr int kAlloc = kBar + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kAlloc <= 232448, "a block's shared memory on sm_90");
 };
 
 struct Strides {
@@ -273,7 +280,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // j - 1: it issues S_j = Q K_j and O += P_{j-1} V_{j-1} together, waits
 // for S_j alone, computes P_j while the second product runs, then waits
 // for it, releases tile j - 1's stage and rescales O.
-template <int D, int BC>
+template <int QH, int VH, int BC>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -282,8 +289,7 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         const int* __restrict__ kv_len, int Hq, int Hkv,
                         int Sq, int Skv, Strides os, float scale_log2,
                         int causal) {
-  using L = Smem<D, BC>;
-  constexpr int kHalves = L::kHalves;
+  using L = Smem<QH, VH, BC>;
   constexpr int kS = BC / 2;  // score accumulators per thread
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -315,19 +321,20 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x >= kConsumers) {  // the producer warp; one lane issues
     if (threadIdx.x == kConsumers && n_tiles > 0) {
       mbar_expect_tx(bar_q, L::kQBytes);
-      for (int hh = 0; hh < kHalves; ++hh) {
+      for (int hh = 0; hh < QH; ++hh) {
         tma_load_4d(q_s + hh * L::kQHalf, &tq, bar_q, 64 * hh, q0, h, b);
       }
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages, round = j / kStages;
         if (round > 0) mbar_wait(bar_empty + 8 * s, (round - 1) & 1);
-        mbar_expect_tx(bar_full + 8 * s, 2 * L::kKVBytes);
-        for (int hh = 0; hh < kHalves; ++hh) {
-          const uint32_t off = s * L::kKVBytes + hh * L::kKVHalf;
-          tma_load_4d(k_s + off, &tk, bar_full + 8 * s, 64 * hh, j * BC, hk,
-                      b);
-          tma_load_4d(v_s + off, &tv, bar_full + 8 * s, 64 * hh, j * BC, hk,
-                      b);
+        mbar_expect_tx(bar_full + 8 * s, L::kKBytes + L::kVBytes);
+        for (int hh = 0; hh < QH; ++hh) {
+          tma_load_4d(k_s + s * L::kKBytes + hh * L::kKVHalf, &tk,
+                      bar_full + 8 * s, 64 * hh, j * BC, hk, b);
+        }
+        for (int hh = 0; hh < VH; ++hh) {
+          tma_load_4d(v_s + s * L::kVBytes + hh * L::kKVHalf, &tv,
+                      bar_full + 8 * s, 64 * hh, j * BC, hk, b);
         }
       }
     }
@@ -354,9 +361,9 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
     n_mine = min(n_tiles, end > 0 ? (end + BC - 1) / BC : 0);
   }
 
-  float oacc[kHalves][32];
+  float oacc[VH][32];
 #pragma unroll
-  for (int hh = 0; hh < kHalves; ++hh) {
+  for (int hh = 0; hh < VH; ++hh) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) oacc[hh][i] = 0.0f;
   }
@@ -367,9 +374,9 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
   // S = Q K_j^T into sacc, committed as one group (not waited for).
   auto issue_s = [&](int j) {
-    const uint32_t ks = k_s + (j % kStages) * L::kKVBytes;
+    const uint32_t ks = k_s + (j % kStages) * L::kKBytes;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < QH * 4; ++kk) {
       const uint32_t off = (kk % 4) * 32;  // 16 columns: 32 bytes
       wgmma_ss(sacc, make_desc(qa + (kk / 4) * L::kQHalf + off, 16, 1024),
                make_desc(ks + (kk / 4) * L::kKVHalf + off, 16, 1024),
@@ -379,11 +386,11 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
   };
   // O += P V_j from pa, committed as one group (not waited for).
   auto issue_pv = [&](int j) {
-    const uint32_t vs = v_s + (j % kStages) * L::kKVBytes;
+    const uint32_t vs = v_s + (j % kStages) * L::kVBytes;
 #pragma unroll
     for (int kk = 0; kk < BC / 16; ++kk) {
 #pragma unroll
-      for (int hh = 0; hh < kHalves; ++hh) {
+      for (int hh = 0; hh < VH; ++hh) {
         wgmma_rs(oacc[hh], pa[kk],
                  make_desc(vs + hh * L::kKVHalf + kk * 16 * 128, 1024, 1024));
       }
@@ -479,10 +486,10 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
       softmax(j);
       wg_wait<0>();
 #pragma unroll
-      for (int hh = 0; hh < kHalves; ++hh) fence_regs(oacc[hh]);
+      for (int hh = 0; hh < VH; ++hh) fence_regs(oacc[hh]);
       mbar_arrive(bar_empty + 8 * ((j - 1) % kStages));
 #pragma unroll
-      for (int hh = 0; hh < kHalves; ++hh) {
+      for (int hh = 0; hh < VH; ++hh) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) oacc[hh][i] *= alpha[(i / 2) % 2];
       }
@@ -494,7 +501,7 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
     pass_turn();
     wg_wait<0>();
 #pragma unroll
-    for (int hh = 0; hh < kHalves; ++hh) fence_regs(oacc[hh]);
+    for (int hh = 0; hh < VH; ++hh) fence_regs(oacc[hh]);
     mbar_arrive(bar_empty + 8 * ((n_mine - 1) % kStages));
   }
   if (n_mine == 0 && n_tiles > 0) {  // the idle turn of the first tile
@@ -518,7 +525,7 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const float inv = l[r] > 0.0f ? 1.0f / l[r] : 0.0f;
     __nv_bfloat16* orow = o + b * os.b + h * os.h + i * os.s;
 #pragma unroll
-    for (int hh = 0; hh < kHalves; ++hh) {
+    for (int hh = 0; hh < VH; ++hh) {
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const uint32_t v2 = pack_bf16(oacc[hh][4 * c + 2 * r] * inv,
@@ -557,8 +564,8 @@ EncodeTiled encoder() {
 
 // A 4-D map over a bf16 tensor with dims (D, S, H, B), innermost first,
 // by its element strides {b, h, s}; boxes of 64 columns x `rows` rows of
-// one (head, batch).  A dim of extent 1 is never stepped, so its stride
-// is replaced by a legal one.
+// one (head, batch), columns past D zero-filled.  A dim of extent 1 is
+// never stepped, so its stride is replaced by a legal one.
 bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
               const long long* st, int rows) {
   EncodeTiled encode = encoder();
@@ -581,19 +588,19 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int BC>
+template <int QH, int VH, int BC>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const int* kv_len, int B, int Hq, int Hkv, int Sq, int Skv,
-           const long long* st, float scale, int causal,
+           const int* kv_len, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+           int Dv, const long long* st, float scale, int causal,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, D, Sq, Hq, B, st, kBr) ||
       !make_map(&tk, k, D, Skv, Hkv, B, st + 3, BC) ||
-      !make_map(&tv, v, D, Skv, Hkv, B, st + 6, BC)) {
+      !make_map(&tv, v, Dv, Skv, Hkv, B, st + 6, BC)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides os{st[9], st[10], st[11]};
-  const int smem = Smem<D, BC>::kAlloc;
+  const int smem = Smem<QH, VH, BC>::kAlloc;
   // The shared-memory opt-in is a per-device attribute of the kernel: set
   // it at the first launch on each device, not on every call (the tensor
   // maps hold this call's pointers, so they are encoded per call).
@@ -603,14 +610,14 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_prefill_tc_kernel<D, BC>,
+    err = cudaFuncSetAttribute(flash_prefill_tc_kernel<QH, VH, BC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set[dev] = true;
   }
   const dim3 grid(Hq, B, (Sq + kBr - 1) / kBr);
-  flash_prefill_tc_kernel<D, BC><<<grid, kThreads, smem, stream>>>(
+  flash_prefill_tc_kernel<QH, VH, BC><<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), kv_len, Hq, Hkv, Sq, Skv,
       os, scale * 1.4426950408889634f, causal);
   return static_cast<int>(cudaGetLastError());
@@ -618,31 +625,36 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o like q, all bfloat16, each
-// given by its element strides {batch, head, seq} in `strides` (12 int64
-// on the host: q, k, v, o), the head dim contiguous.  q, k and v must be
-// 16-byte aligned with strides that are multiples of 16 bytes (TMA's
-// rule; the wrapper checks it).  kv_len: (B,) int32 on the device.  D in
-// {64, 128}.  Launches on `stream` and returns a CUDA error code as an int
+// q (B, Hq, Sq, D), k (B, Hkv, Skv, D), v (B, Hkv, Skv, Dv), o (B, Hq, Sq,
+// Dv), all bfloat16, each given by its element strides {batch, head, seq}
+// in `strides` (12 int64 on the host: q, k, v, o), the head dim
+// contiguous.  q, k and v must be 16-byte aligned with strides that are
+// multiples of 16 bytes (TMA's rule; the wrapper checks it).  kv_len: (B,)
+// int32 on the device.  (D, Dv) in {(64, 64), (128, 128), (192, 128),
+// (96, 64)}.  Launches on `stream` and returns a CUDA error code as an int
 // (cudaErrorInvalidValue when a tensor map cannot be encoded).
 extern "C" int flash_prefill_tc_launch(const void* q, const void* k,
                                        const void* v, void* o,
                                        const int* kv_len, int B, int Hq,
                                        int Hkv, int Sq, int Skv, int D,
-                                       const long long* strides, float scale,
-                                       int causal, void* stream) {
+                                       int Dv, const long long* strides,
+                                       float scale, int causal,
+                                       void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 ||
       Skv <= 0 || B > 65535 || (Sq + kBr - 1) / kBr > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) {
-    return launch<64, 128>(q, k, v, o, kv_len, B, Hq, Hkv, Sq, Skv, strides,
-                           scale, causal, s);
-  }
-  if (D == 128) {
-    return launch<128, 64>(q, k, v, o, kv_len, B, Hq, Hkv, Sq, Skv, strides,
-                           scale, causal, s);
-  }
+  // (Q/K slices, V slices, keys per tile): 128-key tiles where O is one
+  // slice wide, 64-key tiles where it is two (registers: O, S and P).
+#define TC_PAIR(DQK, DV, QH, VH, BC)                                       \
+  if (D == DQK && Dv == DV)                                                \
+    return launch<QH, VH, BC>(q, k, v, o, kv_len, B, Hq, Hkv, Sq, Skv, D,  \
+                              Dv, strides, scale, causal, s);
+  TC_PAIR(64, 64, 1, 1, 128)
+  TC_PAIR(128, 128, 2, 2, 64)
+  TC_PAIR(192, 128, 3, 2, 64)
+  TC_PAIR(96, 64, 2, 1, 128)
+#undef TC_PAIR
   return static_cast<int>(cudaErrorInvalidValue);
 }

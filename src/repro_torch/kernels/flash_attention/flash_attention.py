@@ -7,15 +7,20 @@ block in place of the TPU's sequential KV grid axis.  Each source's header
 note says what bounds it on the card and what its design does about that:
 
 ``prefill_tc`` (``csrc/flash_prefill_tc.cu``)
-    bf16, head dim 64 or 128, ``Sq > 1``: both products on ``wgmma``, Q/K/V
-    tiles through TMA into a 3-stage mbarrier ring fed by a producer warp.
+    bf16, head dims (Dqk, Dv) of ``KERNEL_DIMS["prefill_tc"]``, ``Sq > 1``
+    or Dqk != Dv: both products on ``wgmma``, Q/K/V tiles through TMA into
+    a 3-stage mbarrier ring fed by a producer warp.
 ``decode_split`` (``csrc/flash_decode_split.cu``)
-    ``Sq == 1`` (the engine's batched decode), float32 or bf16, any head
-    dim and GQA group: split-KV flash decoding, a split kernel writing
+    ``Sq == 1`` with Dqk == Dv (the engine's batched decode), float32 or
+    bf16, any GQA group: split-KV flash decoding, a split kernel writing
     float32 partials and a combine kernel (one launch of the pair).
 ``simt`` (``csrc/flash_attention.cu``)
     everything else, on the CUDA cores: float32 prefill (whose 2e-5
     tolerance bf16 tensor cores cannot meet) and bf16 with head dim 32.
+
+The value head dim may differ from the query/key head dim: MLA's prefill
+attends with (Dqk, Dv) = (192, 128) (deepseek-v2-lite) or (96, 64)
+(minicpm3); the output is (..., Dv).
     A register-tiled SGEMM inside the online softmax: 64 query rows per
     block, K/V tiles of 64 keys through a 2-stage cp.async ring, a 4 x 8
     score and output micro-tile per thread.
@@ -47,8 +52,12 @@ SOURCES = {
     "decode_split": _CSRC / "flash_decode_split.cu",
     "simt": _CSRC / "flash_attention.cu",
 }
-HEAD_DIMS = (32, 64, 128)
-TC_HEAD_DIMS = (64, 128)
+#: The (Dqk, Dv) head-dim pairs each kernel is built for.
+KERNEL_DIMS = {
+    "prefill_tc": ((64, 64), (128, 128), (192, 128), (96, 64)),
+    "decode_split": ((32, 32), (64, 64), (128, 128)),
+    "simt": ((32, 32), (64, 64), (128, 128), (192, 128), (96, 64)),
+}
 #: Keys per block of the split-KV decode: ceil(Skv / DECODE_SPLIT) splits.
 DECODE_SPLIT = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -62,7 +71,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "prefill_tc": {"flash_prefill_tc_launch": [
         _P, _P, _P, _P, _P,            # q, k, v, o, kv_len
-        _I, _I, _I, _I, _I, _I,        # B, Hq, Hkv, Sq, Skv, D
+        _I, _I, _I, _I, _I, _I, _I,    # B, Hq, Hkv, Sq, Skv, Dqk, Dv
         _P, _F, _I, _P,                # strides, scale, causal, stream
     ]},
     "decode_split": {"flash_decode_split_launch": [
@@ -72,18 +81,23 @@ _SIGNATURES = {
     ]},
     "simt": {"flash_attention_launch": [
         _P, _P, _P, _P, _P,            # q, k, v, o, kv_len
-        _I, _I, _I, _I, _I, _I,        # B, Hq, Hkv, Sq, Skv, D
+        _I, _I, _I, _I, _I, _I, _I,    # B, Hq, Hkv, Sq, Skv, Dqk, Dv
         _P, _F, _I, _I, _P,            # strides, scale, causal, dtype, stream
     ]},
 }
 
 
-def route(dtype: torch.dtype, d: int, sq: int) -> str:
-    """The kernel that serves a call: ``"decode_split"`` for one query row,
-    ``"prefill_tc"`` for bf16 with head dim 64 or 128, else ``"simt"``."""
-    if sq == 1:
+def route(dtype: torch.dtype, d: int, sq: int, *,
+          dv: int | None = None) -> str:
+    """The kernel that serves a call with query/key head dim ``d`` and
+    value head dim ``dv`` (default ``d``): ``"decode_split"`` for one query
+    row with ``dv == d``, ``"prefill_tc"`` for bf16 at a head-dim pair it
+    is built for, else ``"simt"``.  A pair the routed kernel is not built
+    for is refused by :func:`flash_attention_cuda`."""
+    dv = d if dv is None else dv
+    if sq == 1 and dv == d:
         return "decode_split"
-    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+    if dtype == torch.bfloat16 and (d, dv) in KERNEL_DIMS["prefill_tc"]:
         return "prefill_tc"
     return "simt"
 
@@ -138,9 +152,10 @@ def flash_attention_cuda(
     """Launch the kernel :func:`route` picks.  q, k, v are 4-D CUDA tensors of
     one dtype (float32 or bfloat16) laid out (B, H, S, D) (``seq_dim=2``)
     or (B, S, H, D) (``seq_dim=1``), any strides with the head dim
-    contiguous; kv_len is a (B,) int32 CUDA tensor that the host never
-    reads.  Returns a new contiguous tensor of q's shape and dtype, enqueued
-    on the current stream without synchronizing."""
+    contiguous; q and k share the head dim Dqk, v has its own Dv; kv_len
+    is a (B,) int32 CUDA tensor that the host never reads.  Returns a new
+    contiguous tensor of q's shape with v's head dim and q's dtype,
+    enqueued on the current stream without synchronizing."""
     global LAUNCHES
     if seq_dim not in (1, 2):
         raise ValueError(f"seq_dim must be 1 or 2, got {seq_dim}")
@@ -163,13 +178,12 @@ def flash_attention_cuda(
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     b, sq, hq, d = (q.shape[0], q.shape[seq_dim], q.shape[head_dim],
                     q.shape[3])
-    skv, hkv = k.shape[seq_dim], k.shape[head_dim]
-    if tuple(v.shape) != tuple(k.shape) or k.shape[0] != b or k.shape[3] != d:
+    skv, hkv, dv = k.shape[seq_dim], k.shape[head_dim], v.shape[3]
+    if (tuple(v.shape[:3]) != tuple(k.shape[:3]) or k.shape[0] != b
+            or k.shape[3] != d):
         raise ValueError(
             f"k {tuple(k.shape)} and v {tuple(v.shape)} do not match q "
             f"{tuple(q.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
     if (kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (b,)
@@ -179,7 +193,10 @@ def flash_attention_cuda(
     if b > 65535 or hq > 65535 or max(sq, skv) * max(
             q.stride(seq_dim), k.stride(seq_dim)) >= 2**31:
         raise ValueError("attention shape exceeds the kernel's index range")
-    name = route(q.dtype, d, sq)
+    name = route(q.dtype, d, sq, dv=dv)
+    if (d, dv) not in KERNEL_DIMS[name]:
+        raise ValueError(f"{name} takes head dims (Dqk, Dv) in "
+                         f"{KERNEL_DIMS[name]}, got {(d, dv)}")
     if name == "prefill_tc":
         for label, x in (("q", q), ("k", k), ("v", v)):
             _check_16b(label, x, seq_dim, "TMA loads its tiles")
@@ -189,7 +206,7 @@ def flash_attention_cuda(
     else:
         for label, x in (("q", q), ("k", k), ("v", v)):
             _check_16b(label, x, seq_dim, "simt loads 16-byte vectors")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty((*q.shape[:3], dv), dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0 or hq == 0:
         return out
     strides = (ctypes.c_longlong * 12)(
@@ -206,7 +223,7 @@ def flash_attention_cuda(
                 kv_len.data_ptr())
         if name == "prefill_tc":
             err = lib.flash_prefill_tc_launch(
-                *ptrs, b, hq, hkv, sq, skv, d, strides, float(scale),
+                *ptrs, b, hq, hkv, sq, skv, d, dv, strides, float(scale),
                 int(bool(causal)), stream)
         elif name == "decode_split":
             splits = -(-skv // DECODE_SPLIT)
@@ -219,7 +236,7 @@ def flash_attention_cuda(
                 _DTYPES[q.dtype], stream)
         else:
             err = lib.flash_attention_launch(
-                *ptrs, b, hq, hkv, sq, skv, d, strides, float(scale),
+                *ptrs, b, hq, hkv, sq, skv, d, dv, strides, float(scale),
                 int(bool(causal)), _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(

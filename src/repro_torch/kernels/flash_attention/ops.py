@@ -2,7 +2,7 @@
 device.
 
 A CUDA tensor goes to the hand-written kernel that
-``flash_attention.route`` names for its dtype, head dim and query rows
+``flash_attention.route`` names for its dtype, head dims and query rows
 (tensor-core bf16 prefill, split-KV decode, or the SIMT kernel), a CPU
 tensor to the plain version (``ref.py``), and nothing else is taken.
 There is no fallback: on a CUDA tensor the routed kernel launches or the
@@ -39,11 +39,14 @@ def flash_attention(
     scale: float | None = None,
     layout: str = "bhsd",
 ) -> torch.Tensor:
-    """Attention of q over k, v; returns q's shape and dtype.
+    """Attention of q over k, v; returns q's shape with v's head dim, in
+    q's dtype.
 
-    ``layout="bhsd"``: q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D), the
-    reference's layout.  ``layout="bshd"``: q (B, Sq, Hq, D), k/v
-    (B, Skv, Hkv, D), the model's projections and KV cache, read in place.
+    ``layout="bhsd"``: q (B, Hq, Sq, Dqk), k (B, Hkv, Skv, Dqk), v
+    (B, Hkv, Skv, Dv), the reference's layout.  ``layout="bshd"``: q
+    (B, Sq, Hq, Dqk), k/v (B, Skv, Hkv, D), the model's projections and KV
+    cache, read in place.  Dv may differ from Dqk (MLA's prefill); the
+    default scale is Dqk ** -0.5.
     ``kv_len`` (default Skv) is an int or a (B,) integer tensor: the
     queries are the last Sq positions of each row's ``kv_len``-token
     context, and keys at or past ``kv_len`` are masked."""
@@ -163,5 +166,10 @@ def flash_attention_trainable(
     pass, so a remat'ed layer launches the kernel twice per step."""
     if layout not in _SEQ_DIM:
         raise ValueError(f"layout must be one of {sorted(_SEQ_DIM)}")
+    if v.shape[3] != q.shape[3]:
+        raise NotImplementedError(
+            "the trainable flash op takes one head dim for q, k and v; "
+            f"got Dqk {q.shape[3]}, Dv {v.shape[3]} (training MLA is not "
+            "ported yet: ROADMAP Queue 1, item 16.3)")
     scale = q.shape[3] ** -0.5 if scale is None else scale
     return _FlashTrainable.apply(q, k, v, scale, layout)

@@ -1,8 +1,9 @@
 """Plain PyTorch version of flash attention — the spec the CUDA kernel is
 held to.
 
-``q (B, Hq, Sq, D)``, ``k, v (B, Hkv, Skv, D)`` -> ``(B, Hq, Sq, D)`` in
-``q``'s dtype, computed in float32.  Query head ``h`` reads kv head
+``q (B, Hq, Sq, Dqk)``, ``k (B, Hkv, Skv, Dqk)``, ``v (B, Hkv, Skv, Dv)``
+-> ``(B, Hq, Sq, Dv)`` in ``q``'s dtype, computed in float32; the default
+scale is ``Dqk ** -0.5``.  Query head ``h`` reads kv head
 ``h // (Hq // Hkv)``.  Key column ``j`` is masked when ``j >= kv_len`` and,
 when causal, when ``j > kv_len - Sq + i``: the queries are the last ``Sq``
 positions of a context of ``kv_len`` tokens.  ``kv_len`` is an int (the

@@ -1,4 +1,5 @@
-"""Attention layers: GQA with (partial) rotary embeddings.
+"""Attention layers: GQA with (partial) rotary embeddings, and MLA
+(DeepSeek/MiniCPM multi-head latent attention with the absorbed decode).
 
 Three execution modes share one set of weights:
   * train    — full causal self-attention, no cache;
@@ -15,9 +16,17 @@ op (``flash_attention_trainable``), whose backward recomputes attention
 from q, k and v.  Caches are laid out
 (B, S, Hkv, D), as the reference's, and are written in place.
 
-MLA's layer (ROADMAP Queue 1, item 16) and the int8 KV cache
-(``kv_cache_dtype="int8"``, same item) are not ported yet and raise; MLA's
-shape table (:func:`mla_specs`) is, for parameter counts.
+MLA's cache holds the rank-``kv_lora_rank`` latent ``c_kv (B, S, r)`` and
+the one-head rope key ``k_rope (B, S, rd)``.  Its prefill (and its
+gradient-free train mode) expands them to per-head keys of width
+``qk_nope + qk_rope`` and values of width ``v_head_dim`` and attends
+through the flash kernels with Dqk != Dv; its decode is the reference's
+absorbed form, float32 einsums over the whole latent cache in plain torch
+(the reference computes it outside any Pallas kernel; profiler range
+``"mla_absorbed_decode"``).  Training MLA
+(the trainable flash op at Dqk != Dv) is not ported yet (ROADMAP Queue 1,
+item 16.3), nor is the int8 KV cache (``kv_cache_dtype="int8"``, item
+16.4): both raise.
 """
 
 from __future__ import annotations
@@ -31,18 +40,19 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_attention,
     flash_attention_trainable,
 )
-from repro_torch.models.common import rms_norm_spec, rope_for
+from repro_torch.models.common import rms_norm, rms_norm_spec, rope_for
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Spec, add_parameters
 
 
+NEG_INF = -1e30
+
+
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.attention == "mla":
-        raise NotImplementedError(
-            "MLA attention is not ported yet (ROADMAP Queue 1, item 16)")
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP Queue 1, item 16)")
+            "the int8 KV cache is not ported yet (ROADMAP Queue 1, item "
+            "16.4)")
 
 
 def gqa_specs(cfg: ModelConfig) -> dict[str, Spec]:
@@ -93,9 +103,23 @@ def attn_specs(cfg: ModelConfig) -> dict[str, Spec]:
     return mla_specs(cfg) if cfg.attention == "mla" else gqa_specs(cfg)
 
 
+def mla_cache_specs(cfg: ModelConfig, batch: int,
+                    seq: int) -> dict[str, Spec]:
+    """One MLA layer's cache: the latent and the shared rope key."""
+    return {
+        "c_kv": Spec((batch, seq, cfg.kv_lora_rank),
+                     ("batch", "cache_seq", "lora"), init="zeros"),
+        "k_rope": Spec((batch, seq, cfg.qk_rope_dim),
+                       ("batch", "cache_seq", "head_dim"), init="zeros"),
+    }
+
+
 def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> dict[str, Spec]:
-    """One layer's KV cache, (B, S, Hkv, D) each."""
+    """One layer's KV cache: MLA's latent cache, or k and v (B, S, Hkv, D)
+    each."""
     _check_ported(cfg)
+    if cfg.attention == "mla":
+        return mla_cache_specs(cfg, batch, seq)
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     axes = ("batch", "cache_seq", "kv_heads", "head_dim")
     return {
@@ -172,3 +196,90 @@ class GQAAttention(nn.Module):
         else:
             raise ValueError(f"unknown mode {mode!r}")
         return out.reshape(b, s, h * hd) @ self.wo.reshape(h * hd, d)
+
+
+def _decode_mask(b: int, sq: int, skv: int, pos, device) -> torch.Tensor:
+    """(B, Sq, Skv) bool, True where masked: the reference's ``_mask`` for
+    the causal decode, queries at ``pos`` (an int or a (B,) tensor) and
+    ``kv_len = pos + Sq``."""
+    pos = torch.as_tensor(pos, device=device).reshape(-1).expand(b)
+    cols = torch.arange(skv, device=device)
+    rows = pos[:, None] + torch.arange(sq, device=device)[None, :]
+    return ((cols[None, None, :] >= (pos + sq)[:, None, None])
+            | (cols[None, None, :] > rows[:, :, None]))
+
+
+class MLAAttention(nn.Module):
+    """Multi-head latent attention; parameters ``wq (d, H, qk)`` or the
+    q-LoRA pair ``wq_a (d, q_lora)``, ``q_norm``, ``wq_b (q_lora, H, qk)``;
+    ``wkv_a (d, r)``, ``kv_norm``, ``wk_rope (d, rd)``, ``wk_b (r, H,
+    nope)``, ``wv_b (r, H, dv)`` and ``wo (H, dv, d)``, the reference's
+    layouts (qk = nope + rd)."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        add_parameters(self, mla_specs(cfg), dtype, device)
+
+    def forward(self, x, *, mode: str, cache, pos, positions):
+        """x (B, S, d) -> y (B, S, d).  ``cache`` is this layer's
+        {"c_kv" (B, S_cache, r), "k_rope" (B, S_cache, rd)}, written in
+        place in prefill and decode; ``pos`` and ``positions`` as for
+        :class:`GQAAttention`."""
+        cfg = self.cfg
+        b, s, d = x.shape
+        h, nope, rd = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+        qk, dv, r = nope + rd, cfg.v_head_dim, cfg.kv_lora_rank
+        if cfg.q_lora_rank:
+            cq = rms_norm(x @ self.wq_a, self.q_norm, cfg.norm_eps)
+            q = cq @ self.wq_b.reshape(cfg.q_lora_rank, h * qk)
+        else:
+            q = x @ self.wq.reshape(d, h * qk)
+        q = q.view(b, s, h, qk)
+        q_nope, q_rope = q[..., :nope], rope_for(cfg, q[..., nope:],
+                                                 positions)
+        c_kv = rms_norm(x @ self.wkv_a, self.kv_norm, cfg.norm_eps)
+        k_rope = rope_for(cfg, (x @ self.wk_rope)[:, :, None, :],
+                          positions)[:, :, 0, :]                 # (B, S, rd)
+        scale = 1.0 / math.sqrt(qk)
+
+        if mode in ("train", "prefill"):
+            k_nope = (c_kv @ self.wk_b.reshape(r, h * nope)).view(
+                b, s, h, nope)
+            v = (c_kv @ self.wv_b.reshape(r, h * dv)).view(b, s, h, dv)
+            k_full = torch.cat(
+                [k_nope, k_rope[:, :, None, :].expand(b, s, h, rd)], -1)
+            q_full = torch.cat([q_nope, q_rope], -1)
+            if mode == "prefill":
+                update_cache(cache["c_kv"], c_kv, pos)
+                update_cache(cache["k_rope"], k_rope, pos)
+            out = flash_attention(q_full, k_full, v, kv_len=s, scale=scale,
+                                  layout="bshd")
+        elif mode == "decode":
+            update_cache(cache["c_kv"], c_kv, pos)
+            update_cache(cache["k_rope"], k_rope, pos)
+            with torch.profiler.record_function("mla_absorbed_decode"):
+                out = self._absorbed_decode(q_nope, q_rope, cache, pos,
+                                            scale).to(x.dtype)
+        else:
+            raise ValueError(f"unknown mode {mode!r}")
+        return out.reshape(b, s, h * dv) @ self.wo.reshape(h * dv, d)
+
+    def _absorbed_decode(self, q_nope, q_rope, cache, pos, scale):
+        """The reference's weight-absorbed decode, in float32: scores and
+        values contracted in latent space over the whole cache, masked at
+        each row's fill level; returns (B, S, H, dv) float32."""
+        b, s = q_nope.shape[:2]
+        ck = cache["c_kv"].float()                               # (B, T, r)
+        kr = cache["k_rope"].float()                             # (B, T, rd)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope.float(),
+                             self.wk_b.float())
+        scores = (torch.einsum("bshr,btr->bhst", q_lat, ck)
+                  + torch.einsum("bshk,btk->bhst", q_rope.float(), kr)
+                  ) * scale
+        mask = _decode_mask(b, s, ck.shape[1], pos, q_nope.device)
+        scores = scores.masked_fill(mask[:, None], NEG_INF)
+        w = torch.softmax(scores, dim=-1)                        # (B,H,S,T)
+        lat = torch.einsum("bhst,btr->bshr", w, ck)
+        return torch.einsum("bshr,rhk->bshk", lat, self.wv_b.float())

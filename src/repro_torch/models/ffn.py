@@ -1,7 +1,16 @@
-"""Feed-forward layers: the dense SwiGLU (or gelu) MLP.
+"""Feed-forward layers: the dense SwiGLU (or gelu) MLP and the sort-based
+capacity-buffer MoE.
 
-The MoE layer is not ported yet (ROADMAP Queue 1, item 16); its shape table
-(:func:`moe_specs`) is, for parameter counts.
+The MoE dispatch is the reference's, step for step: float32 routing, the
+top-k experts of each token, a stable argsort of the (token, k)
+assignments by expert, each one's rank within its expert, and a scatter
+into an (E, capacity, d) buffer, where assignments past an expert's
+capacity are dropped.  The expert products are batched matmuls over the
+expert axis (``torch.bmm``, under the profiler range ``"moe_experts"``),
+as the reference leaves its einsums to XLA; no Pallas kernel computes
+them.  Training MoE models is not ported yet
+(ROADMAP Queue 1, item 16.2): :func:`moe_aux_loss` is, held to the
+reference by a parity test, and called by neither package's train step.
 """
 
 from __future__ import annotations
@@ -56,6 +65,88 @@ class MLP(nn.Module):
         return (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
 
 
-def moe(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    raise NotImplementedError(
-        "the MoE layer is not ported yet (ROADMAP Queue 1, item 16)")
+def _capacity(num_tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert for ``num_tokens`` tokens: the reference's Python
+    float expression, left to right, and at least 8."""
+    cap = int(
+        cfg.top_k * num_tokens / cfg.num_experts * cfg.moe_capacity_factor
+    )
+    return max(cap, 8)
+
+
+class MoE(nn.Module):
+    """Top-k routed experts with capacity dropping, plus the shared
+    experts' MLP when the config has them.  Parameters: the float32
+    ``router (d, E)``, ``w_gate``/``w_up (E, d, f)``, ``w_down (E, f, d)``
+    and ``shared`` (an :class:`MLP`), the reference's layouts."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        specs = moe_specs(cfg)
+        specs.pop("shared", None)
+        add_parameters(self, specs, dtype, device)
+        if cfg.num_shared_experts:
+            self.shared = MLP(cfg.d_model,
+                              cfg.num_shared_experts * cfg.moe_d_ff,
+                              dtype=dtype, device=device)
+
+    def dispatch(self, xf: torch.Tensor):
+        """Route the tokens ``xf (n, d)``: returns the renormalized top-k
+        weights ``(n, k)`` float32, ``order`` (the stable sort of the
+        flat assignments ``token * k + j`` by expert), each sorted
+        assignment's buffer row ``slot`` (``E * cap`` where it is dropped)
+        and ``valid`` (kept), and the capacity ``cap``."""
+        cfg = self.cfg
+        n, k, e = xf.shape[0], cfg.top_k, cfg.num_experts
+        cap = _capacity(n, cfg)
+        probs = torch.softmax(xf.float() @ self.router, -1)        # (n, e)
+        top_w, top_i = torch.topk(probs, k, dim=-1)                 # (n, k)
+        top_w = top_w / top_w.sum(-1, keepdim=True)                 # renorm
+        flat_e = top_i.reshape(-1)                                  # (n*k,)
+        order = torch.argsort(flat_e, stable=True)
+        sorted_e = flat_e[order]
+        seg_start = torch.searchsorted(
+            sorted_e, torch.arange(e, device=xf.device))            # (e,)
+        rank = torch.arange(n * k, device=xf.device) - seg_start[sorted_e]
+        valid = rank < cap                                          # drops
+        slot = torch.where(valid, sorted_e * cap + rank, e * cap)
+        return top_w, order, slot, valid, cap
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, S, d) -> (B, S, d)."""
+        cfg = self.cfg
+        b, s, d = x.shape
+        n, k, e = b * s, cfg.top_k, cfg.num_experts
+        xf = x.reshape(n, d)
+        top_w, order, slot, valid, cap = self.dispatch(xf)
+        # scatter into the (e*cap + 1, d) buffer; the extra row takes the
+        # dropped assignments and is cut off
+        buf = xf.new_zeros((e * cap + 1, d))
+        buf[slot] = xf[order // k]
+        buf = buf[: e * cap].view(e, cap, d)
+        with torch.profiler.record_function("moe_experts"):
+            gate = F.silu(torch.bmm(buf, self.w_gate))
+            up = torch.bmm(buf, self.w_up)
+            out = torch.bmm(gate * up, self.w_down).view(e * cap, d)
+        # gather back (dropped assignments give 0), unsort, weight, sum
+        y_sorted = torch.where(valid[:, None],
+                               out[slot.clamp(max=e * cap - 1)], 0.0)
+        y = torch.empty_like(y_sorted)
+        y[order] = y_sorted
+        y = (y.view(n, k, d) * top_w[..., None].to(y.dtype)).sum(1)
+        if cfg.num_shared_experts:
+            y = y + self.shared(xf)
+        return y.view(b, s, d)
+
+
+def moe_aux_loss(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss of the MoE layer ``p`` on
+    ``x (B, S, d)``: E times the sum over experts of the mean router
+    probability and the share of tokens whose top expert it is."""
+    xf = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax(xf.float() @ p.router, -1)
+    top_i = probs.argmax(-1)
+    me = probs.mean(0)
+    ce = torch.bincount(top_i, minlength=cfg.num_experts).float() / xf.shape[0]
+    return cfg.num_experts * (me * ce).sum()

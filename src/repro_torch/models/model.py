@@ -6,17 +6,21 @@ A model is an ``nn.Module``: its parameters live on one device, its layers
 in an ``nn.ModuleList``.  ``device=None`` means the card and raises without
 one (:func:`repro_torch.device.resolve_device`); the tests pass
 ``device="cpu"``, which runs the kernels' plain versions; ``device="meta"``
-builds a full-size model's shapes without allocating them.  The dense family
-(``transformer``) and the RWKV family (``rwkv``) are ported; the others,
-and MLA attention, raise (ROADMAP Queue 1, item 16).  :func:`num_params`
-counts any registry architecture from its family's shape table without
-building a module.
+builds a full-size model's shapes without allocating them.  The dense and
+MoE families (``transformer``, with GQA or MLA attention) and the RWKV
+family (``rwkv``) are ported; the vlm, hybrid and audio families and
+embedding inputs raise (ROADMAP Queue 1, items 16.5-16.7).
+:func:`num_params` counts any registry architecture from its family's
+shape table without building a module.
 
 Two forwards share the weights: :meth:`Model.apply` (no gradients) runs
 prefill, decode and a train-mode forward for serving and checks, and
 :meth:`Model.forward` is the training forward, with gradients, each layer
 rematerialized in the backward pass by default (``remat=True``, the
 configured ``remat_policy``), as the JAX package's train forward is.
+Training MoE and MLA models is not ported yet (ROADMAP Queue 1, items
+16.2 and 16.3): their ``forward`` raises, while ``apply(mode="train")``
+runs.
 
 Caches are dictionaries of tensors stacked over layers, the slot (batch)
 axis second: ``cache[name][layer, slot]``.  ``apply`` updates the cache it
@@ -49,16 +53,19 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 class Model(nn.Module):
     """Embedding, a stack of family layers, final norm and LM head.
-    Subclasses set ``layer_cls`` and ``cache_specs``."""
+    Subclasses set ``layer_cls`` (the class of layer ``i``) and
+    ``cache_specs``."""
 
-    layer_cls: type
+    @staticmethod
+    def layer_cls(cfg: ModelConfig, i: int) -> type:
+        raise NotImplementedError
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        if cfg.embeds_input or cfg.first_dense_layers or cfg.num_experts:
+        if cfg.embeds_input:
             raise NotImplementedError(
-                f"{cfg.name}: embedding inputs, MoE and prefix layers are "
-                "not ported yet (ROADMAP Queue 1, item 16)")
+                f"{cfg.name}: embedding inputs are not ported yet (ROADMAP "
+                "Queue 1, item 16.5)")
         self.cfg = cfg
         # "meta" allocates nothing: parameter and cache shapes only
         self.device = (torch.device("meta") if str(device) == "meta"
@@ -69,8 +76,8 @@ class Model(nn.Module):
                           fan_in=1),
         }, self.dtype, self.device)
         self.layers = nn.ModuleList(
-            self.layer_cls(cfg, dtype=self.dtype, device=self.device)
-            for _ in range(cfg.num_layers))
+            self.layer_cls(cfg, i)(cfg, dtype=self.dtype, device=self.device)
+            for i in range(cfg.num_layers))
         add_parameters(self, {
             "final_norm": rms_norm_spec(cfg.d_model),
             "lm_head": Spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
@@ -122,7 +129,9 @@ class Model(nn.Module):
         """The training forward: tokens (B, S) -> logits (B, S, V) float32
         with gradients, attention and the RWKV6 recurrence through their
         trainable ops.  ``remat`` checkpoints every layer
-        (:func:`repro_torch.models.common.checkpoint_body`)."""
+        (:func:`repro_torch.models.common.checkpoint_body`).  Raises for
+        MoE and MLA models (:func:`check_trainable`)."""
+        check_trainable(self.cfg)
         logits, _ = self._run(tokens, mode="train", cache=None, pos=0,
                               remat=remat)
         return logits
@@ -150,6 +159,16 @@ class Model(nn.Module):
         return (x @ self.lm_head).float(), cache
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a config whose training is not ported yet: MoE (ROADMAP
+    Queue 1, item 16.2) and MLA (item 16.3), whose trainable flash op at
+    Dqk != Dv and MoE backward come next."""
+    if cfg.num_experts or cfg.attention == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: training MoE and MLA models is not ported yet "
+            "(ROADMAP Queue 1, items 16.2 and 16.3); apply() serves them")
+
+
 def _positions(pos, b: int, s: int, device) -> torch.Tensor:
     """(B, S) absolute positions from an int or per-row (B,) offsets."""
     steps = torch.arange(s, device=device)
@@ -163,7 +182,8 @@ def build(cfg: ModelConfig, *, device=None) -> Model:
     initialized: call ``init``) on ``device`` (default the card)."""
     from repro_torch.models import rwkv, transformer
 
-    families = {"dense": transformer.Transformer, "ssm": rwkv.RWKV}
+    families = {"dense": transformer.Transformer,
+                "moe": transformer.Transformer, "ssm": rwkv.RWKV}
     if cfg.family not in families:
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP Queue 1, "

@@ -168,7 +168,9 @@ class RWKVLayer(nn.Module):
 
 
 class RWKV(Model):
-    layer_cls = RWKVLayer
+    @staticmethod
+    def layer_cls(cfg: ModelConfig, i: int) -> type:
+        return RWKVLayer
 
     @staticmethod
     def cache_specs(cfg: ModelConfig, batch: int, seq: int):

@@ -1,11 +1,18 @@
-"""Decoder-only transformer LM, the dense family (stablelm-1.6b).
+"""Decoder-only transformer LM: the dense family (stablelm-1.6b,
+minicpm3-4b with MLA) and the MoE family (granite-moe-1b-a400m,
+deepseek-v2-lite-16b with MLA).
 
-Each layer is pre-norm GQA attention plus a SwiGLU MLP, held in the
-model's ``nn.ModuleList``; the KV cache is written in place layer by layer.
-The MoE and VLM variants of the JAX module and MLA layers are not ported
-yet (ROADMAP Queue 1, item 16); :func:`param_specs` is the reference's
-shape table for every variant (MLA, MoE, dense prefix layers, embedding
-inputs), for parameter counts.
+Each layer is pre-norm attention (GQA or MLA, as the config says) plus a
+SwiGLU MLP (:class:`DenseLayer`) or a MoE (:class:`MoELayer`): the first
+``first_dense_layers`` layers are dense, the rest MoE when the config has
+experts.  All of them sit in the model's one ``nn.ModuleList``, in order,
+and the cache is one set of tensors stacked over every layer, written in
+place layer by layer.  (The JAX module keeps the dense prefix apart, as
+``params["prefix"]`` and ``cache["prefix"]``, from its scanned stack;
+``convert.model_params_from_reference`` maps both onto the one list.)
+The VLM variant (embedding inputs, M-RoPE) is not ported yet (ROADMAP
+Queue 1, item 16.5); :func:`param_specs` is the reference's shape table
+for every variant, for parameter counts.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import rms_norm, rms_norm_spec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import ffn
-from repro_torch.models.ffn import MLP
+from repro_torch.models.ffn import MLP, MoE
 from repro_torch.models.model import Model
 from repro_torch.models.params import Spec, add_parameters, stack_spec_tree
 
@@ -56,25 +63,48 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 
 class DenseLayer(nn.Module):
+    """Pre-norm attention (GQA or MLA) plus a SwiGLU MLP of width d_ff."""
+
     def __init__(self, cfg: ModelConfig, *, dtype, device):
         super().__init__()
         self.cfg = cfg
         add_parameters(self, {"attn_norm": rms_norm_spec(cfg.d_model)},
                        dtype, device)
-        self.attn = attn.GQAAttention(cfg, dtype=dtype, device=device)
+        attn_cls = (attn.MLAAttention if cfg.attention == "mla"
+                    else attn.GQAAttention)
+        self.attn = attn_cls(cfg, dtype=dtype, device=device)
         add_parameters(self, {"mlp_norm": rms_norm_spec(cfg.d_model)},
                        dtype, device)
+        self.add_ffn(cfg, dtype, device)
+
+    def add_ffn(self, cfg: ModelConfig, dtype, device) -> None:
         self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype=dtype, device=device)
+
+    def ffn(self, x):
+        return self.mlp(x)
 
     def forward(self, x, *, mode, cache, pos, positions):
         x = x + self.attn(rms_norm(x, self.attn_norm, self.cfg.norm_eps),
                           mode=mode, cache=cache, pos=pos,
                           positions=positions)
-        return x + self.mlp(rms_norm(x, self.mlp_norm, self.cfg.norm_eps))
+        return x + self.ffn(rms_norm(x, self.mlp_norm, self.cfg.norm_eps))
+
+
+class MoELayer(DenseLayer):
+    """Pre-norm attention (GQA or MLA) plus a MoE."""
+
+    def add_ffn(self, cfg: ModelConfig, dtype, device) -> None:
+        self.moe = MoE(cfg, dtype=dtype, device=device)
+
+    def ffn(self, x):
+        return self.moe(x)
 
 
 class Transformer(Model):
-    layer_cls = DenseLayer
+    @staticmethod
+    def layer_cls(cfg: ModelConfig, i: int) -> type:
+        moe = cfg.num_experts > 0 and i >= cfg.first_dense_layers
+        return MoELayer if moe else DenseLayer
 
     @staticmethod
     def cache_specs(cfg: ModelConfig, batch: int, seq: int):

@@ -204,6 +204,58 @@ def test_route_by_dtype_head_dim_and_rows(dtype, d, sq, want):
     assert want in tker.SOURCES and want in tker.LAUNCHES_BY_KERNEL
 
 
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dqk,dv,kv_len", [
+    (2, 4, 4, 13, 13, 24, 16, None),      # the reduced MLA configs' dims
+    (1, 4, 4, 70, 70, 96, 64, None),      # minicpm3's
+    (2, 4, 2, 5, 40, 96, 64, [33, 40]),   # last 5 of kv_len, GQA
+    (1, 2, 2, 33, 33, 192, 128, None),    # deepseek-v2-lite's
+])
+def test_value_head_dim_of_its_own_matches_sdpa(b, hq, hkv, sq, skv, dqk, dv,
+                                                kv_len):
+    """MLA's prefill: q and k of head dim Dqk, v of Dv; the plain version
+    in the model's (B, S, H, D) layout against the JAX model's _sdpa, whose
+    output has v's head dim; scale 1/sqrt(Dqk)."""
+    rng = np.random.default_rng(dqk + sq)
+    q, k = _randn(rng, b, sq, hq, dqk), _randn(rng, b, skv, hkv, dqk)
+    v = _randn(rng, b, skv, hkv, dv)
+    lens = np.full(b, skv, np.int32) if kv_len is None else np.array(
+        kv_len, np.int32)
+    got = tops.flash_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal=True,
+        kv_len=torch.from_numpy(lens), scale=dqk ** -0.5,
+        layout="bshd").numpy()
+    assert got.shape == (b, sq, hq, dv)
+    want = _sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                 q_offset=jnp.asarray(lens - sq), kv_len=jnp.asarray(lens),
+                 scale=dqk ** -0.5)
+    np.testing.assert_allclose(got, np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("dtype,dqk,dv,sq,want", [
+    (torch.bfloat16, 192, 128, 2048, "prefill_tc"),
+    (torch.bfloat16, 96, 64, 77, "prefill_tc"),
+    (torch.bfloat16, 96, 64, 1, "prefill_tc"),   # no split decode at Dqk != Dv
+    (torch.float32, 192, 128, 2048, "simt"),
+    (torch.float32, 96, 64, 1, "simt"),
+    (torch.bfloat16, 24, 16, 9, "simt"),         # no kernel instance: refused
+])
+def test_route_by_head_dim_pair(dtype, dqk, dv, sq, want):
+    name = tker.route(dtype, dqk, sq, dv=dv)
+    assert name == want
+    assert ((dqk, dv) in tker.KERNEL_DIMS[name]) == (dqk != 24)
+    assert all((d, d) in tker.KERNEL_DIMS["decode_split"]
+               for d in (32, 64, 128))
+    assert not any(a != b for a, b in tker.KERNEL_DIMS["decode_split"])
+
+
+def test_trainable_op_refuses_two_head_dims():
+    rng = np.random.default_rng(0)
+    q, k = (torch.from_numpy(_randn(rng, 1, 2, 8, 24)) for _ in range(2))
+    v = torch.from_numpy(_randn(rng, 1, 2, 8, 16))
+    with pytest.raises(NotImplementedError, match="item 16.3"):
+        tops.flash_attention_trainable(q, k, v)
+
+
 def test_alignment_check_names_the_unaligned_tensor():
     base = torch.zeros(2, 64, 4, 64 + 8, dtype=torch.bfloat16)
     tker._check_16b("k", base[..., :64], 1, "TMA")      # 144-byte rows

@@ -1,11 +1,14 @@
 """The PyTorch port's models against the JAX package's, on the reduced
-configs of both ported families (stablelm-1.6b dense, rwkv6-3b RWKV).
+configs of the ported families: stablelm-1.6b (dense, GQA), minicpm3-4b
+(dense, MLA with q-LoRA), granite-moe-1b-a400m (MoE, GQA),
+deepseek-v2-lite-16b (MoE, MLA, a dense first layer) and rwkv6-3b (RWKV).
 
 The JAX model's parameters are carried across by
 ``convert.model_params_from_reference``, so both compute the same function
 on the same weights.  Tolerances, float32 (``dtype="float32"``):
 - transformer logits within 1e-4: the same float32 products and softmax,
-  summed in other orders;
+  summed in other orders (MoE routing and its capacity drops, MLA's
+  absorbed decode included: the reduced MoE configs are dropless);
 - RWKV logits within 2e-3: the recurrence runs in chunks of 32 in the port
   and of ``pick_chunk(T)`` in the JAX model, and its decays are applied in
   log space — the reference kernels' own 2e-3.
@@ -32,17 +35,20 @@ from repro.models.model import build as jbuild  # noqa: E402
 from repro_torch import configs, convert  # noqa: E402
 from repro_torch.models.model import build  # noqa: E402
 
-ARCHS = ["stablelm-1.6b", "rwkv6-3b"]
+# the bf16 checks' architectures; the float32 parity runs all of ARCHS
+BF16_ARCHS = ["stablelm-1.6b", "rwkv6-3b"]
+MOE_MLA = ["minicpm3-4b", "granite-moe-1b-a400m", "deepseek-v2-lite-16b"]
+ARCHS = BF16_ARCHS + MOE_MLA
 # every registry architecture whose family and attention the port builds
-BUILT = ["internlm2-20b", "phi3-medium-14b", "rwkv6-3b", "stablelm-1.6b"]
+BUILT = ["deepseek-v2-lite-16b", "granite-moe-1b-a400m", "internlm2-20b",
+         "minicpm3-4b", "phi3-medium-14b", "rwkv6-3b", "stablelm-1.6b"]
 # the rest, each with what of it is not ported yet (ROADMAP item 16)
 UNBUILT = {
-    "deepseek-v2-lite-16b": "'moe' family", "granite-moe-1b-a400m":
-    "'moe' family", "jamba-v0.1-52b": "'hybrid' family", "minicpm3-4b":
-    "MLA attention", "qwen2-vl-7b": "'vlm' family",
+    "jamba-v0.1-52b": "'hybrid' family", "qwen2-vl-7b": "'vlm' family",
     "whisper-small": "'audio' family",
 }
-F32_TOL = {"stablelm-1.6b": 1e-4, "rwkv6-3b": 2e-3}
+F32_TOL = {"stablelm-1.6b": 1e-4, "rwkv6-3b": 2e-3,
+           **{arch: 1e-4 for arch in MOE_MLA}}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -78,6 +84,25 @@ def _close(got, want, tol):
                                rtol=tol)
 
 
+def _stacked(jcache, name):
+    """The JAX cache's leaf ``name`` over every layer, as the port stacks
+    it: the unstacked ``prefix`` layers (deepseek's dense first layer)
+    first, then the scanned ``layers``."""
+    prefix = [c[name][None] for c in jcache.get("prefix", [])]
+    return np.concatenate([*prefix, jcache["layers"][name]], axis=0)
+
+
+def _set_slot(jcache, single, slot):
+    """Write a one-slot JAX cache into slot ``slot`` of a pool cache: the
+    slot axis is 1 in the stacked ``layers``, 0 in the ``prefix`` layers."""
+    out = {"layers": jax.tree.map(lambda c, n: c.at[:, slot].set(n[:, 0]),
+                                  jcache["layers"], single["layers"])}
+    if "prefix" in jcache:
+        out["prefix"] = jax.tree.map(lambda c, n: c.at[slot].set(n[0]),
+                                     jcache["prefix"], single["prefix"])
+    return out
+
+
 def test_train_logits_match_jax(f32_pair):
     arch, jm, params, tm = f32_pair
     tok = _tokens(tm.cfg.vocab_size, 2, 40, 0)
@@ -111,7 +136,7 @@ def test_prefill_then_decode_logits_match_jax(f32_pair):
                               cache=tcache, pos=torch.from_numpy(pos))
         _close(tl, jl, F32_TOL[arch])
     for name, t in tcache.items():
-        _close(t, jcache["layers"][name], F32_TOL[arch])
+        _close(t, _stacked(jcache, name), F32_TOL[arch])
 
 
 def test_decode_at_different_slot_positions_matches_jax(f32_pair):
@@ -127,8 +152,7 @@ def test_decode_at_different_slot_positions_matches_jax(f32_pair):
         single = jm.init_cache(1, cache_len)
         _, single = jm.apply(params, tokens=jnp.asarray(tok), mode="prefill",
                              cache=single, pos=0)
-        jcache = jax.tree.map(
-            lambda c, n_: c.at[:, slot].set(n_[:, 0]), jcache, single)
+        jcache = _set_slot(jcache, single, slot)
         tm.apply(torch.from_numpy(tok), mode="prefill",
                  cache=tm.slot_view(tcache, slot), pos=0)
     step = _tokens(tm.cfg.vocab_size, 2, 1, 12)
@@ -159,7 +183,7 @@ def test_bf16_prefill_decode_consistency(arch):
     torch.testing.assert_close(step[:, 0], ref[:, s], atol=5e-2, rtol=5e-2)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", BF16_ARCHS)
 def test_bf16_logits_against_jax(arch):
     jm, params, tm = _pair(arch, "bfloat16")
     tok = _tokens(tm.cfg.vocab_size, 2, 13, 3)
@@ -228,6 +252,60 @@ def test_unported_paths_raise():
         build(dataclasses.replace(dense, kv_cache_dtype="int8"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(dataclasses.replace(dense, family="hybrid"), device="cpu")
+
+
+@pytest.mark.parametrize("arch", MOE_MLA)
+def test_training_moe_and_mla_raises(arch):
+    """Their serving is ported, their training is the next slice: the
+    grad-enabled forward and the train step refuse them, naming item 16;
+    apply(mode="train") runs."""
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import build_train_step
+
+    tm = build(configs.reduced(arch), device="cpu")
+    tok = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="items 16.2 and 16.3"):
+        tm(tok)
+    with pytest.raises(NotImplementedError, match="items 16.2 and 16.3"):
+        build_train_step(tm, AdamWConfig())
+    logits, _ = tm.init(torch.Generator().manual_seed(0)).apply(tok)
+    assert logits.shape == (1, 4, tm.cfg.vocab_size)
+
+
+def test_layer_list_keeps_the_dense_prefix_first():
+    """deepseek's first layer is dense (its d_ff), the rest MoE with
+    shared experts; granite-moe is MoE throughout; minicpm3 dense MLA."""
+    from repro_torch.models.attention import GQAAttention, MLAAttention
+    from repro_torch.models.transformer import DenseLayer, MoELayer
+
+    ds = build(configs.get("deepseek-v2-lite-16b"), device="meta")
+    assert [type(m) for m in ds.layers] == [DenseLayer] + [MoELayer] * 26
+    assert ds.layers[0].mlp.w_gate.shape == (2048, 10944)
+    assert isinstance(ds.layers[5].attn, MLAAttention)
+    assert ds.layers[5].moe.w_gate.shape == (64, 2048, 1408)
+    assert ds.layers[5].moe.shared.w_gate.shape == (2048, 2 * 1408)
+    gr = build(configs.get("granite-moe-1b-a400m"), device="meta")
+    assert {type(m) for m in gr.layers} == {MoELayer}
+    assert isinstance(gr.layers[0].attn, GQAAttention)
+    cache = ds.init_cache(2, 8)
+    assert {k: tuple(t.shape) for k, t in cache.items()} == {
+        "c_kv": (27, 2, 8, 512), "k_rope": (27, 2, 8, 64)}
+
+
+def test_convert_maps_the_prefix_before_the_stack():
+    jm, params, tm = _pair("deepseek-v2-lite-16b")
+    tree = jax.tree.map(np.asarray, params)
+    sd = convert.model_params_from_reference(tm.cfg, tree)
+    assert set(sd) == set(tm.state_dict())
+    np.testing.assert_array_equal(sd["layers.0.mlp.w_up"].numpy(),
+                                  tree["prefix"][0]["mlp"]["w_up"])
+    np.testing.assert_array_equal(sd["layers.1.moe.shared.w_down"].numpy(),
+                                  tree["layers"]["moe"]["shared"]["w_down"][0])
+    np.testing.assert_array_equal(sd["layers.1.attn.wkv_a"].numpy(),
+                                  tree["layers"]["attn"]["wkv_a"][0])
+    with pytest.raises(ValueError, match="prefix"):
+        convert.model_params_from_reference(
+            dataclasses.replace(tm.cfg, first_dense_layers=0), tree)
 
 
 def test_build_defaults_to_the_card():

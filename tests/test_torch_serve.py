@@ -4,8 +4,11 @@ Both engines get the same requests and the same weights (the JAX model's
 float32 reduced-config parameters, carried across by
 ``convert.model_params_from_reference``), and their greedy tokens must be
 equal, token for token, through admission, batched decode with per-slot
-positions, and slot reuse.  The cases of ``tests/test_serve.py``'s
-``TestServeEngine`` are ported beside them.
+positions, and slot reuse: the dense, MoE (idle slots' dummy tokens take
+expert capacity in both engines) and RWKV families, GQA and MLA caches
+(the latter ``c_kv``/``k_rope``, read and written through the same slot
+views).  The cases of ``tests/test_serve.py``'s ``TestServeEngine`` are
+ported beside them.
 """
 
 import dataclasses
@@ -24,7 +27,8 @@ from repro_torch import configs, convert  # noqa: E402
 from repro_torch.models.model import build  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
-ARCHS = ["stablelm-1.6b", "rwkv6-3b"]
+ARCHS = ["stablelm-1.6b", "rwkv6-3b", "minicpm3-4b", "granite-moe-1b-a400m",
+         "deepseek-v2-lite-16b"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -149,3 +153,22 @@ def test_prefill_writes_only_its_slot():
         assert torch.equal(t[:, 2], before[name][:, 2]), name
         assert t[:, 1, :5].abs().sum() > 0 and not t[:, 1, 5:].any()
     np.testing.assert_array_equal(eng.slot_pos, [7, 5, 0])
+
+
+def test_mla_prefill_writes_only_its_slot():
+    """The MLA cache (latent and rope key) through a slot view: a prefill
+    leaves the other slots as they were."""
+    model = build(configs.reduced("deepseek-v2-lite-16b"), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    eng = ServeEngine(model, num_slots=3, cache_len=24)
+    assert set(eng.cache) == {"c_kv", "k_rope"}
+    rng = np.random.default_rng(4)
+    assert eng.try_admit(Request(0, rng.integers(0, 256, 6).astype(np.int32),
+                                 2))
+    before = {k: t.clone() for k, t in eng.cache.items()}
+    assert eng.try_admit(Request(1, rng.integers(0, 256, 4).astype(np.int32),
+                                 2))
+    for name, t in eng.cache.items():
+        assert torch.equal(t[:, 0], before[name][:, 0]), name
+        assert torch.equal(t[:, 2], before[name][:, 2]), name
+        assert t[:, 1, :4].abs().sum() > 0 and not t[:, 1, 4:].any()
