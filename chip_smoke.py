@@ -9,8 +9,10 @@ batched over demand scenarios, with telemetry, the breach cadence and
 the carried IRLS moments, the fleet simulator with the paper's §4 time
 shifting and §5 free pool, the policy tournament, the serving engine on
 the published stablelm-1.6b, rwkv6-3b, granite-moe-1b-a400m (MoE) and
-deepseek-v2-lite-16b (MoE with MLA), and the trainer on the
-published stablelm-1.6b (rwkv6-3b cut to two layers) — and checks each
+deepseek-v2-lite-16b (MoE with MLA), internlm2-20b with the int8 KV
+cache, and the trainer on the published stablelm-1.6b and
+granite-moe-1b-a400m (rwkv6-3b cut to two layers, deepseek-v2-lite-16b
+to four) — and checks each
 of their kernels (commitment sweep, revocation walk,
 generation turnover, flash attention, RWKV6 recurrence) against its plain
 PyTorch version.  Flash
@@ -18,8 +20,10 @@ attention is three CUDA kernels, routed by dtype, head dim and query rows
 (``flash_attention.route``): a tensor-core bf16 prefill (``prefill_tc``),
 a split-KV decode (``decode_split``) and the SIMT kernel (``simt``: f32
 prefill, bf16 with head dim 32); the prefill kernels also take MLA's
-value head dim of its own, (Dqk, Dv) = (192, 128) and (96, 64).  Phases, in this order, each printing one
-JSON line and raising on failure:
+value head dim of its own, (Dqk, Dv) = (192, 128) and (96, 64), and the
+split decode has an int8 instance that reads the quantized KV cache.
+Phases, in this order, each printing one JSON line and raising on
+failure:
 
   device    card name and power limit, torch and CUDA versions
   build     nvcc build of the seven kernel sources, one nvcc each, all at
@@ -158,8 +162,20 @@ JSON line and raising on failure:
             version; MLA's head dims (192, 128) and (96, 64), ragged, one
             query, a wrapped ring, in f32 (simt) and bf16 (prefill_tc),
             and the bf16 prefills (1, 2048, 16, 192/128) and (1, 2048,
-            40, 96/64) causal (FLASH_MLA); each bf16 query row's error
-            norm against its reference norm as well as element by element
+            40, 96/64) causal (FLASH_MLA), and serve_int8's longest
+            prefill (1, 2048, 48/8, 128) causal in bf16
+            (FLASH_INTERNLM2_PREFILL); each bf16 query row's error
+            norm against its reference norm as well as element by element;
+            decode_split's int8 instance (FLASH_INT8_*: 8 slots with 8
+            ragged kv_len, GQA groups 1, 4 and 6, D 32, 64 and 128, q in
+            bf16 and f32, an all-zero cache row at the scale floor, values
+            at +-127) and at serve_int8's own decode (8 slots, 48/8 heads,
+            D 128, a 4096-long cache, 16 splits), bit for bit against the
+            bf16/f32 instance on the same cache dequantized by torch, and
+            against the plain version within the dtype's tolerance (the
+            timed int8 inputs held so again in phase timing); a 3-query
+            decode over the int8
+            cache dequantized first, on the prefill kernels
   linrec    RWKV6 kernels (chunk, state scan, inter: one call) vs plain
             version: ragged T, strong decay, a carried state, the model's
             whole decay range, a chunk whose decay is exactly 0, B = 2 at
@@ -195,7 +211,15 @@ JSON line and raising on failure:
             (192, 128), no decode_split (the absorbed decode), the tick's
             expert products and absorbed decode by profiler range (a
             main path); every serve phase's flash launches by kernel are
-            expected_flash_mix's, exactly
+            expected_flash_mix's, exactly, and its int8 decode launches 0
+  serve_int8   the full internlm2-20b (48 layers, d 6144, GQA 48/8 at D
+            128) with kv_cache_dtype="int8" (a main path): 48 x 16
+            prefill_tc at (128, 128), 48 x ticks decode_split, every one
+            of them the int8 instance; the int8 cache under 0.6 of the
+            bf16 cache's bytes; on two requests the first decode tick's
+            logits within the reference's bound (0.05 max|logits| + 0.1,
+            tests/test_perf_knobs.py) of the same weights with a bf16
+            cache
   train     training (a main path): flash_attention_trainable's output and
             dq, dk, dv against autograd through the plain version on the
             card (S 65 and 200, GQA groups 1 and 4, head dims 32-128, f32
@@ -221,12 +245,34 @@ JSON line and raising on failure:
             checkpoint at full width with 2 layers, the losses of steps
             5-8 equal to an uninterrupted run's bit for bit, the save's
             seconds and bytes; rwkv6-3b at full width with 2 layers, 3
-            steps, 2 RWKV6 launches per layer and step
+            steps, 2 RWKV6 launches per layer and step.  The trainable
+            flash op also at MLA's (192, 128) and (96, 64) (f32 on simt,
+            bf16 on prefill_tc, S 65 and 200, groups 1 and 4, and
+            deepseek's (4, 2048, 16, 192/128) bf16), and the reduced f32
+            granite-moe-1b-a400m, deepseek-v2-lite-16b and minicpm3-4b
+            (MLA at MLA_CARD_DIMS) card vs CPU as above
+  train_moe Trainer.fit as phase train's main path (bf16, 12 steps of 4 x
+            2048 tokens, AdamW lr 3e-4 warmup 5, remat "full") on the full
+            granite-moe-1b-a400m (24 layers, 32 experts top-8) and on
+            deepseek-v2-lite-16b at full width cut to 4 layers (the dense
+            first layer and 3 MoE layers; the whole model's bf16 weights,
+            gradients and float32 AdamW state would not fit one card):
+            step 1 twice bit for bit, losses finite and descending,
+            exactly 2 x layers prefill_tc launches a step (at (64, 64) and
+            (192, 128)), no simt or decode_split; step seconds, tokens/s,
+            peak memory, one step under torch.profiler (device busy, the
+            flash backward's, the expert products' and the MoE combine
+            backward's shares) (a main path)
   timing    each kernel's and its plain version's times at its main-path
             shape (the sweep also at the scenario plan's 262,144 x 128 x
             1,344; flash: prefill_tc at the bf16 prefill and MLA's two
-            prefill shapes (with the backend SDPA took there),
-            decode_split at the bf16 decode, simt at the f32 prefill, and
+            prefill shapes (with the backend SDPA took there) and the MoE
+            train shapes (4, 2048, 16, 64) and (4, 2048, 16, 192/128),
+            serve_int8's prefill (1, 2048, 48/8, 128) beside SDPA,
+            decode_split at the bf16 decode and, int8 instance beside the
+            bf16 one, at internlm2-20b's (8, 4096, 8, 128) cache (no
+            library call reads int8: SDPA over the bf16 cache for
+            context), simt at the f32 prefill, and
             at head dim 128 beside the library; RWKV6 also at a short prompt's T = 128;
             the revocation walk at its main shape; the turnover kernel's
             from phase turnover),
@@ -435,6 +481,21 @@ FLASH_BF16 = dict(atol=1e-2, rtol=1e-2, row=2e-2)
 # minicpm3's head dims at a 2048-token prompt
 FLASH_MLA = {"mla_192_128": (1, 16, 2048, 192, 128),
              "mla_96_64": (1, 40, 2048, 96, 64)}
+# the MoE family's train steps' attention (B, H, S, Dqk, Dv): granite-moe's
+# and deepseek-v2-lite's at TRAIN_BATCH x TRAIN_SEQ (phase train_moe)
+FLASH_MOE_TRAIN = {"train_granite_64_64": (4, 16, 2048, 64, 64),
+                   "train_deepseek_192_128": (4, 16, 2048, 192, 128)}
+# decode_split's int8 instance: 8 slots with ragged fill levels over a
+# cache of FLASH_INT8_CACHE, two kv heads in GQA groups 1, 4 and 6 at head
+# dims 32, 64 and 128; the timed shape is internlm2-20b's (slots, q heads,
+# kv heads, D) against SERVE_CACHE
+FLASH_INT8_CACHE = 1024
+FLASH_INT8_LENS = (1, 77, 256, 257, 600, 999, 1000, 1024)
+FLASH_INT8_CASES = tuple((g, d) for g in (1, 4, 6) for d in (32, 64, 128))
+FLASH_INT8_DECODE = (SERVE_SLOTS, 48, 8, 128)
+# prefill_tc on serve_int8's path: internlm2-20b's longest prompt,
+# (B, Hq, Hkv, S, D)
+FLASH_INTERNLM2_PREFILL = (1, 48, 8, PROMPT_MAX, 128)
 # the flash kernels' names as the profiler shows them (all hold "flash_"),
 # by route
 FLASH_PROFILE_NAMES = {
@@ -444,9 +505,9 @@ FLASH_PROFILE_NAMES = {
     "simt": ("flash_simt_kernel",)}
 # the port's torch.profiler.record_function ranges (the trainable flash
 # op's backward, the embedding's backward, the MoE's expert products, MLA's
-# absorbed decode)
+# absorbed decode, the MoE combine's backward)
 ANNOTATIONS = ("flash_attention_backward", "embed_backward", "moe_experts",
-               "mla_absorbed_decode")
+               "mla_absorbed_decode", "moe_combine_backward")
 SERVE_RANGES = ("moe_experts", "mla_absorbed_decode")
 # the three kernels of one RWKV6 call (all hold "rwkv6_")
 RWKV6_PROFILE_NAMES = ("rwkv6_chunk_kernel", "rwkv6_state_scan_kernel",
@@ -570,15 +631,17 @@ def kernel_modules():
 def reset_launches():
     for mod in kernel_modules().values():
         mod.LAUNCHES = 0
-    by_kernel = kernel_modules()["flash_attention"].LAUNCHES_BY_KERNEL
-    for name in by_kernel:
-        by_kernel[name] = 0
+    fk = kernel_modules()["flash_attention"]
+    for name in fk.LAUNCHES_BY_KERNEL:
+        fk.LAUNCHES_BY_KERNEL[name] = 0
+    fk.LAUNCHES_INT8 = 0
 
 
 def read_launches():
     out = {name: mod.LAUNCHES for name, mod in kernel_modules().items()}
-    out["flash_by_kernel"] = dict(
-        kernel_modules()["flash_attention"].LAUNCHES_BY_KERNEL)
+    fk = kernel_modules()["flash_attention"]
+    out["flash_by_kernel"] = dict(fk.LAUNCHES_BY_KERNEL)
+    out["flash_int8"] = fk.LAUNCHES_INT8
     return out
 
 
@@ -2221,6 +2284,116 @@ def flash_routed(fk, fn):
     return out, used[0]
 
 
+def int8_cache(k, v):
+    """The int8 cache of k, v (B, S, H, D), quantized as the model writes
+    it, with one all-zero row (slot 2, position 5, kv head 1: the scale
+    floor) and one row holding both +127 and -127 (slot 3, position 7, kv
+    head 0): (k values, k scales, v values, v scales)."""
+    from repro_torch.models.attention import _quantize_kv
+    k, v = k.float().clone(), v.float().clone()
+    k[2, 5, -1] = 0.0
+    v[2, 5, -1] = 0.0
+    k[3, 7, 0] = k[3, 7, 0].clamp(-1.0, 1.0)
+    k[3, 7, 0, :2] = torch.tensor([2.0, -2.0], device=k.device)
+    return (*_quantize_kv(k), *_quantize_kv(v))
+
+
+def int8_decode_check(key, q, kq, ks, vq, vs, lens, tol):
+    """One decode over the int8 cache (B, S, Hkv, D) through ops: it must
+    launch decode_split's int8 instance (LAUNCHES_INT8), equal bit for bit
+    decode_split's bf16/f32 instance on the same cache dequantized by
+    torch, and lie within ``tol`` of the plain version.  Returns the
+    largest error and the largest row ratio."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_int8_ref,
+        dequantize_kv,
+    )
+    before = fk.LAUNCHES_INT8
+    got, used = flash_routed(fk, lambda: ops.flash_attention(
+        q, kq, vq, kv_len=lens, layout="bshd", k_scale=ks, v_scale=vs))
+    if used != "decode_split" or fk.LAUNCHES_INT8 != before + 1:
+        raise AssertionError(f"flash {key}: launched {used}, "
+                             f"int8 {fk.LAUNCHES_INT8 - before}")
+    kd, vd = dequantize_kv(kq, ks, q.dtype), dequantize_kv(vq, vs, q.dtype)
+    same = ops.flash_attention(q, kd, vd, kv_len=lens, layout="bshd")
+    torch.cuda.synchronize()
+    if not torch.equal(got, same):
+        raise AssertionError(
+            f"flash {key}: the int8 instance != the {q.dtype} instance on "
+            "the dequantized cache, "
+            f"{float((got.float() - same.float()).abs().max())} apart")
+    want = attention_int8_ref(
+        *(x.transpose(1, 2) for x in (q, kq, vq, ks, vs)), causal=True,
+        kv_len=lens)
+    return flash_compare(key, got.transpose(1, 2), want, tol)
+
+
+def int8_main_inputs(dev):
+    """internlm2-20b's decode over an int8 cache (FLASH_INT8_DECODE
+    against SERVE_CACHE, decode_inputs' fill levels up to the full
+    cache): q, k, v in bf16, the cache quantized as the model writes it,
+    and kv_len."""
+    from repro_torch.models.attention import _quantize_kv
+    b, hq, hkv, d = FLASH_INT8_DECODE
+    q, k, v = flash_inputs(dev, torch.bfloat16, b, hq, hkv, 1, SERVE_CACHE,
+                           d, 23, layout="bshd")
+    (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+    return q, k, v, kq, ks, vq, vs, decode_inputs(dev)[3]
+
+
+def flash_int8_cases(dev):
+    """decode_split's int8 instance (int8_decode_check): 8 slots with
+    FLASH_INT8_LENS over a cache of FLASH_INT8_CACHE, two kv heads in GQA
+    groups 1, 4 and 6 at D 32, 64 and 128, q in bf16 and f32 (FLASH_BF16 /
+    FLASH_F32), and serve_int8's own decode (int8_main_inputs).  Then a
+    3-query decode over the int8 cache: dequantized first, on the kernel
+    its shape routes to, no int8 launch.  Returns the errors, the row
+    ratios and the routes."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_int8_ref
+    errs, rows, routes = {}, {}, {}
+    lens = torch.tensor(FLASH_INT8_LENS, dtype=torch.int32, device=dev)
+    b, hkv, skv = len(FLASH_INT8_LENS), 2, FLASH_INT8_CACHE
+    for i, (group, d) in enumerate(FLASH_INT8_CASES):
+        for dtype, tol in ((torch.bfloat16, FLASH_BF16), (torch.float32,
+                                                           FLASH_F32)):
+            q, k, v = flash_inputs(dev, dtype, b, hkv * group, hkv, 1, skv,
+                                   d, 90 + i, layout="bshd")
+            kq, ks, vq, vs = int8_cache(k, v)
+            if not (kq[3, 7, 0, 0] == 127 and kq[3, 7, 0, 1] == -127
+                    and (kq[2, 5, -1] == 0).all()):
+                raise AssertionError("flash int8: the cache's edge rows")
+            key = f"int8_g{group}_d{d}_{str(dtype)[6:]}"
+            errs[key], rows[key] = int8_decode_check(key, q, kq, ks, vq, vs,
+                                                     lens, tol)
+            routes[key] = "decode_split_int8"
+    q, _, _, kq, ks, vq, vs, kv_len = int8_main_inputs(dev)
+    key = "int8_internlm2_decode_bfloat16"
+    errs[key], rows[key] = int8_decode_check(key, q, kq, ks, vq, vs, kv_len,
+                                             FLASH_BF16)
+    routes[key] = "decode_split_int8"
+    q, k, v = flash_inputs(dev, torch.bfloat16, b, 8, hkv, 3, skv, 128, 99,
+                           layout="bshd")
+    kq, ks, vq, vs = int8_cache(k, v)
+    before = fk.LAUNCHES_INT8
+    got, used = flash_routed(fk, lambda: ops.flash_attention(
+        q, kq, vq, kv_len=lens.clamp(min=3), layout="bshd", k_scale=ks,
+        v_scale=vs))
+    if used != fk.route(torch.bfloat16, 128, 3) or fk.LAUNCHES_INT8 != before:
+        raise AssertionError(f"flash int8 multi-query: launched {used}")
+    want = attention_int8_ref(
+        *(x.transpose(1, 2) for x in (q, kq, vq, ks, vs)), causal=True,
+        kv_len=lens.clamp(min=3))
+    key = "int8_three_queries_bfloat16"
+    errs[key], rows[key] = flash_compare(key, got.transpose(1, 2), want,
+                                         FLASH_BF16)
+    routes[key] = used
+    return errs, rows, routes
+
+
 def phase_flash(dev):
     """Every flash kernel against the plain version: the ragged cases in
     f32 and bf16 and both layouts, each checked to have launched the
@@ -2229,8 +2402,8 @@ def phase_flash(dev):
     (Dqk, Dv) = (192, 128) and (96, 64) on prefill_tc in bf16, one query
     too, and on simt in f32), then the prefill and decode main shapes and
     MLA's two prefill shapes (FLASH_MLA, bf16), the decode also against
-    the split-KV algebra's plain version.  Returns the largest error over
-    all cases."""
+    the split-KV algebra's plain version, then the int8 decode
+    (flash_int8_cases).  Returns the largest error over all cases."""
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (
@@ -2324,6 +2497,19 @@ def phase_flash(dev):
             key, got.transpose(1, 2), want, FLASH_BF16)
         routes[key] = used
         del q, k, v, got, want
+    b, hq, hkv, s, d = FLASH_INTERNLM2_PREFILL
+    q, k, v = flash_inputs(dev, torch.bfloat16, b, hq, hkv, s, s, d, 24,
+                           layout="bshd")
+    got, used = flash_routed(fk, lambda: ops.flash_attention(
+        q, k, v, causal=True, layout="bshd"))
+    if used != "prefill_tc":
+        raise AssertionError(f"flash prefill_internlm2: launched {used}")
+    want = attention_ref(*(x.transpose(1, 2) for x in (q, k, v)), causal=True)
+    key = "prefill_internlm2_bfloat16"
+    errs[key], rows[key] = flash_compare(key, got.transpose(1, 2), want,
+                                         FLASH_BF16)
+    routes[key] = used
+    del q, k, v, got, want
     for dtype, tol in ((torch.bfloat16, FLASH_BF16), (torch.float32,
                                                        FLASH_F32)):
         q, k, v, kv_len = decode_inputs(dev, dtype)
@@ -2341,10 +2527,16 @@ def phase_flash(dev):
         key = f"decode_vs_split_ref_{str(dtype)[6:]}"
         errs[key], rows[key] = flash_compare(
             "decode vs split ref", got.transpose(1, 2), split, tol)
+    for part, new in zip((errs, rows, routes), flash_int8_cases(dev)):
+        part.update(new)
     emit("flash", max_abs_err=errs, row_err_over_norm=rows, routes=routes,
          tol_f32=FLASH_F32,
          tol_bf16=FLASH_BF16, prefill_shape=list(FLASH_PREFILL),
          mla_shapes={k: list(v) for k, v in FLASH_MLA.items()},
+         internlm2_prefill_shape=list(FLASH_INTERNLM2_PREFILL),
+         int8=dict(cache=FLASH_INT8_CACHE, kv_len=list(FLASH_INT8_LENS),
+                   groups_head_dims=[list(c) for c in FLASH_INT8_CASES],
+                   bit_for_bit_with_dequantized=True),
          decode=dict(slots=FLASH_DECODE[0], heads=FLASH_DECODE[1],
                      head_dim=FLASH_DECODE[2], cache=SERVE_CACHE,
                      kv_len=decode_inputs(dev)[3].tolist()))
@@ -2691,14 +2883,15 @@ def moe_tick_bytes(cfg):
     return moe_layers * 3 * cfg.num_experts * cfg.d_model * cfg.moe_d_ff * elem
 
 
-def phase_serve(name, arch, dev, counted):
-    """The full published ``arch`` served by the engine: the main path of
-    the kernel named ``counted``; the flash launches by kernel are
-    ``expected_flash_mix``'s, exactly."""
-    from repro_torch import configs
+def phase_serve(name, cfg, dev, counted, extra=None):
+    """The model of ``cfg`` at its full size served by the engine: the
+    main path of the kernel named ``counted``; the flash launches by
+    kernel are ``expected_flash_mix``'s, exactly, and with an int8 KV
+    cache every decode_split launch is the int8 instance (none without).
+    ``extra(model, prompts, engine)`` adds fields before the model is
+    freed."""
     from repro_torch.models.model import build
     from repro_torch.serve.engine import Request, ServeEngine
-    cfg = configs.get(arch)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2740,6 +2933,11 @@ def phase_serve(name, arch, dev, counted):
         raise AssertionError(f"{name}: flash launches by kernel "
                              f"{launches['flash_by_kernel']}, expected "
                              f"{mix}")
+    int8_want = (launches["flash_by_kernel"]["decode_split"]
+                 if cfg.kv_cache_dtype == "int8" else 0)
+    if launches["flash_int8"] != int8_want:
+        raise AssertionError(f"{name}: {launches['flash_int8']} int8 decode "
+                             f"launches, expected {int8_want}")
     # The engine against a direct prefill of the first request in a fresh
     # one-slot cache: finite logits and the engine's first token.
     cache = model.init_cache(1, SERVE_CACHE)
@@ -2756,7 +2954,7 @@ def phase_serve(name, arch, dev, counted):
     prof = profile_serving(name, engine, reqs, stats, counted, names)
     ttft = sorted(stats["ttft"].values())
     out = dict(
-        arch=arch, params=model.num_params(), dtype=cfg.dtype,
+        arch=cfg.name, params=model.num_params(), dtype=cfg.dtype,
         layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
         slots=SERVE_SLOTS, cache_len=SERVE_CACHE, requests=SERVE_REQUESTS,
         prompt_tokens=int(lens.sum()), prompt_len_min_max=[int(lens.min()),
@@ -2769,7 +2967,8 @@ def phase_serve(name, arch, dev, counted):
         decode_tokens_per_s=stats["decode_tokens"] / stats["decode_s"],
         ttft_p50_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
         ttft_first_s=ttft[0], launches=launches, expected_flash_mix=mix,
-        max_memory_allocated=peak, profile=prof)
+        kv_cache_dtype=cfg.kv_cache_dtype, max_memory_allocated=peak,
+        profile=prof, **(extra(model, prompts, engine) if extra else {}))
     if cfg.num_experts:
         # the decode tick's expert products against the bytes they must
         # read: every expert's weights (moe_tick_bytes)
@@ -2858,6 +3057,77 @@ def profile_serving(name, engine, reqs, stats, counted, names):
     path.mkdir(parents=True, exist_ok=True)
     (path / f"profile_{name}.txt").write_text("\n".join(text) + "\n")
     return out
+
+
+# the reference's bound on an int8 cache's logits against a bf16 cache's
+# (tests/test_perf_knobs.py::TestInt8KVCache): err < a max|logits| + b
+INT8_LOGIT_BOUND = (0.05, 0.1)
+INT8_CACHE_RATIO = 0.6      # test_cache_bytes_halved: int8 bytes < 0.6 bf16
+INT8_CHECKED_REQUESTS = 2
+
+
+def with_cfg(model, cfg):
+    """Point the model and every layer at ``cfg`` (the same weights; here
+    another kv_cache_dtype)."""
+    for m in model.modules():
+        if getattr(m, "cfg", None) is not None:
+            m.cfg = cfg
+
+
+def int8_serve_checks(model, prompts, engine):
+    """The int8 cache's bytes against the bf16 cache's (same slots and
+    length, counted from the specs), then, on the first
+    INT8_CHECKED_REQUESTS prompts, the first decode tick's logits with the
+    int8 cache against the same weights with a bf16 cache, within the
+    reference's bound."""
+    import dataclasses
+    cfg = model.cfg
+    cfg_b = dataclasses.replace(cfg, kv_cache_dtype="bf16")
+    int8_bytes = sum(t.numel() * t.element_size()
+                     for t in engine.cache.values())
+    bf16_bytes = cfg.num_layers * sum(
+        math.prod(sp.shape) * (sp.dtype or model.dtype).itemsize
+        for sp in model.cache_specs(cfg_b, SERVE_SLOTS, SERVE_CACHE).values())
+    if not int8_bytes < INT8_CACHE_RATIO * bf16_bytes:
+        raise AssertionError(f"serve_int8: cache {int8_bytes} bytes against "
+                             f"the bf16 cache's {bf16_bytes}")
+    a, b = INT8_LOGIT_BOUND
+    checks = []
+    for prompt in prompts[:INT8_CHECKED_REQUESTS]:
+        tok = torch.as_tensor(prompt[None], device=model.device)
+        ticks = []
+        for c in (cfg, cfg_b):
+            with_cfg(model, c)
+            cache = model.init_cache(1, SERVE_CACHE)
+            pre, cache = model.apply(tok, mode="prefill", cache=cache, pos=0)
+            nxt = pre[:, -1:].argmax(-1)
+            ticks.append(model.apply(nxt, mode="decode", cache=cache,
+                                     pos=len(prompt))[0])
+            del cache
+        with_cfg(model, cfg)
+        err = float((ticks[0] - ticks[1]).abs().max())
+        scale = float(ticks[1].abs().max())
+        if not (torch.isfinite(ticks[0]).all() and err < a * scale + b):
+            raise AssertionError(f"serve_int8: first decode tick's logits "
+                                 f"{err} from the bf16 cache's (largest "
+                                 f"{scale})")
+        checks.append(dict(prompt_tokens=len(prompt), max_abs_err=err,
+                           largest=scale, bound=a * scale + b))
+    return dict(int8_cache_bytes=int8_bytes, bf16_cache_bytes=bf16_bytes,
+                cache_ratio=int8_bytes / bf16_bytes,
+                first_tick_vs_bf16_cache=checks)
+
+
+def phase_serve_int8(dev):
+    """internlm2-20b at full size with kv_cache_dtype="int8" (module
+    docstring, phase ``serve_int8``)."""
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get("internlm2-20b"),
+                              kv_cache_dtype="int8")
+    return phase_serve("serve_int8", cfg, dev, "flash_attention",
+                       extra=int8_serve_checks)
 
 
 def moe_drops_card_vs_cpu(dev):
@@ -2991,13 +3261,24 @@ TRAIN_CPU_STEPS, TRAIN_CPU_SEQ, TRAIN_CPU_BATCH = 3, 64, 2
 #   (the steps' own bound): AdamW's direction m_hat / (sqrt(v_hat) + eps)
 #   turns a gradient's last bits into a full-size difference where
 #   sqrt(v_hat) is small, and three steps compound it (measured on an H100
-#   80GB HBM3: 1.6e-4 for stablelm, 6.3e-3 for rwkv6).  The control, a CPU
-#   run whose learning rate is 1% higher (`TRAIN_CPU_CONTROL_LR`), must
-#   read above `update_rel` (on the CPU: 2.3e-2 for stablelm, 0.20 for
-#   rwkv6), so the gate catches a 1% error in the step's size
-TRAIN_CPU_TOL = dict(grad={"stablelm-1.6b": 1e-5, "rwkv6-3b": 2e-4},
+#   80GB HBM3: 1.6e-4 for stablelm, 6.3e-3 for rwkv6, 6.0e-5 / 4.4e-5 /
+#   5.2e-5 for granite-moe / deepseek / minicpm3, whose gradients read
+#   7.1e-7 / 9.5e-7 / 1.4e-6 of their largest).  The control, a CPU run
+#   whose learning rate is 1% higher (`TRAIN_CPU_CONTROL_LR`), must read
+#   above `update_rel` (on the CPU: 2.3e-2 for stablelm, 0.20 for rwkv6,
+#   1.7e-2 / 2.0e-2 / 1.4e-2 for the MoE and MLA three), so the gate
+#   catches a 1% error in the step's size
+TRAIN_CPU_ARCHS = ("stablelm-1.6b", "rwkv6-3b", "granite-moe-1b-a400m",
+                   "deepseek-v2-lite-16b", "minicpm3-4b")
+TRAIN_CPU_TOL = dict(grad={"stablelm-1.6b": 1e-5, "rwkv6-3b": 2e-4,
+                           "granite-moe-1b-a400m": 1e-5,
+                           "deepseek-v2-lite-16b": 1e-5,
+                           "minicpm3-4b": 1e-5},
                      loss_rtol=1e-5,
-                     update_rel={"stablelm-1.6b": 2e-3, "rwkv6-3b": 2e-2})
+                     update_rel={"stablelm-1.6b": 2e-3, "rwkv6-3b": 2e-2,
+                                 "granite-moe-1b-a400m": 2e-3,
+                                 "deepseek-v2-lite-16b": 2e-3,
+                                 "minicpm3-4b": 2e-3})
 TRAIN_CPU_CONTROL_LR = 1.01
 # the trainable ops' gradients against autograd through the plain version
 # on the card: both compute them in float32 from the same inputs, so only
@@ -3018,29 +3299,38 @@ def train_flash_checks(dev):
     """flash_attention_trainable on the card: its output against the plain
     version (phase flash's tolerances) and its dq, dk, dv against autograd
     through the plain version, ragged, GQA groups 1 and 4, f32 and bf16,
-    and the main path's (4, 2048, 32, 64) bf16 in the model's layout."""
+    at the square head dims and MLA's (Dqk, Dv) = (192, 128) and (96, 64)
+    (f32 on simt, bf16 on prefill_tc), and the main paths' (4, 2048, 32,
+    64) and deepseek's (4, 2048, 16, 192/128) bf16 in the model's
+    layout."""
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    cases = {  # (b, hq, hkv, s, d, layout)
-        "g1_s65": (1, 4, 4, 65, 64, "bhsd"),
-        "g4_s200": (2, 8, 2, 200, 64, "bshd"),
-        "g4_s65_d128": (1, 8, 2, 65, 128, "bhsd"),
-        "g1_s200_d32": (2, 4, 4, 200, 32, "bshd"),
+    cases = {  # (b, hq, hkv, s, dqk, dv, layout)
+        "g1_s65": (1, 4, 4, 65, 64, 64, "bhsd"),
+        "g4_s200": (2, 8, 2, 200, 64, 64, "bshd"),
+        "g4_s65_d128": (1, 8, 2, 65, 128, 128, "bhsd"),
+        "g1_s200_d32": (2, 4, 4, 200, 32, 32, "bshd"),
+        "mla192_g1_s65": (1, 4, 4, 65, 192, 128, "bshd"),
+        "mla192_g4_s200": (2, 8, 2, 200, 192, 128, "bhsd"),
+        "mla96_g1_s200": (2, 4, 4, 200, 96, 64, "bshd"),
+        "mla96_g4_s65": (1, 8, 2, 65, 96, 64, "bhsd"),
     }
     b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, 32, 64
     errs, routes = {}, {}
     runs = [(name, c, dtype) for name, c in cases.items()
             for dtype in (torch.float32, torch.bfloat16)]
-    runs.append(("main", (b, h, h, s, d, "bshd"), torch.bfloat16))
-    for i, (name, (b, hq, hkv, s, d, layout), dtype) in enumerate(runs):
+    runs.append(("main", (b, h, h, s, d, d, "bshd"), torch.bfloat16))
+    runs.append(("main_mla192", (b, 16, 16, s, 192, 128, "bshd"),
+                 torch.bfloat16))
+    for i, (name, (b, hq, hkv, s, d, dv, layout), dtype) in enumerate(runs):
         q, k, v = (x.requires_grad_() for x in flash_inputs(
-            dev, dtype, b, hq, hkv, s, s, d, 40 + i, layout))
-        g = flash_inputs(dev, dtype, b, hq, hq, s, s, d, 60 + i, layout)[0]
+            dev, dtype, b, hq, hkv, s, s, d, 40 + i, layout, dv))
+        g = flash_inputs(dev, dtype, b, hq, hq, s, s, dv, 60 + i, layout)[0]
         out, used = flash_routed(fk, lambda: ops.flash_attention_trainable(
             q, k, v, layout=layout))
         grads = torch.autograd.grad(out, (q, k, v), g)
-        if used != fk.route(dtype, d, s):
+        if used != fk.route(dtype, d, s, dv=dv):
             raise AssertionError(f"train flash {name}: launched {used}")
         bhsd = [x.transpose(1, 2) if layout == "bshd" else x
                 for x in (q, k, v, g, out, *grads)]
@@ -3050,7 +3340,11 @@ def train_flash_checks(dev):
         tol = FLASH_F32 if dtype == torch.float32 else FLASH_BF16
         errs[key] = {"out": flash_compare(f"train {key}", bhsd[4].detach(),
                                           want.detach(), tol)[0]}
-        for label, a, w in zip(("dq", "dk", "dv"), bhsd[5:], want_grads):
+        for label, a, w, x in zip(("dq", "dk", "dv"), bhsd[5:], want_grads,
+                                  bhsd[:3]):
+            if a.shape != x.shape:
+                raise AssertionError(f"train flash {key} {label}: shape "
+                                     f"{tuple(a.shape)}")
             torch.testing.assert_close(
                 a.float(), w.float(), **TRAIN_GRAD_TOL[dtype],
                 msg=lambda m: f"train flash {key} {label}: {m}")
@@ -3125,11 +3419,12 @@ def train_rwkv6_checks(dev):
 
 
 def train_card_vs_cpu(dev):
-    """The reduced float32 stablelm-1.6b and rwkv6-3b on the card
-    (kernels) and on the CPU (plain versions) from the same weights and
-    batches: step 1's gradients, then TRAIN_CPU_STEPS train steps
-    (TRAIN_CPU_TOL), beside a CPU control run at TRAIN_CPU_CONTROL_LR
-    times the learning rate that the update gate must reject."""
+    """The reduced float32 TRAIN_CPU_ARCHS (MLA at MLA_CARD_DIMS, as
+    phase model_cpu runs them) on the card (kernels) and on the CPU
+    (plain versions) from the same weights and batches: step 1's
+    gradients, then TRAIN_CPU_STEPS train steps (TRAIN_CPU_TOL), beside a
+    CPU control run at TRAIN_CPU_CONTROL_LR times the learning rate that
+    the update gate must reject."""
     import dataclasses
 
     from repro_torch import configs
@@ -3161,8 +3456,10 @@ def train_card_vs_cpu(dev):
         return rel, worst
 
     out = {}
-    for arch in ("stablelm-1.6b", "rwkv6-3b"):
+    for arch in TRAIN_CPU_ARCHS:
         cfg = dataclasses.replace(configs.reduced(arch), dtype="float32")
+        if cfg.attention == "mla":
+            cfg = dataclasses.replace(cfg, **MLA_CARD_DIMS)
         models = [build(cfg, device="cpu"), build(cfg, device=dev),
                   build(cfg, device="cpu")]
         states = [init_train_state(models[0],
@@ -3236,12 +3533,14 @@ def train_trainer(model, ckpt_dir, *, ckpt_every=TRAIN_NO_CKPT,
     return trainer
 
 
-def profile_train_step(trainer, step_s):
+def profile_train_step(trainer, step_s, name):
     """One more step under torch.profiler (CPU and CUDA activity, so the
     backward's annotated ranges carry their kernels): device busy, time by
     kernel, and the device time of the flash backward (the recompute in
-    torch matmuls) and of the embedding's sorted backward, each as a share
-    of the step's device busy time and of its unprofiled time."""
+    torch matmuls), of the embedding's sorted backward and of the MoE's
+    ranges, each as a share of the step's device busy time (the flash
+    backward's also of its unprofiled time).  Full table in
+    build/chip_smoke/profile_train_<name>.txt."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3263,12 +3562,16 @@ def profile_train_step(trainer, step_s):
 
     flash_bwd, embed_bwd = ranged("flash_attention_backward"), ranged(
         "embed_backward")
+    # the MoE's ranges: the expert products (forward and remat recompute)
+    # and the combine's backward
+    moe = {label: ranged(label) for label in ("moe_experts",
+                                              "moe_combine_backward")}
     prefill = sum(k[0] for k in kernels if "flash_prefill_tc" in k[2]) / 1e6
     text = [smi()] + [f"{us / 1e3:12.4f} ms {c:8d}x  {key}"
                       for us, c, key in kernels]
     path = ROOT / "build" / "chip_smoke"
     path.mkdir(parents=True, exist_ok=True)
-    (path / "profile_train_step.txt").write_text("\n".join(text) + "\n")
+    (path / f"profile_train_{name}.txt").write_text("\n".join(text) + "\n")
     return dict(
         device_busy_s=busy, unprofiled_step_s=step_s,
         device_busy_share=busy / step_s,
@@ -3279,6 +3582,8 @@ def profile_train_step(trainer, step_s):
         prefill_tc_share_of_busy=prefill / busy,
         embed_backward_device_s=embed_bwd,
         embed_backward_share_of_busy=embed_bwd / busy,
+        moe_ranges_device_s=moe,
+        moe_ranges_share_of_busy={k: v / busy for k, v in moe.items()},
         top_kernels=[[round(us / 1e3, 3), n, key[:80]]
                      for us, n, key in kernels[:10]])
 
@@ -3313,17 +3618,17 @@ def embed_grad_cost(dev, cfg, tokens):
             embed(table, tokens), table, g)[0])))
 
 
-def train_main(dev):
-    """The main path: Trainer.fit on the full published stablelm-1.6b in
-    bf16 (random weights, seed 0 on the card), TRAIN_STEPS steps of
-    TRAIN_BATCH x TRAIN_SEQ tokens, remat "full"; first a rerun of step 1
-    bit for bit."""
+def train_fit(dev, cfg, label, extra=None):
+    """Trainer.fit on ``cfg`` in bf16 (random weights, seed 0 on the
+    card), TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens, remat
+    "full": first a rerun of step 1 bit for bit; then the losses finite
+    and descending, exactly 2 x layers prefill_tc launches a step and no
+    other flash kernel, step seconds, peak memory and one step profiled.
+    ``extra(trainer, model)`` adds fields before the model is freed."""
     import shutil
 
-    from repro_torch import configs
     from repro_torch.models.model import build
-    cfg = configs.get(TRAIN_ARCH)
-    root = ROOT / "build" / "chip_smoke" / "train_main"
+    root = ROOT / "build" / "chip_smoke" / f"train_{label}"
     model = build(cfg, device=dev)
     first = train_trainer(model, root / "a")
     first.init_or_restore()
@@ -3339,7 +3644,7 @@ def train_main(dev):
     rerun_equal = main.losses[0] == loss0 and all(
         torch.equal(p, snap[n]) for n, p in model.named_parameters())
     if not rerun_equal:
-        raise AssertionError("train: two runs of step 1 differ")
+        raise AssertionError(f"train {label}: two runs of step 1 differ")
     del snap
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3349,26 +3654,26 @@ def train_main(dev):
     peak = torch.cuda.max_memory_allocated()
     losses = list(main.losses)
     per_step = 2 * cfg.num_layers          # forward and remat recompute
-    expect_launches("main flash_by_kernel", launches["flash_by_kernel"],
+    expect_launches(f"{label} flash_by_kernel", launches["flash_by_kernel"],
                     dict(prefill_tc=per_step * TRAIN_STEPS, decode_split=0,
                          simt=0))
-    expect_launches("main flash", launches["flash_attention"],
+    expect_launches(f"{label} flash", launches["flash_attention"],
                     per_step * TRAIN_STEPS)
     if not np.isfinite(losses).all():
-        raise AssertionError(f"train: non-finite losses {losses}")
+        raise AssertionError(f"train {label}: non-finite losses {losses}")
     if not np.mean(losses[-3:]) < np.mean(losses[:3]):
-        raise AssertionError(f"train: losses do not descend: {losses}")
+        raise AssertionError(f"train {label}: losses do not descend: "
+                             f"{losses}")
     step_s = main.step_seconds()
     med = statistics.median(step_s[TRAIN_TIMED])
-    prof = profile_train_step(main, med)
-    tokens = torch.from_numpy(main.pipeline.next_batch()["tokens"]).to(dev)
-    embed_cost = embed_grad_cost(dev, cfg, tokens)
+    prof = profile_train_step(main, med, label)
+    more = extra(main, model) if extra else {}
     n_params = model.num_params()
     del main, model
     torch.cuda.empty_cache()
     shutil.rmtree(root, ignore_errors=True)
     return dict(
-        arch=TRAIN_ARCH, params=n_params, dtype=cfg.dtype,
+        arch=cfg.name, params=n_params, dtype=cfg.dtype,
         layers=cfg.num_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         steps=TRAIN_STEPS, opt=TRAIN_OPT, remat=cfg.remat_policy,
         losses=losses, step_s=step_s, step_s_median_3_12=med,
@@ -3376,7 +3681,21 @@ def train_main(dev):
         max_memory_allocated=peak, rerun_bit_for_bit=rerun_equal,
         launches=launches, launches_per_step=dict(
             prefill_tc=per_step, decode_split=0, simt=0),
-        profile=prof, embed_grad=embed_cost, nvidia_smi=smi())
+        profile=prof, nvidia_smi=smi(), **more)
+
+
+def train_main(dev):
+    """The main path: train_fit on the full published stablelm-1.6b, and
+    the embedding gradient's cost at its batch."""
+    from repro_torch import configs
+    cfg = configs.get(TRAIN_ARCH)
+
+    def embed_cost(trainer, model):
+        tokens = torch.from_numpy(
+            trainer.pipeline.next_batch()["tokens"]).to(dev)
+        return dict(embed_grad=embed_grad_cost(dev, cfg, tokens))
+
+    return train_fit(dev, cfg, "main", embed_cost)
 
 
 def train_restart(dev):
@@ -3508,11 +3827,49 @@ def phase_train(dev):
                 rwkv6_run=rwkv["launches"])
 
 
-def flash_flops_bytes(b, h, sq, kv_lens, d, elem_bytes, causal, dv=None):
+# phase train_moe: the MoE family at full width, each with its depth (None:
+# the published depth).  deepseek-v2-lite-16b keeps its dense first layer
+# and 3 MoE layers: its 27 layers' bf16 weights and gradients and float32
+# master, m and v (16 bytes a parameter) would take ~250 GB
+TRAIN_MOE = {"granite-moe-1b-a400m": None, "deepseek-v2-lite-16b": 4}
+TRAIN_BYTES_PER_PARAM = 16
+
+
+def phase_train_moe(dev):
+    """Training the MoE family on the card (module docstring, phase
+    ``train_moe``); returns each run's flash launches per step."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.model import num_params
+    out = {}
+    for arch, layers in TRAIN_MOE.items():
+        full = configs.get(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, num_layers=layers)
+        res = train_fit(dev, cfg, arch)
+        if layers is not None:
+            res["reduced"] = dict(
+                num_layers=[full.num_layers, layers],
+                full_params=num_params(full),
+                full_train_state_bytes=TRAIN_BYTES_PER_PARAM
+                * num_params(full),
+                why="the whole model's bf16 weights and gradients and "
+                    "float32 AdamW state exceed one card's 80 GB")
+        emit("train_moe", part=arch, **res)
+        out[arch if layers is None else f"{arch} ({layers} layers)"] = res[
+            "launches_per_step"]["prefill_tc"]
+    return out
+
+
+def flash_flops_bytes(b, h, sq, kv_lens, d, elem_bytes, causal, dv=None,
+                      hkv=None):
     """Products (QK^T over head dim d, PV over dv, default d; 2 flops per
-    multiply-add) over the keys each query row attends to, and each input
-    read and output written once (K/V only up to each row's kv_len)."""
+    multiply-add) over the keys each of the h query heads' rows attends
+    to, and each input read and output written once (K/V of the hkv kv
+    heads, default h, only up to each row's kv_len)."""
     dv = d if dv is None else dv
+    hkv = h if hkv is None else hkv
     keys = 0
     for n in kv_lens:
         if causal:  # query i sees n - sq + i + 1 keys
@@ -3520,7 +3877,7 @@ def flash_flops_bytes(b, h, sq, kv_lens, d, elem_bytes, causal, dv=None):
         else:
             keys += sq * n
     flops = 2 * h * (d + dv) * keys
-    kv_read = h * (d + dv) * sum(kv_lens) * elem_bytes
+    kv_read = hkv * (d + dv) * sum(kv_lens) * elem_bytes
     nbytes = kv_read + b * h * sq * (d + dv) * elem_bytes
     return flops, nbytes
 
@@ -3651,7 +4008,8 @@ def timing_flash(dev, peak):
         flops, nbytes, peak["bf16_flops"], peak)
     del q, k, v, qt, kt, vt
 
-    for name, (b, h, s, d, dv) in FLASH_MLA.items():
+    for name, (b, h, s, d, dv) in (*FLASH_MLA.items(),
+                                   *FLASH_MOE_TRAIN.items()):
         q, k, v = flash_inputs(dev, torch.bfloat16, b, h, h, s, s, d, 22,
                                layout="bshd", dv=dv)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -3669,6 +4027,25 @@ def timing_flash(dev, peak):
                                                     is_causal=True)
         del q, k, v, qt, kt, vt
 
+    # prefill_tc at serve_int8's longest prompt (GQA 48/8 at D 128)
+    b, hq, hkv, s, d = FLASH_INTERNLM2_PREFILL
+    q, k, v = flash_inputs(dev, torch.bfloat16, b, hq, hkv, s, s, d, 24,
+                           layout="bshd")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    assert fk.route(torch.bfloat16, d, s) == "prefill_tc"
+    lens_i = torch.full((b,), s, dtype=torch.int32, device=dev)
+    flops, nbytes = flash_flops_bytes(b, hq, s, [s] * b, d, 2, True, hkv=hkv)
+    out["prefill_tc_internlm2"] = flash_timed(
+        lambda: fk.flash_attention_cuda(
+            q, k, v, lens_i, causal=True, scale=d ** -0.5, seq_dim=1),
+        lambda: attention_ref(qt, kt, vt, causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True),
+        flops, nbytes, peak["bf16_flops"], peak)
+    out["prefill_tc_internlm2"]["library_backend"] = sdpa_backend(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    del q, k, v, qt, kt, vt
+
     dq, dk, dv, kv_len = decode_inputs(dev)
     dqt, dkt, dvt = (x.transpose(1, 2) for x in (dq, dk, dv))
     keep = (torch.arange(SERVE_CACHE, device=dev)[None, :]
@@ -3684,7 +4061,75 @@ def timing_flash(dev, peak):
         lambda: F.scaled_dot_product_attention(dqt, dkt, dvt,
                                                attn_mask=keep),
         dflops, dbytes, peak["bf16_flops"], peak)
+    out.update(timing_decode_int8(dev, peak))
     return out
+
+
+def timing_decode_int8(dev, peak):
+    """decode_split at internlm2-20b's decode (int8_main_inputs): the
+    int8 instance over the quantized cache (its bound: the int8 values and
+    bf16 scales up to each row's kv_len, q read and o written once), held
+    by int8_decode_check on these inputs, and the bf16 instance over the
+    bf16 cache, held to its plain version, each timed beside its plain
+    version; no PyTorch call reads an int8 cache, so the int8 row's
+    library time is null, and SDPA over the bf16 cache stands beside both
+    for context."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_int8_ref,
+        attention_ref,
+    )
+    b, hq, hkv, d = FLASH_INT8_DECODE
+    q, k, v, kq, ks, vq, vs, kv_len = int8_main_inputs(dev)
+    int8_err, _ = int8_decode_check("timing int8 decode", q, kq, ks, vq, vs,
+                                    kv_len, FLASH_BF16)
+    qt, kt, vt, kqt, vqt, kst, vst = (x.transpose(1, 2)
+                                      for x in (q, k, v, kq, vq, ks, vs))
+    keep = (torch.arange(SERVE_CACHE, device=dev)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    scale = d ** -0.5
+    bf16_err, _ = flash_compare(
+        "timing bf16 decode",
+        fk.flash_attention_cuda(q, k, v, kv_len, causal=True, scale=scale,
+                                seq_dim=1).transpose(1, 2),
+        attention_ref(qt, kt, vt, causal=True, kv_len=kv_len), FLASH_BF16)
+    flops, nbytes = flash_flops_bytes(b, hq, 1, kv_len.tolist(), d, 2, True,
+                                      hkv=hkv)
+    sdpa = flash_timed(
+        lambda: fk.flash_attention_cuda(q, k, v, kv_len, causal=True,
+                                        scale=scale, seq_dim=1),
+        lambda: attention_ref(qt, kt, vt, causal=True, kv_len=kv_len),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                               enable_gqa=True),
+        flops, nbytes, peak["bf16_flops"], peak)
+    sdpa["max_abs_err"] = bf16_err
+    int8_bytes = (hkv * sum(kv_len.tolist()) * 2 * (d + 2)
+                  + b * hq * 2 * d * 2)
+
+    def int8_kernel():
+        fk.flash_attention_cuda(q, kq, vq, kv_len, causal=True, scale=scale,
+                                seq_dim=1, k_scale=ks, v_scale=vs)
+
+    ms, plain_ms, kern_sets, plain_sets = time_turns(
+        int8_kernel, lambda: attention_int8_ref(qt, kqt, vqt, kst, vst,
+                                                causal=True, kv_len=kv_len))
+    ms_bound, by = bound(flops, int8_bytes, peak["bf16_flops"], peak)
+    int8 = dict(max_abs_err=int8_err, ms=ms, plain_ms=plain_ms,
+                kernel_ms=kern_sets,
+                plain_ms_sets=plain_sets, library_ms=None,
+                library_context_ms=sdpa["library_ms"],
+                library_context="scaled_dot_product_attention over the "
+                                "bf16 cache",
+                bound_ms=ms_bound, bound_by=by, bound_flops=flops,
+                bound_bytes=int8_bytes, host_ms=host_ms(int8_kernel),
+                library_host_ms=None,
+                bf16_instance_ms=sdpa["ms"],
+                bf16_bound_ms=sdpa["bound_ms"],
+                ms_over_bf16_ms=ms / sdpa["ms"],
+                bound_over_bf16_bound=ms_bound / sdpa["bound_ms"])
+    return {"decode_split_internlm2": sdpa, "decode_split_int8": int8}
 
 
 def timing_linrec(dev, peak):
@@ -3845,8 +4290,17 @@ def phase_timing(dev, launches, errs, turnover):
              prefill_tc_train=f"{(TRAIN_BATCH,) + FLASH_PREFILL[1:]} "
                               "causal bfloat16",
              **{name: f"(B, H, S, Dqk, Dv) = {shape} causal bfloat16"
-                for name, shape in FLASH_MLA.items()},
-             decode_split=f"{FLASH_DECODE} cache {SERVE_CACHE} bfloat16"),
+                for name, shape in (*FLASH_MLA.items(),
+                                    *FLASH_MOE_TRAIN.items())},
+             prefill_tc_internlm2=f"(B, Hq, Hkv, S, D) = "
+                                  f"{FLASH_INTERNLM2_PREFILL} causal "
+                                  "bfloat16",
+             decode_split=f"{FLASH_DECODE} cache {SERVE_CACHE} bfloat16",
+             decode_split_internlm2=f"(slots, Hq, Hkv, D) = "
+                                    f"{FLASH_INT8_DECODE} cache "
+                                    f"{SERVE_CACHE} bfloat16",
+             decode_split_int8=f"(slots, Hq, Hkv, D) = {FLASH_INT8_DECODE} "
+                               f"cache {SERVE_CACHE} int8, q bfloat16"),
              **fl),
          rwkv6=lin, revocation_walk=walk, generation_turnover=turnover)
     flash_srcs = kernel_modules()["flash_attention"].SOURCES
@@ -3912,6 +4366,27 @@ def phase_timing(dev, launches, errs, turnover):
             # and its remat recompute (phase train)
             "launches_per_train_step": launches["train"]["flash_per_step"],
             "launches_per_train_run": launches["train"]["flash_main"],
+            # the MoE family's train steps (phase train_moe), prefill_tc
+            # at (64, 64) and (192, 128), and those shapes' times
+            "launches_per_train_moe_step": launches["train_moe"],
+            "moe_train_shapes": {
+                name: dict(
+                    shape=f"prefill (B, H, S, Dqk, Dv) = {shape} causal bf16",
+                    **{key: fl[name][key] for key in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "library_backend")})
+                for name, shape in FLASH_MOE_TRAIN.items()},
+            # the int8 KV cache's serve run (phase serve_int8): every
+            # decode_split launch there is the int8 instance; its
+            # prefill_tc at the longest prompt
+            "launches_per_serve_int8": launches["serve_int8"],
+            "serve_int8_prefill_shape": dict(
+                shape=f"prefill (B, Hq, Hkv, S, D) = "
+                      f"{FLASH_INTERNLM2_PREFILL} causal bf16",
+                launches=launches["serve_int8"]["prefill_tc"],
+                **{key: fl["prefill_tc_internlm2"][key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_backend")}),
             "train_shape": dict(
                 shape=f"prefill {(TRAIN_BATCH,) + FLASH_PREFILL[1:]} "
                       "causal bf16",
@@ -3933,7 +4408,27 @@ def phase_timing(dev, launches, errs, turnover):
                     ("prefill_tc", f"prefill {FLASH_PREFILL} causal bf16"),
                     ("decode_split",
                      f"decode {FLASH_DECODE} cache {SERVE_CACHE} bf16"),
-                    ("simt", f"prefill {FLASH_PREFILL} causal f32"))},
+                    ("simt", f"prefill {FLASH_PREFILL} causal f32"))} | {
+                # decode_split's int8 instance (the same source), beside
+                # the bf16 instance at internlm2-20b's shape
+                "decode_split_int8": dict(
+                    source=rel(flash_srcs["decode_split"]),
+                    launches=launches["serve_int8"]["flash_int8"],
+                    shape=f"decode (slots, Hq, Hkv, D) = {FLASH_INT8_DECODE}"
+                          f" cache {SERVE_CACHE} int8 (bf16 scales), q bf16",
+                    **{key: fl["decode_split_int8"][key] for key in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "host_ms", "library_host_ms",
+                        "library_context_ms", "bf16_instance_ms",
+                        "bf16_bound_ms")}),
+                "decode_split_internlm2": dict(
+                    source=rel(flash_srcs["decode_split"]),
+                    launches=0,
+                    shape=f"decode (slots, Hq, Hkv, D) = {FLASH_INT8_DECODE}"
+                          f" cache {SERVE_CACHE} bf16",
+                    **{key: fl["decode_split_internlm2"][key] for key in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "host_ms", "library_host_ms")})},
             # MLA's prefill: (192, 128) on serve_mla's main path (27 x 16
             # launches), (96, 64) minicpm3's (no full-size main path here;
             # model_cpu runs it on simt in float32)
@@ -4031,6 +4526,7 @@ def main() -> int:
     errs["flash_attention"] = phase_flash(dev)
     errs["rwkv6"] = phase_linrec(dev)
     errs["revocation_walk"] = phase_walk(dev)
+    from repro_torch import configs
     from repro_torch.data import traces
     errs["generation_turnover"], turnover = phase_turnover(
         dev, traces.synthetic_base_pool_set(
@@ -4065,15 +4561,19 @@ def main() -> int:
                 "commitment_sweep_telemetry": telemetry_launches,
                 "fleet_sim": fleet_launches}
     launches["flash_attention"], dense = phase_serve(
-        "serve_dense", "stablelm-1.6b", dev, "flash_attention")
+        "serve_dense", configs.get("stablelm-1.6b"), dev, "flash_attention")
     launches["flash_by_kernel"] = dense["launches"]["flash_by_kernel"]
     launches["rwkv6"], _ = phase_serve(
-        "serve_rwkv", "rwkv6-3b", dev, "rwkv6")
+        "serve_rwkv", configs.get("rwkv6-3b"), dev, "rwkv6")
     for name, arch in (("serve_moe", "granite-moe-1b-a400m"),
                        ("serve_mla", "deepseek-v2-lite-16b")):
-        launches[name] = phase_serve(name, arch, dev, "flash_attention")[1][
-            "launches"]["flash_by_kernel"]
+        _, out = phase_serve(name, configs.get(arch), dev, "flash_attention")
+        launches[name] = out["launches"]["flash_by_kernel"]
+    int8_launches = phase_serve_int8(dev)[1]["launches"]
+    launches["serve_int8"] = dict(int8_launches["flash_by_kernel"],
+                                  flash_int8=int8_launches["flash_int8"])
     launches["train"] = phase_train(dev)
+    launches["train_moe"] = phase_train_moe(dev)
     phase_timing(dev, launches, errs, turnover)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

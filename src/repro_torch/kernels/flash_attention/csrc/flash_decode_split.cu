@@ -33,11 +33,23 @@
 // (m = -inf, l = 0) and return.  Each block leaves (m, l, acc[D]) per head
 // in float32 scratch; flash_decode_combine rescales the splits and writes
 // the output in q's dtype.
+//
+// The int8 instance (flash_decode_split_int8_launch) reads the quantized KV
+// cache: int8 K and V and one bf16 scale per (batch row, position, kv
+// head).  Each lane loads the VEC int8 values it would have read as T
+// (8 bytes for bf16 q, 4 for float32) and the row's two scales, and
+// dequantizes in registers exactly as the model's reference does,
+// T(float(value) * float(scale)); everything after the dequantization is
+// the T instance's code, so on the same cache dequantized by PyTorch the
+// two give the same bits.  Its bound is the cache's bytes, int8 values
+// plus bf16 scales: about half the bf16 cache's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -83,6 +95,67 @@ struct Strides {
   long long b, h, s;
 };
 
+// x cast to T and back, rounded as a cast to T rounds (nearest even).
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// A lane's VEC values of one K or V row, as floats: 16 bytes of T, or VEC
+// int8 values times the row's bf16 scale (rounded to T first).
+template <typename T, typename KV>
+struct Rows {  // KV == T: no scale
+  using Raw = uint4;
+  __device__ __forceinline__ static Raw load(const KV* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ static Raw zero() { return make_uint4(0, 0, 0, 0); }
+  __device__ __forceinline__ static float scale(const __nv_bfloat16*,
+                                                long long) {
+    return 0.0f;
+  }
+  __device__ __forceinline__ static void unpack(const Raw& r, float,
+                                                float* f) {
+    Vec<T>::unpack(r, f);
+  }
+};
+template <typename T>
+struct Rows<T, int8_t> {
+  static constexpr int N = Vec<T>::N;  // int8 values (bytes) per lane
+  using Raw = typename std::conditional<N == 8, uint2, uint32_t>::type;
+  __device__ __forceinline__ static Raw load(const int8_t* p) {
+    return __ldg(reinterpret_cast<const Raw*>(p));
+  }
+  __device__ __forceinline__ static Raw zero() { return Raw{}; }
+  __device__ __forceinline__ static float scale(const __nv_bfloat16* p,
+                                                long long off) {
+    const unsigned short bits =
+        __ldg(reinterpret_cast<const unsigned short*>(p + off));
+    return __uint_as_float(static_cast<uint32_t>(bits) << 16);
+  }
+  __device__ __forceinline__ static void unpack(const Raw& r, float sc,
+                                                float* f) {
+    uint32_t w[N / 4];
+    if constexpr (N == 8) {
+      w[0] = r.x;
+      w[1] = r.y;
+    } else {
+      w[0] = r;
+    }
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const int8_t q = static_cast<int8_t>((w[e / 4] >> (8 * (e % 4))) & 0xffu);
+      f[e] = round_to<T>(static_cast<float>(q) * sc);
+    }
+  }
+};
+
 // Merge state (m2, l2, a2) into (m, l, a); m in log2 units, -inf = empty.
 template <int N>
 __device__ __forceinline__ void merge(float& m, float& l, float* a, float m2,
@@ -99,14 +172,21 @@ __device__ __forceinline__ void merge(float& m, float& l, float* a, float m2,
 // Grid (num_splits, Hkv * num_chunks, B); block kThreads.  Partials:
 // ml[((b * Hq + h) * num_splits + split) * 2 + {0: m, 1: l}] and
 // acc[((b * Hq + h) * num_splits + split) * D + d], float32.
-template <typename T, int D, int G>
+// KV is T, or int8_t with the bf16 scales k_scale, v_scale (strides kss,
+// vss; unread when KV is T).
+template <typename T, typename KV, int D, int G>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
+flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                          const KV* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ k_scale,
+                          const __nv_bfloat16* __restrict__ v_scale,
                           const int* __restrict__ kv_len, float* __restrict__ ml,
                           float* __restrict__ acc_out, int Hq, int Hkv,
                           int Skv, int split, int num_chunks, Strides qs,
-                          Strides ks, Strides vs, float scale_log2) {
+                          Strides ks, Strides vs, Strides kss, Strides vss,
+                          float scale_log2) {
+  using R = Rows<T, KV>;
+  using Raw = typename R::Raw;
   constexpr int VEC = Vec<T>::N;
   constexpr int LPR = D / VEC;      // lanes per key row
   constexpr int KPW = 32 / LPR;     // key rows per warp step
@@ -150,19 +230,26 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  const T* kb = k + b * ks.b + hk * ks.h + part * VEC;
-  const T* vb = v + b * vs.b + hk * vs.h + part * VEC;
-  // Rows wb + sub + u * KPB, u < U, as 16-byte vectors; zeros past s1.
-  auto load = [&](int wb, uint4 (&kr)[U], uint4 (&vr)[U]) {
+  const KV* kb = k + b * ks.b + hk * ks.h + part * VEC;
+  const KV* vb = v + b * vs.b + hk * vs.h + part * VEC;
+  const __nv_bfloat16* ksb = k_scale + b * kss.b + hk * kss.h;
+  const __nv_bfloat16* vsb = v_scale + b * vss.b + hk * vss.h;
+  // Rows wb + sub + u * KPB, u < U, as vectors (and scales); zeros past s1.
+  auto load = [&](int wb, Raw (&kr)[U], Raw (&vr)[U], float (&kc)[U],
+                  float (&vc)[U]) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int j = wb + sub + u * KPB;
       if (j < s1) {
-        kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + j * ks.s));
-        vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + j * vs.s));
+        kr[u] = R::load(kb + j * ks.s);
+        vr[u] = R::load(vb + j * vs.s);
+        kc[u] = R::scale(ksb, j * kss.s);
+        vc[u] = R::scale(vsb, j * vss.s);
       } else {
-        kr[u] = make_uint4(0, 0, 0, 0);
-        vr[u] = make_uint4(0, 0, 0, 0);
+        kr[u] = R::zero();
+        vr[u] = R::zero();
+        kc[u] = 0.0f;
+        vc[u] = 0.0f;
       }
     }
   };
@@ -170,17 +257,19 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // has all 32 lanes.  The next U rows load while these U are scored; the
   // U scores of a head share one rescale of (l, acc).
   constexpr int kStep = KPB * U;
-  uint4 kr[U], vr[U];
-  load(s0 + warp * KPW, kr, vr);
+  Raw kr[U], vr[U];
+  float kc[U], vc[U];
+  load(s0 + warp * KPW, kr, vr, kc, vc);
   for (int wb = s0 + warp * KPW; wb < s1; wb += kStep) {
-    uint4 kn[U], vn[U];
-    load(wb + kStep, kn, vn);
+    Raw kn[U], vn[U];
+    float kcn[U], vcn[U];
+    load(wb + kStep, kn, vn, kcn, vcn);
     float sc[G][U], vf[U][VEC];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kf[VEC];
-      Vec<T>::unpack(kr[u], kf);
-      Vec<T>::unpack(vr[u], vf[u]);
+      R::unpack(kr[u], kc[u], kf);
+      R::unpack(vr[u], vc[u], vf[u]);
       const bool valid = wb + sub + u * KPB < s1;  // uniform over the row
 #pragma unroll
       for (int g = 0; g < G; ++g) {
@@ -218,6 +307,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < U; ++u) {
       kr[u] = kn[u];
       vr[u] = vn[u];
+      kc[u] = kcn[u];
+      vc[u] = vcn[u];
     }
   }
 
@@ -299,64 +390,74 @@ flash_decode_combine_kernel(const float* __restrict__ ml,
   store(o + b * os.b + h * os.h + d, lsum > 0.0f ? a / lsum : 0.0f);
 }
 
-template <typename T, int D, int G>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const int* kv_len, float* ml, float* acc, int B, int Hq, int Hkv,
-           int Skv, int split, const long long* st, float scale,
-           cudaStream_t stream) {
+// One call's arguments; st holds the element strides {batch, head, seq}
+// of q, k, v, o and, for the int8 instance, of k_scale and v_scale.
+struct Args {
+  const void *q, *k, *v, *k_scale, *v_scale;
+  void* o;
+  const int* kv_len;
+  float *ml, *acc;
+  int B, Hq, Hkv, Skv, split;
+  const long long* st;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename KV, int D, int G>
+int launch(const Args& a) {
+  const long long* st = a.st;
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]};
   const Strides vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
-  const int num_splits = (Skv + split - 1) / split;
-  const int group = Hq / Hkv;
+  Strides kss{0, 0, 0}, vss{0, 0, 0};
+  if (a.k_scale != nullptr) {
+    kss = Strides{st[12], st[13], st[14]};
+    vss = Strides{st[15], st[16], st[17]};
+  }
+  const int num_splits = (a.Skv + a.split - 1) / a.split;
+  const int group = a.Hq / a.Hkv;
   const int num_chunks = (group + G - 1) / G;
-  const dim3 grid(num_splits, Hkv * num_chunks, B);
-  flash_decode_split_kernel<T, D, G><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_len, ml, acc, Hq, Hkv, Skv, split,
-      num_chunks, qs, ks, vs, scale * 1.4426950408889634f);
+  const dim3 grid(num_splits, a.Hkv * num_chunks, a.B);
+  flash_decode_split_kernel<T, KV, D, G><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.k_scale),
+      static_cast<const __nv_bfloat16*>(a.v_scale), a.kv_len, a.ml, a.acc,
+      a.Hq, a.Hkv, a.Skv, a.split, num_chunks, qs, ks, vs, kss, vss,
+      a.scale * 1.4426950408889634f);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_combine_kernel<T, D><<<dim3(Hq, B), D, 0, stream>>>(
-      ml, acc, static_cast<T*>(o), Hq, num_splits, os);
+  flash_decode_combine_kernel<T, D><<<dim3(a.Hq, a.B), D, 0, a.stream>>>(
+      a.ml, a.acc, static_cast<T*>(a.o), a.Hq, num_splits, os);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch_g(int group, const void* q, const void* k, const void* v, void* o,
-             const int* kv_len, float* ml, float* acc, int B, int Hq,
-             int Hkv, int Skv, int split, const long long* st, float scale,
-             cudaStream_t s) {
-  if (group == 1)
-    return launch<T, D, 1>(q, k, v, o, kv_len, ml, acc, B, Hq, Hkv, Skv,
-                           split, st, scale, s);
-  if (group == 2)
-    return launch<T, D, 2>(q, k, v, o, kv_len, ml, acc, B, Hq, Hkv, Skv,
-                           split, st, scale, s);
-  if (group <= 4)
-    return launch<T, D, 4>(q, k, v, o, kv_len, ml, acc, B, Hq, Hkv, Skv,
-                           split, st, scale, s);
-  return launch<T, D, 8>(q, k, v, o, kv_len, ml, acc, B, Hq, Hkv, Skv, split,
-                         st, scale, s);
+template <typename T, typename KV, int D>
+int launch_g(const Args& a) {
+  const int group = a.Hq / a.Hkv;
+  if (group == 1) return launch<T, KV, D, 1>(a);
+  if (group == 2) return launch<T, KV, D, 2>(a);
+  if (group <= 4) return launch<T, KV, D, 4>(a);
+  return launch<T, KV, D, 8>(a);
 }
 
-template <typename T>
-int launch_d(int D, int group, const void* q, const void* k, const void* v,
-             void* o, const int* kv_len, float* ml, float* acc, int B, int Hq,
-             int Hkv, int Skv, int split, const long long* st, float scale,
-             cudaStream_t s) {
+template <typename T, typename KV>
+int launch_d(int D, const Args& a) {
   switch (D) {
     case 32:
-      return launch_g<T, 32>(group, q, k, v, o, kv_len, ml, acc, B, Hq, Hkv,
-                             Skv, split, st, scale, s);
+      return launch_g<T, KV, 32>(a);
     case 64:
-      return launch_g<T, 64>(group, q, k, v, o, kv_len, ml, acc, B, Hq, Hkv,
-                             Skv, split, st, scale, s);
+      return launch_g<T, KV, 64>(a);
     case 128:
-      return launch_g<T, 128>(group, q, k, v, o, kv_len, ml, acc, B, Hq, Hkv,
-                              Skv, split, st, scale, s);
+      return launch_g<T, KV, 128>(a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+bool bad_shape(int B, int Hq, int Hkv, int Skv, int split) {
+  return B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Skv <= 0 ||
+         split <= 0 || B > 65535 || Hq > 65535 ||
+         (long long)Hkv * ((Hq / Hkv + 7) / 8) > 65535;
 }
 
 }  // namespace
@@ -377,20 +478,34 @@ extern "C" int flash_decode_split_launch(const void* q, const void* k,
                                          const long long* strides,
                                          float scale, int dtype,
                                          void* stream) {
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Skv <= 0 ||
-      split <= 0 || B > 65535 || Hq > 65535 ||
-      (long long)Hkv * ((Hq / Hkv + 7) / 8) > 65535) {
+  if (bad_shape(B, Hq, Hkv, Skv, split)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int group = Hq / Hkv;
-  if (dtype == 0) {
-    return launch_d<float>(D, group, q, k, v, o, kv_len, ml, acc, B, Hq, Hkv,
-                           Skv, split, strides, scale, s);
+  const Args a{q,   k,   v,   nullptr, nullptr, o,     kv_len,
+               ml,  acc, B,   Hq,      Hkv,     Skv,   split,
+               strides, scale, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return launch_d<float, float>(D, a);
+  if (dtype == 1) return launch_d<__nv_bfloat16, __nv_bfloat16>(D, a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same over an int8 cache: k and v int8 (B, Hkv, Skv, D), k_scale and
+// v_scale bf16 (B, Hkv, Skv, 1), `strides` 18 int64 (q, k, v, o, k_scale,
+// v_scale); dtype (q and o) 0 = float32, 1 = bfloat16.  Each K/V value is
+// dequantized as the dtype's cast of float(value) * float(scale).
+extern "C" int flash_decode_split_int8_launch(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, void* o, const int* kv_len, float* ml, float* acc,
+    int B, int Hq, int Hkv, int Skv, int D, int split,
+    const long long* strides, float scale, int dtype, void* stream) {
+  if (bad_shape(B, Hq, Hkv, Skv, split) || k_scale == nullptr ||
+      v_scale == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1) {
-    return launch_d<__nv_bfloat16>(D, group, q, k, v, o, kv_len, ml, acc, B,
-                                   Hq, Hkv, Skv, split, strides, scale, s);
-  }
+  const Args a{q,   k,   v,   k_scale, v_scale, o,     kv_len,
+               ml,  acc, B,   Hq,      Hkv,     Skv,   split,
+               strides, scale, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return launch_d<float, int8_t>(D, a);
+  if (dtype == 1) return launch_d<__nv_bfloat16, int8_t>(D, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,7 +13,9 @@ note says what bounds it on the card and what its design does about that:
 ``decode_split`` (``csrc/flash_decode_split.cu``)
     ``Sq == 1`` with Dqk == Dv (the engine's batched decode), float32 or
     bf16, any GQA group: split-KV flash decoding, a split kernel writing
-    float32 partials and a combine kernel (one launch of the pair).
+    float32 partials and a combine kernel (one launch of the pair).  Its
+    int8 instance reads the quantized KV cache (int8 K and V, one bf16
+    scale per position and kv head) and dequantizes in registers.
 ``simt`` (``csrc/flash_attention.cu``)
     everything else, on the CUDA cores: float32 prefill (whose 2e-5
     tolerance bf16 tensor cores cannot meet) and bf16 with head dim 32.
@@ -34,7 +36,8 @@ vector loads).  All three are built at first launch by
 :func:`flash_attention_cuda` takes CUDA tensors only and raises on anything
 else; :mod:`ops` decides between it and the plain version by the device of
 the tensors.  ``LAUNCHES`` counts its launches, ``LAUNCHES_BY_KERNEL`` the
-same launches by kernel.
+same launches by kernel, and ``LAUNCHES_INT8`` those of the decode's int8
+instance (counted under ``"decode_split"`` too).
 """
 
 from __future__ import annotations
@@ -66,6 +69,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = 0
 #: The same launches by kernel (a decode split + combine pair counts once).
 LAUNCHES_BY_KERNEL = {name: 0 for name in SOURCES}
+#: Launches of decode_split's int8 instance (an int8 KV cache), a part of
+#: ``LAUNCHES_BY_KERNEL["decode_split"]``.
+LAUNCHES_INT8 = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -76,6 +82,11 @@ _SIGNATURES = {
     ]},
     "decode_split": {"flash_decode_split_launch": [
         _P, _P, _P, _P, _P, _P, _P,    # q, k, v, o, kv_len, ml, acc
+        _I, _I, _I, _I, _I, _I,        # B, Hq, Hkv, Skv, D, split
+        _P, _F, _I, _P,                # strides, scale, dtype, stream
+    ], "flash_decode_split_int8_launch": [
+        _P, _P, _P, _P, _P,            # q, k, v, k_scale, v_scale
+        _P, _P, _P, _P,                # o, kv_len, ml, acc
         _I, _I, _I, _I, _I, _I,        # B, Hq, Hkv, Skv, D, split
         _P, _F, _I, _P,                # strides, scale, dtype, stream
     ]},
@@ -148,18 +159,25 @@ def flash_attention_cuda(
     causal: bool,
     scale: float,
     seq_dim: int = 2,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch the kernel :func:`route` picks.  q, k, v are 4-D CUDA tensors of
     one dtype (float32 or bfloat16) laid out (B, H, S, D) (``seq_dim=2``)
     or (B, S, H, D) (``seq_dim=1``), any strides with the head dim
     contiguous; q and k share the head dim Dqk, v has its own Dv; kv_len
-    is a (B,) int32 CUDA tensor that the host never reads.  Returns a new
-    contiguous tensor of q's shape with v's head dim and q's dtype,
-    enqueued on the current stream without synchronizing."""
-    global LAUNCHES
+    is a (B,) int32 CUDA tensor that the host never reads.  With
+    ``k_scale`` and ``v_scale`` (bf16, k's shape with head dim 1), k and v
+    are an int8 cache, which only decode_split's int8 instance reads (one
+    query row).  Returns a new contiguous tensor of q's shape with v's
+    head dim and q's dtype, enqueued on the current stream without
+    synchronizing."""
+    global LAUNCHES, LAUNCHES_INT8
     if seq_dim not in (1, 2):
         raise ValueError(f"seq_dim must be 1 or 2, got {seq_dim}")
     head_dim = 3 - seq_dim
+    int8 = k_scale is not None or v_scale is not None
+    kv_dtype = torch.int8 if int8 else q.dtype
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(x)}")
@@ -168,9 +186,10 @@ def flash_attention_cuda(
                 f"{name} is on {x.device}; the CUDA kernels take CUDA tensors "
                 "on one device (ops.flash_attention runs CPU tensors through "
                 "the plain version)")
-        if x.dim() != 4 or x.dtype != q.dtype:
+        want = q.dtype if name == "q" else kv_dtype
+        if x.dim() != 4 or x.dtype != want:
             raise ValueError(
-                f"{name} must be 4-D of q's dtype, got {tuple(x.shape)} "
+                f"{name} must be 4-D of dtype {want}, got {tuple(x.shape)} "
                 f"{x.dtype}")
         if x.stride(3) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous")
@@ -197,6 +216,17 @@ def flash_attention_cuda(
     if (d, dv) not in KERNEL_DIMS[name]:
         raise ValueError(f"{name} takes head dims (Dqk, Dv) in "
                          f"{KERNEL_DIMS[name]}, got {(d, dv)}")
+    if int8:
+        if name != "decode_split":
+            raise ValueError(f"an int8 cache is read by decode_split (one "
+                             f"query row) only, not {name}")
+        for label, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if (not isinstance(x, torch.Tensor) or x.device != q.device
+                    or x.dtype != torch.bfloat16
+                    or tuple(x.shape) != (*k.shape[:3], 1)):
+                raise ValueError(
+                    f"{label} must be a bf16 tensor of shape "
+                    f"{(*k.shape[:3], 1)} on q's device")
     if name == "prefill_tc":
         for label, x in (("q", q), ("k", k), ("v", v)):
             _check_16b(label, x, seq_dim, "TMA loads its tiles")
@@ -230,10 +260,19 @@ def flash_attention_cuda(
             scratch = torch.empty(b * hq * splits * (d + 2),
                                   dtype=torch.float32, device=q.device)
             ml_n = b * hq * splits * 2
-            err = lib.flash_decode_split_launch(
-                *ptrs, scratch.data_ptr(), scratch[ml_n:].data_ptr(), b, hq,
-                hkv, skv, d, DECODE_SPLIT, strides, float(scale),
-                _DTYPES[q.dtype], stream)
+            sizes = (b, hq, hkv, skv, d, DECODE_SPLIT)
+            if int8:
+                strides = (ctypes.c_longlong * 18)(
+                    *strides, *_bhs_strides(k_scale, seq_dim),
+                    *_bhs_strides(v_scale, seq_dim))
+                err = lib.flash_decode_split_int8_launch(
+                    *ptrs[:3], k_scale.data_ptr(), v_scale.data_ptr(),
+                    *ptrs[3:], scratch.data_ptr(), scratch[ml_n:].data_ptr(),
+                    *sizes, strides, float(scale), _DTYPES[q.dtype], stream)
+            else:
+                err = lib.flash_decode_split_launch(
+                    *ptrs, scratch.data_ptr(), scratch[ml_n:].data_ptr(),
+                    *sizes, strides, float(scale), _DTYPES[q.dtype], stream)
         else:
             err = lib.flash_attention_launch(
                 *ptrs, b, hq, hkv, sq, skv, d, dv, strides, float(scale),
@@ -244,4 +283,5 @@ def flash_attention_cuda(
             f"{err}")
     LAUNCHES += 1
     LAUNCHES_BY_KERNEL[name] += 1
+    LAUNCHES_INT8 += int8
     return out

@@ -9,6 +9,13 @@ There is no fallback: on a CUDA tensor the routed kernel launches or the
 call raises.  The kernels mask ragged ``Sq`` and ``Skv`` themselves, so
 unlike the TPU entry point this one pads nothing.
 
+An int8 KV cache comes with its bf16 scales (``k_scale=``, ``v_scale=``).
+One query row over it launches decode_split's int8 instance, which
+dequantizes in registers; several query rows (a multi-token decode, which
+no main path runs) are dequantized first by the same formula
+(``ref.dequantize_kv``) and go to the kernel their shape routes to; a CPU
+tensor runs the plain version on the dequantized cache.
+
 :func:`flash_attention_trainable` is the training path's op, a
 ``torch.autograd.Function``: its forward is :func:`flash_attention` (the
 routed kernel on the card), its backward the reference's, the VJP of causal
@@ -22,7 +29,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention as _kernel
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref,
+    dequantize_kv,
+)
 
 _SEQ_DIM = {"bhsd": 2, "bshd": 1}
 #: Query rows per block of the backward (the reference model's train chunk).
@@ -38,6 +48,8 @@ def flash_attention(
     kv_len: "int | torch.Tensor | None" = None,
     scale: float | None = None,
     layout: str = "bhsd",
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Attention of q over k, v; returns q's shape with v's head dim, in
     q's dtype.
@@ -49,22 +61,37 @@ def flash_attention(
     default scale is Dqk ** -0.5.
     ``kv_len`` (default Skv) is an int or a (B,) integer tensor: the
     queries are the last Sq positions of each row's ``kv_len``-token
-    context, and keys at or past ``kv_len`` are masked."""
+    context, and keys at or past ``kv_len`` are masked.
+    ``k_scale``/``v_scale``: with an int8 k and v (the quantized KV
+    cache), their bf16 scales, k's shape with head dim 1; each value
+    counts as ``dequantize_kv`` makes it, in q's dtype."""
     if layout not in _SEQ_DIM:
         raise ValueError(f"layout must be one of {sorted(_SEQ_DIM)}")
     seq_dim = _SEQ_DIM[layout]
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
         raise ValueError(f"q, k and v lie on different devices: {devices}")
+    int8 = k.dtype == torch.int8
+    if not (int8 == (v.dtype == torch.int8) == (k_scale is not None)
+            == (v_scale is not None)):
+        raise ValueError("an int8 k and v take both k_scale and v_scale, "
+                         "and only they do")
     b, d, skv = q.shape[0], q.shape[3], k.shape[seq_dim]
     scale = d ** -0.5 if scale is None else scale
     if kv_len is None:
         kv_len = skv
+    if int8 and (q.device.type != "cuda" or _kernel.route(
+            q.dtype, d, q.shape[seq_dim], dv=v.shape[3]) != "decode_split"):
+        # dispatch by shape: only the one-row decode reads int8 in a kernel
+        k, v = (dequantize_kv(k, k_scale, q.dtype),
+                dequantize_kv(v, v_scale, q.dtype))
+        k_scale = v_scale = None
     if q.device.type == "cuda":
         lens = torch.as_tensor(kv_len, device=q.device).reshape(-1)
         lens = lens.expand(b).to(torch.int32).contiguous()
         return _kernel.flash_attention_cuda(
-            q, k, v, lens, causal=causal, scale=scale, seq_dim=seq_dim)
+            q, k, v, lens, causal=causal, scale=scale, seq_dim=seq_dim,
+            k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cpu":
         raise ValueError(f"no flash attention for device {q.device}")
     if seq_dim == 1:
@@ -79,7 +106,8 @@ def flash_attention(
 def attention_vjp(q, k, v, g, *, scale: float, layout: str = "bhsd",
                   chunk: int = TRAIN_CHUNK):
     """Gradients (dq, dk, dv) of causal attention at (q, k, v) for the
-    output gradient ``g``, in the inputs' layout and dtypes.
+    output gradient ``g``, in the inputs' layout and dtypes.  v and g may
+    have a head dim of their own (Dv, MLA's); dv takes v's shape.
 
     The queries are the last Sq of Skv positions (no ``kv_len``).  Query
     rows go in chunks of ``chunk``; each chunk recomputes, in float32,
@@ -94,7 +122,7 @@ def attention_vjp(q, k, v, g, *, scale: float, layout: str = "bhsd",
     if layout == "bshd":
         q, k, v, g = (x.transpose(1, 2) for x in (q, k, v, g))
     b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
+    hkv, skv, d_v = k.shape[1], k.shape[2], v.shape[3]
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
     if sq > skv:
@@ -104,12 +132,12 @@ def attention_vjp(q, k, v, g, *, scale: float, layout: str = "bhsd",
     kf, vf = k.float(), v.float()
     dq = torch.empty((b, hq, sq, d), dtype=torch.float32, device=q.device)
     dk = torch.zeros((b, hkv, skv, d), dtype=torch.float32, device=q.device)
-    dv = torch.zeros_like(dk)
+    dv = torch.zeros((b, hkv, skv, d_v), dtype=torch.float32, device=q.device)
     for a in range(0, sq, chunk):
         e = min(a + chunk, sq)
         n, keys = e - a, off + e
         qc = q[:, :, a:e].float().reshape(b, hkv, grp * n, d)
-        gc = g[:, :, a:e].float().reshape(b, hkv, grp * n, d)
+        gc = g[:, :, a:e].float().reshape(b, hkv, grp * n, d_v)
         kc, vc = kf[:, :, :keys], vf[:, :, :keys]
         p = torch.matmul(qc, kc.transpose(-1, -2)).mul_(scale)
         row = torch.arange(off + a, off + e, device=q.device)
@@ -160,16 +188,14 @@ def flash_attention_trainable(
     """Causal attention with a backward: the queries are the last Sq of
     Skv positions, as in :func:`flash_attention` without ``kv_len``.  The
     forward launches the routed kernel on a CUDA tensor (``prefill_tc``
-    for bf16 at head dim 64 or 128) and runs the plain version on a CPU
-    tensor; the backward is :func:`attention_vjp` on either.  Under
+    for bf16 at the head-dim pairs it is built for, (64, 64), (128, 128)
+    and MLA's (192, 128) and (96, 64); ``simt`` for float32) and runs the
+    plain version on a CPU tensor; a pair the routed kernel is not built
+    for is refused by the kernel's wrapper.  The backward is
+    :func:`attention_vjp` on either, at v's own head dim.  Under
     ``torch.utils.checkpoint`` the forward runs again in the backward
     pass, so a remat'ed layer launches the kernel twice per step."""
     if layout not in _SEQ_DIM:
         raise ValueError(f"layout must be one of {sorted(_SEQ_DIM)}")
-    if v.shape[3] != q.shape[3]:
-        raise NotImplementedError(
-            "the trainable flash op takes one head dim for q, k and v; "
-            f"got Dqk {q.shape[3]}, Dv {v.shape[3]} (training MLA is not "
-            "ported yet: ROADMAP Queue 1, item 16.3)")
     scale = q.shape[3] ** -0.5 if scale is None else scale
     return _FlashTrainable.apply(q, k, v, scale, layout)

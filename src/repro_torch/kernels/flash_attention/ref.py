@@ -11,6 +11,10 @@ reference's scalar) or a ``(B,)`` integer tensor, one fill level per batch
 row, as a batched decode over slots of different lengths needs.  It
 materializes the (B, Hq, Sq, Skv) scores, so callers at long lengths run it
 over query chunks.
+
+An int8 KV cache (values and one bf16 scale per position and kv head) is
+read through :func:`dequantize_kv`, the model reference's formula, then
+attended as above (:func:`attention_int8_ref`).
 """
 
 from __future__ import annotations
@@ -96,3 +100,20 @@ def attention_split_ref(
     num = (w[..., None] * acc).sum(-2)
     out = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
     return out[:, :, None].to(q.dtype)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """int8 values ``q`` times their bf16 ``scale`` (broadcast over the
+    head dim), in float32, cast to ``dtype``: the reference's
+    ``_dequantize_kv``, and what decode_split's int8 instance computes in
+    registers."""
+    return (q.to(torch.float32) * scale.to(torch.float32)).to(dtype)
+
+
+def attention_int8_ref(q, k, v, k_scale, v_scale, **kw) -> torch.Tensor:
+    """:func:`attention_ref` over an int8 cache ``k``, ``v`` (the layout of
+    :func:`attention_ref`) with bf16 scales ``k_scale``, ``v_scale`` (k's
+    shape, head dim 1), dequantized to q's dtype first."""
+    return attention_ref(q, dequantize_kv(k, k_scale, q.dtype),
+                         dequantize_kv(v, v_scale, q.dtype), **kw)

@@ -16,17 +16,23 @@ op (``flash_attention_trainable``), whose backward recomputes attention
 from q, k and v.  Caches are laid out
 (B, S, Hkv, D), as the reference's, and are written in place.
 
+With ``kv_cache_dtype="int8"`` a GQA cache holds int8 ``k``/``v`` and one
+bf16 scale per position and kv head (``k_scale``/``v_scale``, (B, S, Hkv,
+1)), the reference's absmax quantization (:func:`_quantize_kv`): prefill
+writes the quantized cache and attends over the fresh k, v; decode writes
+the new token quantized, then attends over the whole cache, which
+decode_split's int8 instance dequantizes in registers
+(``ref.dequantize_kv``'s formula).  MLA and RWKV caches ignore the field,
+as in the reference.
+
 MLA's cache holds the rank-``kv_lora_rank`` latent ``c_kv (B, S, r)`` and
-the one-head rope key ``k_rope (B, S, rd)``.  Its prefill (and its
-gradient-free train mode) expands them to per-head keys of width
-``qk_nope + qk_rope`` and values of width ``v_head_dim`` and attends
-through the flash kernels with Dqk != Dv; its decode is the reference's
+the one-head rope key ``k_rope (B, S, rd)``.  Its prefill and train mode
+expand them to per-head keys of width ``qk_nope + qk_rope`` and values of
+width ``v_head_dim`` and attend through the flash kernels with Dqk != Dv
+(train mode through the trainable op); its decode is the reference's
 absorbed form, float32 einsums over the whole latent cache in plain torch
 (the reference computes it outside any Pallas kernel; profiler range
-``"mla_absorbed_decode"``).  Training MLA
-(the trainable flash op at Dqk != Dv) is not ported yet (ROADMAP Queue 1,
-item 16.3), nor is the int8 KV cache (``kv_cache_dtype="int8"``, item
-16.4): both raise.
+``"mla_absorbed_decode"``).
 """
 
 from __future__ import annotations
@@ -46,13 +52,6 @@ from repro_torch.models.params import Spec, add_parameters
 
 
 NEG_INF = -1e30
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP Queue 1, item "
-            "16.4)")
 
 
 def gqa_specs(cfg: ModelConfig) -> dict[str, Spec]:
@@ -116,16 +115,39 @@ def mla_cache_specs(cfg: ModelConfig, batch: int,
 
 def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> dict[str, Spec]:
     """One layer's KV cache: MLA's latent cache, or k and v (B, S, Hkv, D)
-    each."""
-    _check_ported(cfg)
+    each, int8 with bf16 scales (B, S, Hkv, 1) under
+    ``kv_cache_dtype="int8"``."""
     if cfg.attention == "mla":
         return mla_cache_specs(cfg, batch, seq)
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     axes = ("batch", "cache_seq", "kv_heads", "head_dim")
+    if cfg.kv_cache_dtype == "int8":
+        saxes = ("batch", "cache_seq", "kv_heads", None)
+        return {
+            "k": Spec((batch, seq, hkv, hd), axes, init="zeros",
+                      dtype=torch.int8),
+            "v": Spec((batch, seq, hkv, hd), axes, init="zeros",
+                      dtype=torch.int8),
+            "k_scale": Spec((batch, seq, hkv, 1), saxes, init="zeros",
+                            dtype=torch.bfloat16),
+            "v_scale": Spec((batch, seq, hkv, 1), saxes, init="zeros",
+                            dtype=torch.bfloat16),
+        }
     return {
         "k": Spec((batch, seq, hkv, hd), axes, init="zeros"),
         "v": Spec((batch, seq, hkv, hd), axes, init="zeros"),
     }
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, H, D) -> int8 values and (B, S, H, 1) bf16 scales: the
+    reference's absmax / 127 in float32 with a floor of 1e-8, values
+    rounded half to even and clipped to +-127; the values are divided by
+    the float32 scale, the stored scale is its bf16 rounding."""
+    xf = x.to(torch.float32)
+    scale = (xf.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    q = torch.round(xf / scale).clamp(-127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
 
 
 def update_cache(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
@@ -150,16 +172,15 @@ class GQAAttention(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, dtype, device):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         add_parameters(self, gqa_specs(cfg), dtype, device)
 
     def forward(self, x, *, mode: str, cache, pos, positions):
         """x (B, S, d) -> y (B, S, d).  ``cache`` is this layer's
-        {"k", "v"} (B, S_cache, Hkv, D), written in place in prefill and
-        decode; ``pos`` is the write offset (prefill) or fill level
-        (decode), an int or a (B,) tensor; ``positions`` (B, S) are the
-        rotary positions."""
+        {"k", "v"} (B, S_cache, Hkv, D) (and, int8, {"k_scale",
+        "v_scale"}), written in place in prefill and decode; ``pos`` is
+        the write offset (prefill) or fill level (decode), an int or a
+        (B,) tensor; ``positions`` (B, S) are the rotary positions."""
         cfg = self.cfg
         b, s, d = x.shape
         h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -179,23 +200,35 @@ class GQAAttention(nn.Module):
             out = flash_attention_trainable(q, k, v, scale=scale,
                                             layout="bshd")
         elif mode == "prefill":
-            update_cache(cache["k"], k, pos)
-            update_cache(cache["v"], v, pos)
+            self._write_cache(cache, k, v, pos)
             out = flash_attention(q, k, v, kv_len=s, scale=scale,
                                   layout="bshd")
         elif mode == "decode":
-            update_cache(cache["k"], k, pos)
-            update_cache(cache["v"], v, pos)
+            self._write_cache(cache, k, v, pos)
             s_cache = cache["k"].shape[1]
             if isinstance(pos, torch.Tensor):
                 kv_len = (pos + s).clamp(max=s_cache)
             else:
                 kv_len = min(int(pos) + s, s_cache)
             out = flash_attention(q, cache["k"], cache["v"], kv_len=kv_len,
-                                  scale=scale, layout="bshd")
+                                  scale=scale, layout="bshd",
+                                  k_scale=cache.get("k_scale"),
+                                  v_scale=cache.get("v_scale"))
         else:
             raise ValueError(f"unknown mode {mode!r}")
         return out.reshape(b, s, h * hd) @ self.wo.reshape(h * hd, d)
+
+    def _write_cache(self, cache, k, v, pos) -> None:
+        """k, v (B, S_new, Hkv, D) into the cache at ``pos``, quantized
+        with their scales under ``kv_cache_dtype="int8"``."""
+        if self.cfg.kv_cache_dtype == "int8":
+            for name, x in (("k", k), ("v", v)):
+                vals, scales = _quantize_kv(x)
+                update_cache(cache[name], vals, pos)
+                update_cache(cache[f"{name}_scale"], scales, pos)
+            return
+        update_cache(cache["k"], k, pos)
+        update_cache(cache["v"], v, pos)
 
 
 def _decode_mask(b: int, sq: int, skv: int, pos, device) -> torch.Tensor:
@@ -218,7 +251,6 @@ class MLAAttention(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, dtype, device):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         add_parameters(self, mla_specs(cfg), dtype, device)
 
@@ -254,8 +286,11 @@ class MLAAttention(nn.Module):
             if mode == "prefill":
                 update_cache(cache["c_kv"], c_kv, pos)
                 update_cache(cache["k_rope"], k_rope, pos)
-            out = flash_attention(q_full, k_full, v, kv_len=s, scale=scale,
-                                  layout="bshd")
+                out = flash_attention(q_full, k_full, v, kv_len=s,
+                                      scale=scale, layout="bshd")
+            else:
+                out = flash_attention_trainable(q_full, k_full, v,
+                                                scale=scale, layout="bshd")
         elif mode == "decode":
             update_cache(cache["c_kv"], c_kv, pos)
             update_cache(cache["k_rope"], k_rope, pos)

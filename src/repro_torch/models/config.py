@@ -3,9 +3,10 @@
 The port's own copy of ``repro.models.config``: the same fields, defaults
 and ``__post_init__``, so a configuration means the same model in both
 packages.  Fields of families the port does not run yet (hybrid, audio,
-M-RoPE, the int8 KV cache) are kept so that the copy stays whole; the
-model modules raise on them (ROADMAP Queue 1, item 16).  MLA and MoE
-models are served; their training raises (items 16.2 and 16.3).
+M-RoPE) are kept so that the copy stays whole; the model modules raise on
+them (ROADMAP Queue 1, item 16).  MLA and MoE models serve and train, and
+``kv_cache_dtype="int8"`` quantizes a GQA cache (MLA and RWKV caches
+ignore it, as in the reference).
 ``unroll_layers`` steers the JAX package's compiler and means nothing
 here; ``remat_policy`` picks what the train forward's per-layer checkpoint
 keeps (``models.common.checkpoint_body``).

@@ -8,9 +8,10 @@ into an (E, capacity, d) buffer, where assignments past an expert's
 capacity are dropped.  The expert products are batched matmuls over the
 expert axis (``torch.bmm``, under the profiler range ``"moe_experts"``),
 as the reference leaves its einsums to XLA; no Pallas kernel computes
-them.  Training MoE models is not ported yet
-(ROADMAP Queue 1, item 16.2): :func:`moe_aux_loss` is, held to the
-reference by a parity test, and called by neither package's train step.
+them.  Under autograd the combine's gather scatters its gradient without
+accumulating (:class:`_SlotGather`, profiler range
+``"moe_combine_backward"``).  :func:`moe_aux_loss` is ported, held to the
+reference by a parity test, and added by neither package's train step.
 """
 
 from __future__ import annotations
@@ -63,6 +64,31 @@ class MLP(nn.Module):
             # jax.nn.gelu defaults to the tanh approximation
             return F.gelu(x @ self.w_in, approximate="tanh") @ self.w_out
         return (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
+
+
+class _SlotGather(torch.autograd.Function):
+    """The expert outputs ``out (rows, d)`` at each sorted assignment's
+    ``slot``, zeros where it was dropped (``valid`` False).  The backward
+    writes each kept assignment's gradient to its slot (kept slots are
+    distinct) with no accumulation, the dropped ones to a padding row that
+    is cut off.  The gather's own backward accumulates every dropped
+    assignment's zero into the one row their clamped slot names, and the
+    card adds a row's duplicates one after another."""
+
+    @staticmethod
+    def forward(ctx, out, slot, valid):
+        ctx.save_for_backward(slot)
+        ctx.rows = rows = out.shape[0]
+        return torch.where(valid[:, None], out[slot.clamp(max=rows - 1)],
+                           0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot,) = ctx.saved_tensors
+        with torch.profiler.record_function("moe_combine_backward"):
+            grad = g.new_zeros((ctx.rows + 1, g.shape[-1]))
+            grad[slot] = g            # a dropped slot is ``rows``: the pad
+        return grad[:ctx.rows], None, None
 
 
 def _capacity(num_tokens: int, cfg: ModelConfig) -> int:
@@ -130,8 +156,7 @@ class MoE(nn.Module):
             up = torch.bmm(buf, self.w_up)
             out = torch.bmm(gate * up, self.w_down).view(e * cap, d)
         # gather back (dropped assignments give 0), unsort, weight, sum
-        y_sorted = torch.where(valid[:, None],
-                               out[slot.clamp(max=e * cap - 1)], 0.0)
+        y_sorted = _SlotGather.apply(out, slot, valid)
         y = torch.empty_like(y_sorted)
         y[order] = y_sorted
         y = (y.view(n, k, d) * top_w[..., None].to(y.dtype)).sum(1)

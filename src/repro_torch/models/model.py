@@ -18,9 +18,8 @@ prefill, decode and a train-mode forward for serving and checks, and
 :meth:`Model.forward` is the training forward, with gradients, each layer
 rematerialized in the backward pass by default (``remat=True``, the
 configured ``remat_policy``), as the JAX package's train forward is.
-Training MoE and MLA models is not ported yet (ROADMAP Queue 1, items
-16.2 and 16.3): their ``forward`` raises, while ``apply(mode="train")``
-runs.
+Every built family trains: dense and MoE layers (the dense prefix too),
+GQA and MLA attention, RWKV.
 
 Caches are dictionaries of tensors stacked over layers, the slot (batch)
 axis second: ``cache[name][layer, slot]``.  ``apply`` updates the cache it
@@ -129,9 +128,7 @@ class Model(nn.Module):
         """The training forward: tokens (B, S) -> logits (B, S, V) float32
         with gradients, attention and the RWKV6 recurrence through their
         trainable ops.  ``remat`` checkpoints every layer
-        (:func:`repro_torch.models.common.checkpoint_body`).  Raises for
-        MoE and MLA models (:func:`check_trainable`)."""
-        check_trainable(self.cfg)
+        (:func:`repro_torch.models.common.checkpoint_body`)."""
         logits, _ = self._run(tokens, mode="train", cache=None, pos=0,
                               remat=remat)
         return logits
@@ -157,16 +154,6 @@ class Model(nn.Module):
             x = x[:, -1:]
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return (x @ self.lm_head).float(), cache
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a config whose training is not ported yet: MoE (ROADMAP
-    Queue 1, item 16.2) and MLA (item 16.3), whose trainable flash op at
-    Dqk != Dv and MoE backward come next."""
-    if cfg.num_experts or cfg.attention == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: training MoE and MLA models is not ported yet "
-            "(ROADMAP Queue 1, items 16.2 and 16.3); apply() serves them")
 
 
 def _positions(pos, b: int, s: int, device) -> torch.Tensor:

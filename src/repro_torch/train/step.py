@@ -20,7 +20,7 @@ from typing import Callable, Mapping
 import numpy as np
 import torch
 
-from repro_torch.models.model import Model, check_trainable
+from repro_torch.models.model import Model
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 
 
@@ -49,10 +49,7 @@ def to_device(batch: Mapping, device) -> dict[str, torch.Tensor]:
 
 def build_loss_fn(model: Model) -> Callable:
     """batch {"tokens", "labels"} -> the loss of the model's parameters,
-    with gradients (the train forward, every layer rematerialized).
-    Raises for MoE and MLA models, whose training is not ported yet
-    (:func:`repro_torch.models.model.check_trainable`)."""
-    check_trainable(model.cfg)
+    with gradients (the train forward, every layer rematerialized)."""
     def loss_fn(batch: Mapping) -> torch.Tensor:
         batch = to_device(batch, model.device)
         return cross_entropy(model(batch["tokens"]), batch["labels"])

@@ -248,12 +248,23 @@ def test_route_by_head_dim_pair(dtype, dqk, dv, sq, want):
     assert not any(a != b for a, b in tker.KERNEL_DIMS["decode_split"])
 
 
-def test_trainable_op_refuses_two_head_dims():
+def test_trainable_op_takes_two_head_dims():
+    """At Dqk != Dv (MLA's) the trainable op's output and dq, dk, dv equal
+    autograd through the plain version, dv in v's shape (its parity with
+    the JAX gradient: tests/test_torch_train_moe_mla.py)."""
     rng = np.random.default_rng(0)
-    q, k = (torch.from_numpy(_randn(rng, 1, 2, 8, 24)) for _ in range(2))
-    v = torch.from_numpy(_randn(rng, 1, 2, 8, 16))
-    with pytest.raises(NotImplementedError, match="item 16.3"):
-        tops.flash_attention_trainable(q, k, v)
+    q, k = (torch.from_numpy(_randn(rng, 1, 4, 40, 24)).requires_grad_()
+            for _ in range(2))
+    v = torch.from_numpy(_randn(rng, 1, 4, 40, 16)).requires_grad_()
+    g = torch.from_numpy(_randn(rng, 1, 4, 40, 16))
+    out = tops.flash_attention_trainable(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want_out = attention_ref(q, k, v, causal=True)
+    want = torch.autograd.grad(want_out, (q, k, v), g)
+    torch.testing.assert_close(out, want_out, **GRAD_TOL["float32"])
+    for a, w, x in zip(got, want, (q, k, v)):
+        assert a.shape == x.shape
+        torch.testing.assert_close(a, w, **GRAD_TOL["float32"])
 
 
 def test_alignment_check_names_the_unaligned_tensor():

@@ -248,28 +248,36 @@ def test_unported_paths_raise():
     with pytest.raises(KeyError):
         configs.get("no-such-arch")
     dense = configs.reduced("stablelm-1.6b")
-    with pytest.raises(NotImplementedError, match="int8"):
-        build(dataclasses.replace(dense, kv_cache_dtype="int8"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(dataclasses.replace(dense, family="hybrid"), device="cpu")
 
 
 @pytest.mark.parametrize("arch", MOE_MLA)
-def test_training_moe_and_mla_raises(arch):
-    """Their serving is ported, their training is the next slice: the
-    grad-enabled forward and the train step refuse them, naming item 16;
-    apply(mode="train") runs."""
+def test_training_moe_and_mla_runs(arch):
+    """The grad-enabled forward and the train step take MoE and MLA
+    models: every parameter gets a finite gradient and the step moves the
+    loss down on a repeated batch; apply(mode="train") gives the same
+    logits as the train forward (their parity with the JAX train step:
+    tests/test_torch_train_moe_mla.py)."""
     from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.step import build_train_step
+    from repro_torch.train.step import build_train_step, init_train_state
 
     tm = build(configs.reduced(arch), device="cpu")
-    tok = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="items 16.2 and 16.3"):
-        tm(tok)
-    with pytest.raises(NotImplementedError, match="items 16.2 and 16.3"):
-        build_train_step(tm, AdamWConfig())
-    logits, _ = tm.init(torch.Generator().manual_seed(0)).apply(tok)
-    assert logits.shape == (1, 4, tm.cfg.vocab_size)
+    params, opt = init_train_state(tm, torch.Generator().manual_seed(0))
+    tok = torch.from_numpy(_tokens(tm.cfg.vocab_size, 2, 12, 3)).long()
+    logits = tm(tok)
+    served, _ = tm.apply(tok)
+    torch.testing.assert_close(logits.detach(), served, rtol=0, atol=0)
+    grads = torch.autograd.grad(logits.square().mean(), list(tm.parameters()))
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert all(g.abs().max() > 0 for g in grads)
+    batch = {"tokens": tok.numpy(), "labels": tok.numpy()}
+    step = build_train_step(tm, AdamWConfig(lr=1e-2, warmup_steps=1))
+    losses = []
+    for _ in range(3):
+        loss, params, opt = step(params, opt, batch)
+        losses.append(float(loss))
+    assert losses[-1] < losses[0]
 
 
 def test_layer_list_keeps_the_dense_prefix_first():
