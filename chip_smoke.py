@@ -10,12 +10,13 @@ the carried IRLS moments, the fleet simulator with the paper's §4 time
 shifting and §5 free pool, the policy tournament, the serving engine on
 the published stablelm-1.6b, rwkv6-3b, granite-moe-1b-a400m (MoE) and
 deepseek-v2-lite-16b (MoE with MLA), internlm2-20b with the int8 KV
-cache, and the trainer on the published stablelm-1.6b and
-granite-moe-1b-a400m (rwkv6-3b cut to two layers, deepseek-v2-lite-16b
-to four) — and checks each
-of their kernels (commitment sweep, revocation walk,
-generation turnover, flash attention, RWKV6 recurrence) against its plain
-PyTorch version.  Flash
+cache, qwen2-vl-7b (embedding inputs, M-RoPE), whisper-small (encoder-
+decoder) and jamba-v0.1-52b (Mamba, attention and MoE, cut to 16 layers),
+and the trainer on the published stablelm-1.6b and granite-moe-1b-a400m
+(rwkv6-3b cut to two layers, deepseek-v2-lite-16b to four) — and checks
+each of their kernels (commitment sweep, revocation walk, generation
+turnover, flash attention, RWKV6 recurrence, Mamba's selective scan)
+against its plain PyTorch version.  Flash
 attention is three CUDA kernels, routed by dtype, head dim and query rows
 (``flash_attention.route``): a tensor-core bf16 prefill (``prefill_tc``),
 a split-KV decode (``decode_split``) and the SIMT kernel (``simt``: f32
@@ -26,7 +27,7 @@ Phases, in this order, each printing one JSON line and raising on
 failure:
 
   device    card name and power limit, torch and CUDA versions
-  build     nvcc build of the seven kernel sources, one nvcc each, all at
+  build     nvcc build of the eight kernel sources, one nvcc each, all at
             once (time, ptxas report)
   kernel    sweep kernel vs plain version on the card: ragged shapes, the
             (T,)/(G,) cases, no weights, prefix masks, the bucketed
@@ -164,7 +165,17 @@ failure:
             and the bf16 prefills (1, 2048, 16, 192/128) and (1, 2048,
             40, 96/64) causal (FLASH_MLA), and serve_int8's longest
             prefill (1, 2048, 48/8, 128) causal in bf16
-            (FLASH_INTERNLM2_PREFILL); each bf16 query row's error
+            (FLASH_INTERNLM2_PREFILL); the vlm, audio and hybrid
+            families' shapes (FLASH_FAMILIES, bf16): whisper's encoder
+            (1, 1500, 12, 64) non-causal, its cross-attention (1, 224 ->
+            1500, 12, 64) non-causal and its cross decode (8 slots over
+            1500 frames, kv_len 1500), its decoder's self-attention
+            prefill (1, 224, 12, 64) causal and decode (8 slots, cache
+            448, ragged fill levels up to 448), qwen2-vl's prefill (1,
+            2048, 28/4, 128) and jamba's (1, 2048, 32/8, 128) causal and
+            their decodes (8 slots, D 128, cache 4096, ragged fill
+            levels), each on the kernel its route names; each bf16
+            query row's error
             norm against its reference norm as well as element by element;
             decode_split's int8 instance (FLASH_INT8_*: 8 slots with 8
             ragged kv_len, GQA groups 1, 4 and 6, D 32, 64 and 128, q in
@@ -182,6 +193,10 @@ failure:
             T = 2048, and (1, 40, 2048, 64), where the states entering the
             chunks (the scan's scratch) are also held against the
             chunk-parallel plain version
+  mamba     the Mamba scan kernel vs its plain step loop on the card:
+            jamba's d_inner 8192 and state 16 at S = 1, 13, 64 and 2048,
+            and state 8 at a ragged (2, 37, 256); y and the final h within
+            1e-5 of their largest, one launch a call, a rerun bit for bit
   walk      revocation-walk kernel vs its plain per-hour loop on the card:
             T = 1, ragged T and lanes, all-available and all-revoked
             starts, hazard 0 with recovery 1, and the main shape (32 draws
@@ -189,11 +204,13 @@ failure:
             bit for bit, prices within 1e-6, a rerun bit for bit
   model_cpu the reduced float32 stablelm-1.6b, rwkv6-3b,
             granite-moe-1b-a400m, deepseek-v2-lite-16b and minicpm3-4b
-            (the MLA two at minicpm3's head dims, MLA_CARD_DIMS) served on
-            the CPU (plain versions) and on the card (kernels): tokens
-            equal, logits close; flash decode on decode_split, f32 prefill
-            on simt (MLA's at (96, 64)), no flash launch in MLA's decode;
-            the MoE layer alone at capacity factor 1.0 over 512 tokens,
+            (the MLA two at minicpm3's head dims, MLA_CARD_DIMS), and
+            qwen2-vl-7b, whisper-small and jamba-v0.1-52b (the first two
+            through ApplyEngine, jamba's scans on the kernel at state 8)
+            served on the CPU (plain versions) and on the card (kernels):
+            tokens equal, logits close; flash decode on decode_split, f32
+            prefill on simt (MLA's at (96, 64)), no flash launch in MLA's
+            decode; the MoE layer alone at capacity factor 1.0 over 512 tokens,
             dropped counts equal, outputs within 1e-5 of the largest
   serve_dense  the full published stablelm-1.6b in bf16, random weights
             from a seeded generator on the card: an engine of 8 slots and
@@ -220,6 +237,27 @@ failure:
             logits within the reference's bound (0.05 max|logits| + 0.1,
             tests/test_perf_knobs.py) of the same weights with a bf16
             cache
+  serve_vlm    the full qwen2-vl-7b (28 layers, d 3584, GQA 28/4 at D
+            128, M-RoPE) on serve_dense's 16 prompts as (S, 3584)
+            embeddings drawn on the card; the engine refuses the family
+            (it feeds tokens), so ApplyEngine runs the engine's steps on
+            Model.apply, each sampled token's next input a row of a seeded
+            stand-in text table made here: exactly 28 x 16 prefill_tc and
+            28 x ticks decode_split, the first token equal to a direct
+            prefill's (a main path)
+  serve_audio  the full whisper-small (12 + 12 layers, d 768, 12 heads at
+            D 64) through ApplyEngine: 16 clips of 1500 frames (30 s each)
+            with decoder prompts of 4-224 tokens, cache 448: exactly 36
+            prefill_tc a prefill (12 encoder layers non-causal over 1500
+            frames, 12 self, 12 cross) and 24 decode_split a tick (12
+            self, 12 cross over the cached 1500 frames) (a main path)
+  serve_hybrid jamba-v0.1-52b at full width cut to two period-8 blocks (16
+            layers: 14 Mamba, 2 attention, 8 MoE of 16 experts top-2;
+            26.05e9 parameters, 52.1 GB; all 32 layers do not fit one
+            card) through the engine on serve_dense's requests: exactly
+            2 x 16 prefill_tc, 2 x ticks decode_split and 14 x 16 Mamba
+            scans, the scan's device ms in the longest prefill (a main
+            path); each of the three reports what serve_dense does
   train     training (a main path): flash_attention_trainable's output and
             dq, dk, dv against autograd through the plain version on the
             card (S 65 and 200, GQA groups 1 and 4, head dims 32-128, f32
@@ -268,12 +306,16 @@ failure:
             1,344; flash: prefill_tc at the bf16 prefill and MLA's two
             prefill shapes (with the backend SDPA took there) and the MoE
             train shapes (4, 2048, 16, 64) and (4, 2048, 16, 192/128),
-            serve_int8's prefill (1, 2048, 48/8, 128) beside SDPA,
+            serve_int8's prefill (1, 2048, 48/8, 128) beside SDPA, the
+            FLASH_FAMILIES shapes beside SDPA and its backend,
             decode_split at the bf16 decode and, int8 instance beside the
             bf16 one, at internlm2-20b's (8, 4096, 8, 128) cache (no
             library call reads int8: SDPA over the bf16 cache for
             context), simt at the f32 prefill, and
             at head dim 128 beside the library; RWKV6 also at a short prompt's T = 128;
+            the Mamba scan at jamba's longest prefill (1, 2048, 8192, 16)
+            beside its plain loop and bound, and summed over
+            serve_hybrid's prompts and Mamba layers;
             the revocation walk at its main shape; the turnover kernel's
             from phase turnover),
             library times,
@@ -287,6 +329,7 @@ phase.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -517,7 +560,8 @@ LINREC_TOL = dict(atol=2e-3, rtol=2e-3)
 # CPU parity tests against the JAX package)
 MODEL_TOL = {"stablelm-1.6b": 1e-4, "rwkv6-3b": 2e-3,
              "granite-moe-1b-a400m": 1e-4, "deepseek-v2-lite-16b": 1e-4,
-             "minicpm3-4b": 1e-4}
+             "minicpm3-4b": 1e-4, "qwen2-vl-7b": 1e-4, "whisper-small": 1e-4,
+             "jamba-v0.1-52b": 1e-4}
 # phase model_cpu gives the reduced MLA configs minicpm3's published head
 # dims (qk_nope 64, qk_rope 32, v 64: Dqk, Dv = 96, 64), so that their
 # float32 prefill runs simt at a pair the kernels are built for; the CPU
@@ -528,6 +572,52 @@ MLA_CARD_DIMS = dict(qk_nope_dim=64, qk_rope_dim=32, v_head_dim=64,
 # capacity factor 1.0 over this many tokens, so that assignments drop;
 # outputs within MOE_TOL of the largest
 MOE_DROP_TOKENS, MOE_TOL = 512, 1e-5
+# The vlm, audio and hybrid families.  The Mamba scan's checks (B, S,
+# D, N): jamba's d_inner and state at S = 1, 13, 64 and its longest
+# prompt, and the reduced config's N = 8 at a ragged shape; held within
+# MAMBA_TOL of the largest |y| (and |h|).  Its timed shape is jamba's
+# longest prefill; MAMBA_OPS operations per (step, channel, state): the
+# exponential, its argument, the two input products, the state's multiply-
+# add and y's (2 each), and the group sum's add.
+MAMBA_CHECKS = ((1, 1, 8192, 16), (1, 13, 8192, 16), (1, 64, 8192, 16),
+                (1, PROMPT_MAX, 8192, 16), (2, 37, 256, 8))
+MAMBA_MAIN = (1, PROMPT_MAX, 8192, 16)
+MAMBA_TOL = 1e-5
+MAMBA_OPS = 9
+# serve_audio: decoder prompts of Whisper's special tokens plus a previous-
+# text prompt, at most half its 448-token text context; the cache holds
+# that context
+AUDIO_PROMPT_MIN, AUDIO_PROMPT_MAX, AUDIO_CACHE = 4, 224, 448
+# the flash kernels at these families' shapes (B, Hq, Hkv, Sq, Skv, D,
+# causal, kv_len), each attention of the three serve phases at its largest:
+# whisper's encoder (non-causal over its 1500 frames), its cross-attention
+# in the longest prefill and in a decode tick, its decoder's causal self-
+# attention in the longest prefill and in a tick over AUDIO_CACHE (ragged
+# fill levels up to the full cache); qwen2-vl's (GQA group 7 at D 128) and
+# jamba's (group 4 at D 128) longest prefill and their decode over
+# SERVE_CACHE at the decode's ragged fill levels
+DECODE_LENS = (1, 129, 700, 1501, 2048, 2900, 3999, 4096)
+AUDIO_DECODE_LENS = (4, 5, 37, 129, 224, 225, 256, AUDIO_CACHE)
+FLASH_FAMILIES = {
+    "whisper_encoder": (1, 12, 12, 1500, 1500, 64, False, None),
+    "whisper_cross_prefill": (1, 12, 12, AUDIO_PROMPT_MAX, 1500, 64, False,
+                              None),
+    "whisper_cross_decode": (SERVE_SLOTS, 12, 12, 1, 1500, 64, False,
+                             (1500,) * SERVE_SLOTS),
+    "whisper_self_prefill": (1, 12, 12, AUDIO_PROMPT_MAX, AUDIO_PROMPT_MAX,
+                             64, True, None),
+    "whisper_self_decode": (SERVE_SLOTS, 12, 12, 1, AUDIO_CACHE, 64, True,
+                            AUDIO_DECODE_LENS),
+    "qwen2vl_prefill": (1, 28, 4, PROMPT_MAX, PROMPT_MAX, 128, True, None),
+    "qwen2vl_decode": (SERVE_SLOTS, 28, 4, 1, SERVE_CACHE, 128, True,
+                       DECODE_LENS),
+    "jamba_prefill": (1, 32, 8, PROMPT_MAX, PROMPT_MAX, 128, True, None),
+    "jamba_decode": (SERVE_SLOTS, 32, 8, 1, SERVE_CACHE, 128, True,
+                     DECODE_LENS),
+}
+# serve_hybrid: jamba-v0.1-52b at full width cut to two period-8 blocks
+# (all 32 layers are 103 GB in bf16; 24 would be 77.6 GB before any cache)
+HYBRID_LAYERS = 16
 FLOPS_PER_TRIPLE = 6        # sub, 2 max, 2 fma (2 flops each) per hour
 OPS_PER_HOUR = 6            # bucketed sweep: 2 subs, 4 muls of the terms
 OPS_PER_OUTPUT = 4          # its scan: sub, 2 muls, add per candidate
@@ -623,9 +713,11 @@ def kernel_modules():
         generation_turnover as gk,
     )
     from repro_torch.kernels.linrec import linrec as lk
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
     from repro_torch.kernels.revocation_walk import revocation_walk as wk
     return {"commitment_sweep": ck, "flash_attention": fk, "rwkv6": lk,
-            "revocation_walk": wk, "generation_turnover": gk}
+            "revocation_walk": wk, "generation_turnover": gk,
+            "mamba_scan": mk}
 
 
 def reset_launches():
@@ -653,7 +745,8 @@ def kernel_sources():
                mods["flash_attention"].SOURCES.items()},
             "rwkv6": mods["rwkv6"].SOURCE,
             "revocation_walk": mods["revocation_walk"].SOURCE,
-            "generation_turnover": mods["generation_turnover"].SOURCE}
+            "generation_turnover": mods["generation_turnover"].SOURCE,
+            "mamba_scan": mods["mamba_scan"].SOURCE}
 
 
 def phase_build():
@@ -2252,9 +2345,19 @@ def decode_inputs(dev, dtype=torch.bfloat16):
     b, h, d = FLASH_DECODE
     q, k, v = flash_inputs(dev, dtype, b, h, h, 1, SERVE_CACHE, d, 11,
                            layout="bshd")
-    kv_len = torch.tensor([1, 129, 700, 1501, 2048, 2900, 3999, 4096],
-                          dtype=torch.int32, device=dev)
+    kv_len = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
     return q, k, v, kv_len
+
+
+def family_flash_inputs(dev, case, seed):
+    """q, k, v (B, S, H, D) bf16 of a FLASH_FAMILIES case and its kv_len (a
+    (B,) int32 tensor, or None for Skv)."""
+    b, hq, hkv, sq, skv, d, _, lens = case
+    q, k, v = flash_inputs(dev, torch.bfloat16, b, hq, hkv, sq, skv, d, seed,
+                           layout="bshd")
+    if lens is not None:
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, k, v, lens
 
 
 def flash_compare(name, got, want, tol):
@@ -2510,6 +2613,19 @@ def phase_flash(dev):
                                          FLASH_BF16)
     routes[key] = used
     del q, k, v, got, want
+    for i, (key, case) in enumerate(FLASH_FAMILIES.items()):
+        q, k, v, lens = family_flash_inputs(dev, case, 25 + i)
+        causal = case[6]
+        got, used = flash_routed(fk, lambda: ops.flash_attention(
+            q, k, v, causal=causal, kv_len=lens, layout="bshd"))
+        if used != fk.route(torch.bfloat16, case[5], case[3]):
+            raise AssertionError(f"flash {key}: launched {used}")
+        want = attention_ref(*(x.transpose(1, 2) for x in (q, k, v)),
+                             causal=causal, kv_len=lens)
+        errs[key], rows[key] = flash_compare(key, got.transpose(1, 2), want,
+                                             FLASH_BF16)
+        routes[key] = used
+        del q, k, v, got, want
     for dtype, tol in ((torch.bfloat16, FLASH_BF16), (torch.float32,
                                                        FLASH_F32)):
         q, k, v, kv_len = decode_inputs(dev, dtype)
@@ -2534,6 +2650,7 @@ def phase_flash(dev):
          tol_bf16=FLASH_BF16, prefill_shape=list(FLASH_PREFILL),
          mla_shapes={k: list(v) for k, v in FLASH_MLA.items()},
          internlm2_prefill_shape=list(FLASH_INTERNLM2_PREFILL),
+         family_shapes={k: list(v[:7]) for k, v in FLASH_FAMILIES.items()},
          int8=dict(cache=FLASH_INT8_CACHE, kv_len=list(FLASH_INT8_LENS),
                    groups_head_dims=[list(c) for c in FLASH_INT8_CASES],
                    bit_for_bit_with_dequantized=True),
@@ -2634,6 +2751,54 @@ def phase_linrec(dev):
          model_logw_range=[-float(np.exp(10.0)), -float(np.exp(-20.0))],
          entering_states_shape=list(entering.shape))
     return max(errs.values())
+
+
+def mamba_inputs(dev, b, s, d, n, seed):
+    """The scan's inputs as the Mamba layer makes them: delta =
+    softplus(normal), a = -exp(uniform(-1, 2)) (decays e^-0.4 to e^-e^2 a
+    unit of delta), bm, cm, x and h0 normal; float32 on ``dev``: (delta,
+    x, a, bm, cm, h0)."""
+    gen = torch.Generator().manual_seed(seed)
+    delta = torch.nn.functional.softplus(torch.randn(b, s, d, generator=gen))
+    x = torch.randn(b, s, d, generator=gen)
+    a = -torch.exp(torch.rand(d, n, generator=gen) * 3.0 - 1.0)
+    bm, cm = (torch.randn(b, s, n, generator=gen) for _ in range(2))
+    h0 = torch.randn(b, d, n, generator=gen)
+    return [t.to(dev) for t in (delta, x, a, bm, cm, h0)]
+
+
+def phase_mamba(dev):
+    """The Mamba scan kernel against its plain step loop on the card at
+    MAMBA_CHECKS (jamba's d_inner 8192 and N 16 at S = 1, 13, 64 and 2048,
+    and N = 8 at a ragged B = 2 shape): y and the final h within MAMBA_TOL
+    of their largest magnitude, one launch a call, a rerun bit for bit.
+    Returns the largest error of y."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    cases = {}
+    for i, (b, s, d, n) in enumerate(MAMBA_CHECKS):
+        args = mamba_inputs(dev, b, s, d, n, 50 + i)
+        before = mk.LAUNCHES
+        y, h = ops.mamba_scan(*args)
+        if mk.LAUNCHES != before + 1:
+            raise AssertionError("mamba: the scan did not launch its kernel")
+        want = mamba_scan_ref(*args)
+        torch.cuda.synchronize()
+        res = {}
+        for label, got, ref in zip(("y", "h"), (y, h), want):
+            err, big = float((got - ref).abs().max()), float(ref.abs().max())
+            if not err <= MAMBA_TOL * big:
+                raise AssertionError(f"mamba {(b, s, d, n)} {label}: {err} "
+                                     f"> {MAMBA_TOL} x {big}")
+            res[label] = dict(max_abs_err=err, largest=big)
+        again = ops.mamba_scan(*args)
+        if not all(torch.equal(u, w) for u, w in zip((y, h), again)):
+            raise AssertionError(f"mamba {(b, s, d, n)}: a rerun differs")
+        cases[f"{b}x{s}x{d}x{n}"] = res
+    emit("mamba", cases=cases, tol_of_largest=MAMBA_TOL,
+         rerun_bit_for_bit=True)
+    return max(c["y"]["max_abs_err"] for c in cases.values())
 
 
 def walk_inputs(dev, n, p, t, seed, clouds=None):
@@ -2856,20 +3021,28 @@ def serve(engine, requests):
 
 def expected_flash_mix(cfg, ticks):
     """A serve run's flash launches by kernel, from the config: every
-    prompt (more than one token) prefills each layer once on the kernel
-    the route names for the layer's head dims; a GQA model decodes each
-    layer once a tick, on the route of one query; an MLA model decodes in
-    the absorbed form, with no flash launch."""
+    prompt (more than one token) prefills each attention layer once on the
+    kernel the route names for the layer's head dims; a GQA model decodes
+    each attention layer once a tick, on the route of one query; an MLA
+    model decodes in the absorbed form, with no flash launch.  Whisper's
+    attention layers are its encoder's (prefill only, over encoder_seq
+    frames) and its decoder's self- and cross-attention; jamba's are the
+    layers ``cfg.is_attn_layer`` names."""
     from repro_torch.kernels.flash_attention import flash_attention as fk
     dtype = getattr(torch, cfg.dtype)
     mix = dict.fromkeys(fk.SOURCES, 0)
-    per_prompt = cfg.num_layers * SERVE_REQUESTS
+    attn_layers = sum(map(cfg.is_attn_layer, range(cfg.num_layers)))
+    if cfg.family == "audio":
+        mix[fk.route(dtype, cfg.head_dim, cfg.encoder_seq)] += (
+            cfg.encoder_layers * SERVE_REQUESTS)
+        attn_layers = 2 * cfg.num_layers
+    per_prompt = attn_layers * SERVE_REQUESTS
     if cfg.attention == "mla":
         dqk = cfg.qk_nope_dim + cfg.qk_rope_dim
         mix[fk.route(dtype, dqk, PROMPT_MIN, dv=cfg.v_head_dim)] += per_prompt
     else:
         mix[fk.route(dtype, cfg.head_dim, PROMPT_MIN)] += per_prompt
-        mix[fk.route(dtype, cfg.head_dim, 1)] += cfg.num_layers * ticks
+        mix[fk.route(dtype, cfg.head_dim, 1)] += attn_layers * ticks
     return mix
 
 
@@ -2878,20 +3051,152 @@ def moe_tick_bytes(cfg):
     tick's capacity (8 slots: the floor of 8 rows an expert) every
     expert's buffer holds rows, so the batched products read all E
     experts' w_gate, w_up and w_down in every MoE layer."""
-    moe_layers = cfg.num_layers - cfg.first_dense_layers
+    moe_layers = sum(map(cfg.is_moe_layer, range(cfg.num_layers)))
     elem = getattr(torch, cfg.dtype).itemsize
     return moe_layers * 3 * cfg.num_experts * cfg.d_model * cfg.moe_d_ff * elem
 
 
-def phase_serve(name, cfg, dev, counted, extra=None):
-    """The model of ``cfg`` at its full size served by the engine: the
-    main path of the kernel named ``counted``; the flash launches by
-    kernel are ``expected_flash_mix``'s, exactly, and with an int8 KV
-    cache every decode_split launch is the int8 instance (none without).
+@dataclasses.dataclass
+class InputRequest:
+    """A request of the engine's shape for ApplyEngine: a vlm prompt's
+    (S, d) embeddings, or a whisper prompt's tokens with the clip's
+    encoder frames (encoder_seq, d) on the card."""
+    rid: int
+    prompt: "np.ndarray | torch.Tensor"
+    max_new_tokens: int
+    generated: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    frames: "torch.Tensor | None" = None
+
+
+class ApplyEngine:
+    """The serving engine's steps on ``Model.apply``, for a model the
+    engine refuses because it prefills on ``embeds`` (qwen2-vl) or
+    ``enc_frames`` (whisper): each request prefilled alone into its slot's
+    view of the pool cache (``Model.slot_view``), then one batched decode
+    a tick at per-slot positions, idle slots decoding a dummy token at
+    their old position.  A vlm request's prompt is its (S, d) embeddings;
+    each sampled token's next input is its row of ``table``, a stand-in
+    text embedding made here (the reference has none: it stubs the
+    frontend).  A whisper request carries its frames; decode reads the
+    cached cross k/v."""
+
+    def __init__(self, model, *, num_slots, cache_len, table=None):
+        self.model, self.num_slots = model, num_slots
+        self.cache_len, self.table = cache_len, table
+        self.cache = model.init_cache(num_slots, cache_len)
+        self.slot_req = [None] * num_slots
+        self.slot_pos = np.zeros(num_slots, np.int64)
+        self.slot_limit = np.zeros(num_slots, np.int64)
+
+    @property
+    def active_slots(self):
+        return sum(r is not None for r in self.slot_req)
+
+    def prefill_inputs(self, req):
+        """``Model.apply``'s inputs for ``req``'s prompt, batch 1."""
+        if self.table is not None:
+            return dict(embeds=req.prompt[None])
+        return dict(tokens=torch.as_tensor(
+            np.asarray(req.prompt, np.int64)[None], device=self.model.device),
+            enc_frames=req.frames[None])
+
+    def try_admit(self, req):
+        for slot, occupant in enumerate(self.slot_req):
+            if occupant is None:
+                logits, _ = self.model.apply(
+                    **self.prefill_inputs(req), mode="prefill",
+                    cache=self.model.slot_view(self.cache, slot), pos=0)
+                req.generated.append(int(logits[0, -1].argmax()))
+                self.slot_req[slot] = req
+                self.slot_pos[slot] = len(req.prompt)
+                self.slot_limit[slot] = len(req.prompt) + req.max_new_tokens
+                return True
+        return False
+
+    def tick(self):
+        if self.active_slots == 0:
+            return
+        tokens = np.zeros((self.num_slots, 1), np.int64)
+        for slot, req in enumerate(self.slot_req):
+            if req is not None:
+                tokens[slot, 0] = req.generated[-1]
+        dev = self.model.device
+        tok = torch.as_tensor(tokens, device=dev)
+        inputs = (dict(embeds=self.table[tok]) if self.table is not None
+                  else dict(tokens=tok))
+        logits, _ = self.model.apply(
+            **inputs, mode="decode", cache=self.cache,
+            pos=torch.as_tensor(self.slot_pos, device=dev))
+        nxt = logits[:, 0].argmax(-1).cpu().numpy()
+        for slot, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            req.generated.append(int(nxt[slot]))
+            self.slot_pos[slot] += 1
+            if self.slot_pos[slot] >= self.slot_limit[slot]:
+                req.done = True
+                self.slot_req[slot] = None
+
+
+def token_traffic(model, dev):
+    """serve_prompt_lengths()' 16 token prompts through the port's engine:
+    (prompt lengths, requests, engine)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    lens, rng = serve_prompt_lengths()
+    prompts = [rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    reqs = [Request(i, p, NEW_TOKENS) for i, p in enumerate(prompts)]
+    return lens, reqs, ServeEngine(model, num_slots=SERVE_SLOTS,
+                                   cache_len=SERVE_CACHE)
+
+
+def vlm_traffic(model, dev):
+    """serve_prompt_lengths()' 16 prompts as (S, d) embeddings drawn on the
+    card (seed 1), and a (vocab, d) stand-in text table (the same
+    generator) for the decode's inputs, driven by ApplyEngine."""
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(1)
+    table = torch.randn(cfg.vocab_size, cfg.d_model, generator=gen,
+                        device=dev).to(model.dtype)
+    lens, _ = serve_prompt_lengths()
+    reqs = [InputRequest(i, torch.randn(int(n), cfg.d_model, generator=gen,
+                                        device=dev).to(model.dtype),
+                         NEW_TOKENS) for i, n in enumerate(lens)]
+    return lens, reqs, ApplyEngine(model, num_slots=SERVE_SLOTS,
+                                   cache_len=SERVE_CACHE, table=table)
+
+
+def audio_traffic(model, dev):
+    """16 clips of encoder_seq frames (30 s each, drawn on the card, seed
+    1) with decoder prompts of AUDIO_PROMPT_MIN-AUDIO_PROMPT_MAX tokens
+    (numpy seed 0), driven by ApplyEngine with a cache of AUDIO_CACHE."""
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    lens = rng.integers(AUDIO_PROMPT_MIN, AUDIO_PROMPT_MAX + 1,
+                        SERVE_REQUESTS)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    reqs = [InputRequest(
+        i, rng.integers(0, cfg.vocab_size, n).astype(np.int32), NEW_TOKENS,
+        frames=torch.randn(cfg.encoder_seq, cfg.d_model, generator=gen,
+                           device=dev).to(model.dtype))
+        for i, n in enumerate(lens)]
+    return lens, reqs, ApplyEngine(model, num_slots=SERVE_SLOTS,
+                                   cache_len=AUDIO_CACHE)
+
+
+def phase_serve(name, cfg, dev, counted, extra=None, traffic=token_traffic):
+    """The model of ``cfg`` at its full size served in the engine's steps:
+    the main path of the kernel named ``counted``; the flash launches by
+    kernel are ``expected_flash_mix``'s, exactly, with an int8 KV cache
+    every decode_split launch is the int8 instance (none without), and
+    the Mamba scan launches once per Mamba layer and prompt (none in a
+    model without Mamba layers).  ``traffic(model, dev)`` gives the
+    prompt lengths, the requests and the engine (the port's
+    ``ServeEngine``, or ``ApplyEngine`` for a model it refuses).
     ``extra(model, prompts, engine)`` adds fields before the model is
     freed."""
     from repro_torch.models.model import build
-    from repro_torch.serve.engine import Request, ServeEngine
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2899,11 +3204,8 @@ def phase_serve(name, cfg, dev, counted, extra=None):
         torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    lens, rng = serve_prompt_lengths()
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in lens]
-    reqs = [Request(i, p, NEW_TOKENS) for i, p in enumerate(prompts)]
-    engine = ServeEngine(model, num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE)
+    lens, reqs, engine = traffic(model, dev)
+    prompts = [r.prompt for r in reqs]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2938,11 +3240,20 @@ def phase_serve(name, cfg, dev, counted, extra=None):
     if launches["flash_int8"] != int8_want:
         raise AssertionError(f"{name}: {launches['flash_int8']} int8 decode "
                              f"launches, expected {int8_want}")
+    mamba_layers = (cfg.num_layers - sum(map(cfg.is_attn_layer,
+                                             range(cfg.num_layers)))
+                    if cfg.family == "hybrid" else 0)
+    if launches["mamba_scan"] != mamba_layers * SERVE_REQUESTS:
+        raise AssertionError(f"{name}: {launches['mamba_scan']} Mamba scan "
+                             f"launches, expected {mamba_layers} x "
+                             f"{SERVE_REQUESTS}")
     # The engine against a direct prefill of the first request in a fresh
     # one-slot cache: finite logits and the engine's first token.
-    cache = model.init_cache(1, SERVE_CACHE)
-    logits, _ = model.apply(torch.as_tensor(prompts[0][None], device=dev),
-                            mode="prefill", cache=cache, pos=0)
+    cache = model.init_cache(1, engine.cache_len)
+    direct = (engine.prefill_inputs(reqs[0])
+              if isinstance(engine, ApplyEngine) else dict(
+                  tokens=torch.as_tensor(prompts[0][None], device=dev)))
+    logits, _ = model.apply(**direct, mode="prefill", cache=cache, pos=0)
     if not torch.isfinite(logits).all():
         raise AssertionError(f"{name}: non-finite prefill logits")
     if int(logits[0, -1].argmax()) != reqs[0].generated[0]:
@@ -2951,12 +3262,18 @@ def phase_serve(name, cfg, dev, counted, extra=None):
     names = (RWKV6_PROFILE_NAMES if mix is None else tuple(
         n for kern, count in mix.items() if count
         for n in FLASH_PROFILE_NAMES[kern]))
+    if mamba_layers:
+        names += ("mamba_scan_kernel",)
     prof = profile_serving(name, engine, reqs, stats, counted, names)
+    if mamba_layers:  # the scan's device ms in the longest prompt's prefill
+        prof["prefill_longest"]["mamba_scan_ms"] = 1e3 * prof[
+            "prefill_longest"]["kernel_device_s_by_name"]["mamba_scan_kernel"]
     ttft = sorted(stats["ttft"].values())
     out = dict(
         arch=cfg.name, params=model.num_params(), dtype=cfg.dtype,
         layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
-        slots=SERVE_SLOTS, cache_len=SERVE_CACHE, requests=SERVE_REQUESTS,
+        engine=type(engine).__name__, slots=SERVE_SLOTS,
+        cache_len=engine.cache_len, requests=SERVE_REQUESTS,
         prompt_tokens=int(lens.sum()), prompt_len_min_max=[int(lens.min()),
                                                            int(lens.max())],
         new_tokens=NEW_TOKENS, init_s=init_s, wall_s=stats["wall_s"],
@@ -3001,18 +3318,22 @@ def profile_serving(name, engine, reqs, stats, counted, names):
     Full tables in build/chip_smoke/profile_<name>.txt."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serve.engine import Request
     # every kernel of the path: flash's four, RWKV6's three
     kernel = {"flash_attention": "flash_", "rwkv6": "rwkv6_"}[counted]
     longest = max(reqs, key=lambda r: len(r.prompt))
+
+    def again(req, rid, prompt):  # the same request (its frames too) anew
+        return dataclasses.replace(req, rid=rid, prompt=prompt,
+                                   max_new_tokens=PROFILE_TICKS + 1,
+                                   generated=[], done=False)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof_pre:
-        engine.try_admit(Request(1000, longest.prompt, PROFILE_TICKS + 1))
+        engine.try_admit(again(longest, 1000, longest.prompt))
         torch.cuda.synchronize()
     for i in range(1, SERVE_SLOTS):
-        engine.try_admit(Request(1000 + i, reqs[i % len(reqs)].prompt[:PROMPT_MIN],
-                                 PROFILE_TICKS + 1))
+        req = reqs[i % len(reqs)]
+        engine.try_admit(again(req, 1000 + i, req.prompt[:PROMPT_MIN]))
     with profile(activities=acts) as prof_dec:
         for _ in range(PROFILE_TICKS):
             engine.tick()
@@ -3080,7 +3401,6 @@ def int8_serve_checks(model, prompts, engine):
     INT8_CHECKED_REQUESTS prompts, the first decode tick's logits with the
     int8 cache against the same weights with a bf16 cache, within the
     reference's bound."""
-    import dataclasses
     cfg = model.cfg
     cfg_b = dataclasses.replace(cfg, kv_cache_dtype="bf16")
     int8_bytes = sum(t.numel() * t.element_size()
@@ -3118,11 +3438,49 @@ def int8_serve_checks(model, prompts, engine):
                 first_tick_vs_bf16_cache=checks)
 
 
+def hybrid_cut(model, prompts, engine):
+    """serve_hybrid's depth cut and what its layers hold."""
+    from repro_torch import configs
+    from repro_torch.models.model import num_params
+    cfg = model.cfg
+    full = configs.get(cfg.name)
+    kinds = [(cfg.is_attn_layer(i), cfg.is_moe_layer(i))
+             for i in range(cfg.num_layers)]
+    return dict(
+        reduced=dict(num_layers=[full.num_layers, cfg.num_layers],
+                     why="the 32 layers' bf16 weights (2 x num_params "
+                         "bytes) exceed one 80 GB card"),
+        published_params=num_params(full),
+        attention_layers=sum(a for a, _ in kinds),
+        mamba_layers=sum(not a for a, _ in kinds),
+        moe_layers=sum(m for _, m in kinds))
+
+
+def phase_serve_families(dev):
+    """serve_vlm, serve_audio, serve_hybrid (module docstring): qwen2-vl-7b
+    and whisper-small through ApplyEngine (the engine refuses them), jamba
+    at full width and HYBRID_LAYERS layers through the engine.  Returns
+    each phase's launches by kernel."""
+    from repro_torch import configs
+    out = {}
+    for name, cfg, traffic, extra in (
+            ("serve_vlm", configs.get("qwen2-vl-7b"), vlm_traffic, None),
+            ("serve_audio", configs.get("whisper-small"), audio_traffic,
+             None),
+            ("serve_hybrid", dataclasses.replace(
+                configs.get("jamba-v0.1-52b"), num_layers=HYBRID_LAYERS),
+             token_traffic, hybrid_cut)):
+        _, res = phase_serve(name, cfg, dev, "flash_attention", extra=extra,
+                             traffic=traffic)
+        out[name] = dict(res["launches"]["flash_by_kernel"],
+                         mamba_scan=res["launches"]["mamba_scan"],
+                         ticks=res["decode_ticks"])
+    return out
+
+
 def phase_serve_int8(dev):
     """internlm2-20b at full size with kv_cache_dtype="int8" (module
     docstring, phase ``serve_int8``)."""
-    import dataclasses
-
     from repro_torch import configs
     cfg = dataclasses.replace(configs.get("internlm2-20b"),
                               kv_cache_dtype="int8")
@@ -3135,8 +3493,6 @@ def moe_drops_card_vs_cpu(dev):
     deepseek-v2-lite at capacity factor 1.0 over MOE_DROP_TOKENS tokens,
     so that assignments drop.  The dropped counts must be equal (and not
     0), the outputs within MOE_TOL of the largest."""
-    import dataclasses
-
     from repro_torch import configs
     from repro_torch.models.ffn import MoE
     from repro_torch.models.params import init_module
@@ -3166,6 +3522,83 @@ def moe_drops_card_vs_cpu(dev):
                 largest=largest, tol_of_largest=MOE_TOL)
 
 
+def model_cpu_families(dev):
+    """The reduced float32 qwen2-vl, whisper and jamba on the CPU (plain
+    versions) and the card (kernels): five requests through three slots
+    (ApplyEngine for the first two, whose vlm prompts are rows of a seeded
+    stand-in table and whose audio clips are seeded frames; the engine for
+    jamba), tokens equal; then prefill 36 + decode 1 and the train-mode
+    forward on two rows, logits within MODEL_TOL.  Jamba's Mamba layers
+    launch the scan kernel (its state size 8) on the card."""
+    from repro_torch import configs
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
+    from repro_torch.models.model import build
+    from repro_torch.serve.engine import Request, ServeEngine
+    out = {}
+    for arch in ("qwen2-vl-7b", "whisper-small", "jamba-v0.1-52b"):
+        cfg = dataclasses.replace(configs.reduced(arch), dtype="float32")
+        scans = mk.LAUNCHES
+        cpu = build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        card = build(cfg, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        gen = torch.Generator().manual_seed(2)
+        table = (torch.randn(cfg.vocab_size, cfg.d_model, generator=gen)
+                 if cfg.embeds_input else None)
+        frames = (torch.randn(5, cfg.encoder_seq, cfg.d_model, generator=gen)
+                  if cfg.family == "audio" else None)
+        rng = np.random.default_rng(1)
+        specs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+                 for n, m in ((5, 6), (40, 4), (77, 8), (12, 5), (100, 3))]
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 37)))
+        gens, results = [], []
+        for model in (cpu, card):
+            d = model.device
+            if cfg.family == "hybrid":
+                engine = ServeEngine(model, num_slots=3, cache_len=128)
+                reqs = [Request(i, p, m) for i, (p, m) in enumerate(specs)]
+            else:
+                tab = None if table is None else table.to(d)
+                engine = ApplyEngine(model, num_slots=3, cache_len=128,
+                                     table=tab)
+                reqs = [InputRequest(
+                    i, p if tab is None else tab[torch.as_tensor(p).to(d)],
+                    m, frames=None if frames is None else frames[i].to(d))
+                    for i, (p, m) in enumerate(specs)]
+            serve(engine, reqs)
+            gens.append([r.generated for r in reqs])
+            if table is not None:
+                pre_in = dict(embeds=table.to(d)[tok[:, :36].to(d)])
+                dec_in = dict(embeds=table.to(d)[tok[:, 36:].to(d)])
+                train_in = dict(embeds=table.to(d)[tok.to(d)])
+            else:
+                enc = ({} if frames is None
+                       else dict(enc_frames=frames[:2].to(d)))
+                pre_in = dict(tokens=tok[:, :36], **enc)
+                dec_in = dict(tokens=tok[:, 36:])
+                train_in = dict(tokens=tok, **enc)
+            cache = model.init_cache(2, 64)
+            pre, cache = model.apply(**pre_in, mode="prefill", cache=cache,
+                                     pos=0)
+            dec, _ = model.apply(**dec_in, mode="decode", cache=cache,
+                                 pos=torch.tensor([36, 36]))
+            train, _ = model.apply(**train_in, mode="train")
+            results.append((pre.cpu(), dec.cpu(), train.cpu()))
+        if gens[0] != gens[1]:
+            raise AssertionError(f"model_cpu {arch}: card tokens != CPU")
+        tol, errs = MODEL_TOL[arch], {}
+        for label, a, b in zip(("prefill", "decode", "train"), *results):
+            torch.testing.assert_close(
+                b, a, atol=tol, rtol=tol,
+                msg=lambda m: f"model_cpu {arch} {label}: {m}")
+            errs[label] = float((a - b).abs().max())
+        scans = mk.LAUNCHES - scans
+        if (scans > 0) != (cfg.family == "hybrid"):
+            raise AssertionError(f"model_cpu {arch}: {scans} scan launches")
+        out[arch] = dict(tokens_equal=True, max_abs_err=errs, tol=tol,
+                         requests=len(specs), mamba_scan_launches=scans)
+    return out
+
+
 def phase_model_cpu(dev):
     """The reduced float32 configs of every served family (dense GQA,
     RWKV, MoE GQA, MoE MLA, dense MLA), one set of weights each, served on
@@ -3173,8 +3606,6 @@ def phase_model_cpu(dev):
     minicpm3's head dims (MLA_CARD_DIMS), so that their prefill runs simt
     at (Dqk, Dv) = (96, 64) and their decode no flash kernel.  Then the
     MoE layer alone, with drops (moe_drops_card_vs_cpu)."""
-    import dataclasses
-
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.models.model import build
@@ -3228,6 +3659,7 @@ def phase_model_cpu(dev):
                               cfg.v_head_dim] if cfg.attention == "mla"
                              else [cfg.head_dim] * 2 if cfg.family != "ssm"
                              else None))
+    out.update(model_cpu_families(dev))
     # float32: the decode on decode_split, the prefill (and train) on simt
     flash = read_launches()["flash_by_kernel"]
     if not (flash["decode_split"] > 0 and flash["simt"] > 0
@@ -3425,8 +3857,6 @@ def train_card_vs_cpu(dev):
     gradients, then TRAIN_CPU_STEPS train steps (TRAIN_CPU_TOL), beside a
     CPU control run at TRAIN_CPU_CONTROL_LR times the learning rate that
     the update gate must reject."""
-    import dataclasses
-
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.models.model import build
@@ -3705,7 +4135,6 @@ def train_restart(dev):
     after the checkpoint equal the uninterrupted run's bit for bit.  Then
     one asynchronous save of the same state timed: the host snapshot (the
     train loop's wait) and the write."""
-    import dataclasses
     import shutil
 
     from repro_torch import configs
@@ -3774,7 +4203,6 @@ def train_rwkv(dev):
     """rwkv6-3b at full width with RWKV_TRAIN_LAYERS layers takes
     RWKV_TRAIN_STEPS steps: finite losses, and the RWKV6 kernel launched
     per layer and step for the forward and the remat recompute."""
-    import dataclasses
     import shutil
 
     from repro_torch import configs
@@ -3838,8 +4266,6 @@ TRAIN_BYTES_PER_PARAM = 16
 def phase_train_moe(dev):
     """Training the MoE family on the card (module docstring, phase
     ``train_moe``); returns each run's flash launches per step."""
-    import dataclasses
-
     from repro_torch import configs
     from repro_torch.models.model import num_params
     out = {}
@@ -4175,6 +4601,91 @@ def timing_linrec(dev, peak):
     return out
 
 
+def mamba_flops_bytes(b, s, d, n):
+    """MAMBA_OPS operations per (step, channel, state); delta, x and y
+    once, bm, cm, a, h0 and the final h once, float32."""
+    return (MAMBA_OPS * b * s * d * n,
+            4 * (3 * b * s * d + 2 * b * s * n + d * n + 2 * b * d * n))
+
+
+def timing_mamba(dev, peak):
+    """The Mamba scan and its plain step loop at jamba's longest prefill
+    (MAMBA_MAIN), in turns; then the kernel at each of serve_hybrid's
+    prompt lengths, summed over its Mamba layers: the scan's device time
+    in one serve run and its bound."""
+    from repro_torch import configs
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    b, s, d, n = MAMBA_MAIN
+    args = mamba_inputs(dev, b, s, d, n, 60)
+    ms, plain_ms, kern_sets, plain_sets = time_turns(
+        lambda: mk.mamba_scan_cuda(*args), lambda: mamba_scan_ref(*args),
+        plain_reps=2)
+    flops, nbytes = mamba_flops_bytes(b, s, d, n)
+    ms_bound, by = bound(flops, nbytes, peak["fp32_flops"], peak)
+    cfg = dataclasses.replace(configs.get("jamba-v0.1-52b"),
+                              num_layers=HYBRID_LAYERS)
+    layers = cfg.num_layers - sum(map(cfg.is_attn_layer,
+                                      range(cfg.num_layers)))
+    run_ms = run_bound = 0.0
+    for t in serve_prompt_lengths()[0].tolist():
+        call_args = mamba_inputs(dev, 1, t, d, n, 61)
+
+        def call():
+            mk.mamba_scan_cuda(*call_args)
+        call()
+        torch.cuda.synchronize()
+        run_ms += layers * median_ms(call, 10)
+        run_bound += layers * bound(*mamba_flops_bytes(1, t, d, n),
+                                    peak["fp32_flops"], peak)[0]
+    return dict(shape=[b, s, d, n], ms=ms, plain_ms=plain_ms,
+                kernel_ms=kern_sets, plain_ms_sets=plain_sets,
+                bound_ms=ms_bound, bound_by=by, bound_flops=flops,
+                bound_bytes=nbytes, exponentials=b * s * d * n,
+                share_of_bound=ms_bound / ms,
+                serve_run=dict(calls=layers * SERVE_REQUESTS, ms=run_ms,
+                               bound_ms=run_bound))
+
+
+def timing_families_flash(dev, peak):
+    """The flash kernels at FLASH_FAMILIES's shapes, each with its plain
+    version and scaled_dot_product_attention (and the backend it took)
+    in the same call: the encoder and cross-attention non-causal without
+    a mask, the decodes with a boolean mask of each row's kv_len, GQA by
+    enable_gqa; bounds from this run's inputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    out = {}
+    for i, (key, case) in enumerate(FLASH_FAMILIES.items()):
+        b, hq, hkv, sq, skv, d, causal, _ = case
+        q, k, v, lens = family_flash_inputs(dev, case, 30 + i)
+        full = (lens if lens is not None
+                else torch.full((b,), skv, dtype=torch.int32, device=dev))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kw = dict(enable_gqa=hq != hkv)
+        if bool((full < skv).any()):
+            kw["attn_mask"] = (torch.arange(skv, device=dev)[None, :]
+                               < full[:, None])[:, None, None, :]
+        elif causal and sq == skv:
+            kw["is_causal"] = True
+        elif causal:
+            raise AssertionError(f"{key}: causal with Sq < Skv needs a mask")
+        flops, nbytes = flash_flops_bytes(b, hq, sq, full.tolist(), d, 2,
+                                          causal, hkv=hkv)
+        out[key] = flash_timed(
+            lambda: fk.flash_attention_cuda(
+                q, k, v, full, causal=causal, scale=d ** -0.5, seq_dim=1),
+            lambda: attention_ref(qt, kt, vt, causal=causal, kv_len=lens),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
+            flops, nbytes, peak["bf16_flops"], peak)
+        out[key].update(route=fk.route(torch.bfloat16, d, sq),
+                        library_backend=sdpa_backend(qt, kt, vt, **kw))
+        del q, k, v, qt, kt, vt
+    return out
+
+
 def timing_walk(dev, peak):
     """The revocation walk and its plain per-hour loop at the main shape
     (one plain run a turn: it is ~20 launches an hour); the bound is the
@@ -4272,7 +4783,9 @@ def phase_timing(dev, launches, errs, turnover):
     del f, w, cs
     scen = timing_sweep_scenarios(dev, peak)
     fl = timing_flash(dev, peak)
+    fl_fam = timing_families_flash(dev, peak)
     lin = timing_linrec(dev, peak)
+    mam = timing_mamba(dev, peak)
     walk = timing_walk(dev, peak)
     emit("timing", peak=peak,
          commitment_sweep=dict(
@@ -4301,11 +4814,17 @@ def phase_timing(dev, launches, errs, turnover):
                                     f"{SERVE_CACHE} bfloat16",
              decode_split_int8=f"(slots, Hq, Hkv, D) = {FLASH_INT8_DECODE} "
                                f"cache {SERVE_CACHE} int8, q bfloat16"),
-             **fl),
-         rwkv6=lin, revocation_walk=walk, generation_turnover=turnover)
+             **fl, families=fl_fam),
+         rwkv6=lin, mamba_scan=mam, revocation_walk=walk,
+         generation_turnover=turnover)
     flash_srcs = kernel_modules()["flash_attention"].SOURCES
     flash_mix = launches["flash_by_kernel"]
     pre = fl["prefill_tc"]
+    served = launches["serve_families"]
+    # each shape's serve phase, whose launches of the shape's route it
+    # reports (the phase's total on that kernel)
+    shape_phase = {"whisper": "serve_audio", "qwen2vl": "serve_vlm",
+                   "jamba": "serve_hybrid"}
 
     def rel(path):
         return str(path.relative_to(ROOT))
@@ -4441,6 +4960,20 @@ def phase_timing(dev, launches, errs, turnover):
                         "ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms", "library_backend")})
                 for name, shape in FLASH_MLA.items()},
+            # the vlm, audio and hybrid serve runs: launches by kernel
+            # and decode ticks; the flash kernels at their shapes, each
+            # with its route's launches in its serve run
+            "launches_per_serve_families": served,
+            "family_shapes": {
+                key: dict(
+                    shape=f"(B, Hq, Hkv, Sq, Skv, D, causal, kv_len) = "
+                          f"{case}",
+                    route_launches_in_run=served[
+                        shape_phase[key.split("_")[0]]][fl_fam[key]["route"]],
+                    **{k: fl_fam[key][k] for k in (
+                        "route", "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "library_backend")})
+                for key, case in FLASH_FAMILIES.items()},
             # simt at head dim 128, which no main path gives it: a shape
             # timed for ranking, beside the library call
             "simt_d128": dict(
@@ -4473,6 +5006,23 @@ def phase_timing(dev, launches, errs, turnover):
             "short": {key: lin["short"][key] for key in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by")},
             "per_serve_run": lin["serve_run"],
+        },
+        {
+            "name": "mamba_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/mamba_scan/csrc/"
+                      "mamba_scan.cu",
+            "replaces": "src/repro/models/mamba.py:94",
+            "replaces_note": "the jax.lax.associative_scan of _ssm_scan, "
+                             "not a Pallas kernel",
+            "launches": launches["mamba_scan"],
+            "launches_per_serve_hybrid": launches["mamba_scan"],
+            "max_abs_err": errs["mamba_scan"], "ms": mam["ms"],
+            "plain_ms": mam["plain_ms"], "bound_ms": mam["bound_ms"],
+            "bound_by": mam["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes the selective "
+                            "scan",
+            "shape": f"(B, S, D, N) = {MAMBA_MAIN} float32",
+            "per_serve_run": mam["serve_run"],
         },
         {
             "name": "revocation_walk", "route": "cuda",
@@ -4525,6 +5075,7 @@ def main() -> int:
     phase_ties(dev)
     errs["flash_attention"] = phase_flash(dev)
     errs["rwkv6"] = phase_linrec(dev)
+    errs["mamba_scan"] = phase_mamba(dev)
     errs["revocation_walk"] = phase_walk(dev)
     from repro_torch import configs
     from repro_torch.data import traces
@@ -4572,6 +5123,9 @@ def main() -> int:
     int8_launches = phase_serve_int8(dev)[1]["launches"]
     launches["serve_int8"] = dict(int8_launches["flash_by_kernel"],
                                   flash_int8=int8_launches["flash_int8"])
+    launches["serve_families"] = phase_serve_families(dev)
+    launches["mamba_scan"] = launches["serve_families"]["serve_hybrid"][
+        "mamba_scan"]
     launches["train"] = phase_train(dev)
     launches["train_moe"] = phase_train_moe(dev)
     phase_timing(dev, launches, errs, turnover)

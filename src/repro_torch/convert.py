@@ -109,38 +109,63 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def _unstack(out: dict, tree, prefix: str, count: int, start: int = 0,
+             step: int = 1) -> None:
+    """Split each leaf of the stacked subtree ``tree`` (leading axis of
+    ``count``) into ``{prefix}{start + step * j}.<name>`` entries of
+    ``out``."""
+    for name, stacked in _flatten(tree):
+        arr = np.asarray(stacked)
+        if arr.shape[0] != count:
+            raise ValueError(f"{prefix}{name} stacks {arr.shape[0]}, the "
+                             f"config has {count}")
+        for j in range(count):
+            out[f"{prefix}{start + step * j}.{name}"] = arr[j]
+
+
 def model_params_from_reference(cfg, tree) -> dict[str, torch.Tensor]:
     """The port model's ``state_dict`` holding the JAX model's parameters.
 
     ``tree`` is the reference's parameter pytree (nested dicts and lists of
     arrays, any array type numpy can read).  The port keeps every layer in
-    one list: the reference's ``first_dense_layers`` unstacked ``prefix``
-    layers become ``layers.<i>.<name>``, and the leaves of its stacked
-    ``layers`` subtree, which carry a leading layer axis, are split into
-    ``layers.<first_dense_layers + j>.<name>`` entries.  bfloat16 leaves
-    pass through float32, which holds them exactly; ``load_state_dict``
-    casts each tensor to its parameter's dtype.  A gradient tree of the
-    JAX model has the parameters' layout and carries across the same
-    way."""
-    first = cfg.first_dense_layers
-    prefix = tree.get("prefix", [])
-    if len(prefix) != first:
-        raise ValueError(f"the tree has {len(prefix)} prefix layers, the "
-                         f"config {first}")
+    one list, where the reference stacks layers on a leading axis and
+    scans them:
+    - the transformer families (dense, MoE, vlm): the
+      ``first_dense_layers`` unstacked ``prefix`` layers become
+      ``layers.<i>.<name>``, the leaves of the stacked ``layers`` subtree
+      ``layers.<first_dense_layers + j>.<name>`` (RWKV's ``layers`` too);
+    - whisper (audio): the stacked ``enc_layers`` and ``dec_layers``
+      become ``enc_layers.<j>.<name>`` and ``dec_layers.<j>.<name>``;
+    - jamba (hybrid): ``blocks.l<i>.<name>`` of block ``b`` becomes
+      ``layers.<8 b + i>.<name>``.
+    bfloat16 leaves pass through float32, which holds them exactly;
+    ``load_state_dict`` casts each tensor to its parameter's dtype.  A
+    gradient tree of the JAX model has the parameters' layout and carries
+    across the same way."""
+    stacked = {"audio": ("enc_layers", "dec_layers"),
+               "hybrid": ("blocks",)}.get(cfg.family, ("layers", "prefix"))
     out = dict(_flatten({k: v for k, v in tree.items()
-                         if k not in ("layers", "prefix")}))
-    for i, layer in enumerate(prefix):
-        for name, leaf in _flatten(layer):
-            out[f"layers.{i}.{name}"] = leaf
-    stacked_layers = cfg.num_layers - first
-    for name, stacked in _flatten(tree["layers"]):
-        arr = np.asarray(stacked)
-        if arr.shape[0] != stacked_layers:
-            raise ValueError(
-                f"layers.{name} stacks {arr.shape[0]} layers, the config "
-                f"has {stacked_layers} after {first} prefix layers")
-        for j in range(stacked_layers):
-            out[f"layers.{first + j}.{name}"] = arr[j]
+                         if k not in stacked}))
+    if cfg.family == "audio":
+        _unstack(out, tree["enc_layers"], "enc_layers.", cfg.encoder_layers)
+        _unstack(out, tree["dec_layers"], "dec_layers.", cfg.num_layers)
+    elif cfg.family == "hybrid":
+        period = len(tree["blocks"])
+        blocks = cfg.num_layers // period
+        for slot in range(period):
+            _unstack(out, tree["blocks"][f"l{slot}"], "layers.", blocks,
+                     start=slot, step=period)
+    else:
+        first = cfg.first_dense_layers
+        prefix = tree.get("prefix", [])
+        if len(prefix) != first:
+            raise ValueError(f"the tree has {len(prefix)} prefix layers, "
+                             f"the config {first}")
+        for i, layer in enumerate(prefix):
+            for name, leaf in _flatten(layer):
+                out[f"layers.{i}.{name}"] = leaf
+        _unstack(out, tree["layers"], "layers.", cfg.num_layers - first,
+                 start=first)
     return {k: _tensor(v) for k, v in out.items()}
 
 

@@ -2,7 +2,8 @@
 (DeepSeek/MiniCPM multi-head latent attention with the absorbed decode).
 
 Three execution modes share one set of weights:
-  * train    — full causal self-attention, no cache;
+  * train    — full self-attention (causal unless ``causal=False``, as
+               whisper's encoder asks), no cache;
   * prefill  — the same attention over the prompt, which also writes the
                KV cache;
   * decode   — the new token(s) against the cache at fill level ``pos``,
@@ -11,9 +12,11 @@ Three execution modes share one set of weights:
 Every mode goes through the flash-attention ops
 (``repro_torch.kernels.flash_attention.ops``): on the card the CUDA kernel
 reads q and the cache in their (B, S, H, D) layout in place, with per-row
-``kv_len``; on the CPU the plain version.  Train mode takes the trainable
-op (``flash_attention_trainable``), whose backward recomputes attention
-from q, k and v.  Caches are laid out
+``kv_len``; on the CPU the plain version.  Causal train mode takes the
+trainable op (``flash_attention_trainable``), whose backward recomputes
+attention from q, k and v; non-causal attention (:func:`noncausal_attention`:
+whisper's encoder and cross-attention) runs without gradients only.
+Caches are laid out
 (B, S, Hkv, D), as the reference's, and are written in place.
 
 With ``kv_cache_dtype="int8"`` a GQA cache holds int8 ``k``/``v`` and one
@@ -175,12 +178,16 @@ class GQAAttention(nn.Module):
         self.cfg = cfg
         add_parameters(self, gqa_specs(cfg), dtype, device)
 
-    def forward(self, x, *, mode: str, cache, pos, positions):
+    def forward(self, x, *, mode: str, cache, pos, positions,
+                causal: bool = True):
         """x (B, S, d) -> y (B, S, d).  ``cache`` is this layer's
         {"k", "v"} (B, S_cache, Hkv, D) (and, int8, {"k_scale",
         "v_scale"}), written in place in prefill and decode; ``pos`` is
         the write offset (prefill) or fill level (decode), an int or a
-        (B,) tensor; ``positions`` (B, S) are the rotary positions."""
+        (B,) tensor; ``positions`` (B, S) are the rotary positions.
+        ``causal=False`` (whisper's encoder) attends over every key; its
+        train mode runs without gradients only: the trainable op's
+        backward is causal (ROADMAP Queue 1, item 16.6)."""
         cfg = self.cfg
         b, s, d = x.shape
         h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -196,13 +203,15 @@ class GQAAttention(nn.Module):
                            k[..., rot:]], -1)
 
         scale = 1.0 / math.sqrt(hd)
-        if mode == "train":
+        if mode == "train" and causal:
             out = flash_attention_trainable(q, k, v, scale=scale,
                                             layout="bshd")
+        elif mode == "train":
+            out = noncausal_attention(q, k, v, kv_len=s, scale=scale)
         elif mode == "prefill":
             self._write_cache(cache, k, v, pos)
-            out = flash_attention(q, k, v, kv_len=s, scale=scale,
-                                  layout="bshd")
+            out = flash_attention(q, k, v, causal=causal, kv_len=s,
+                                  scale=scale, layout="bshd")
         elif mode == "decode":
             self._write_cache(cache, k, v, pos)
             s_cache = cache["k"].shape[1]
@@ -210,8 +219,8 @@ class GQAAttention(nn.Module):
                 kv_len = (pos + s).clamp(max=s_cache)
             else:
                 kv_len = min(int(pos) + s, s_cache)
-            out = flash_attention(q, cache["k"], cache["v"], kv_len=kv_len,
-                                  scale=scale, layout="bshd",
+            out = flash_attention(q, cache["k"], cache["v"], causal=causal,
+                                  kv_len=kv_len, scale=scale, layout="bshd",
                                   k_scale=cache.get("k_scale"),
                                   v_scale=cache.get("v_scale"))
         else:
@@ -229,6 +238,20 @@ class GQAAttention(nn.Module):
             return
         update_cache(cache["k"], k, pos)
         update_cache(cache["v"], v, pos)
+
+
+def noncausal_attention(q, k, v, *, kv_len, scale: float) -> torch.Tensor:
+    """Bidirectional attention of q (B, Sq, H, D) over k, v (B, Skv, Hkv,
+    D), keys at or past ``kv_len`` masked, through the flash op: whisper's
+    encoder and cross-attention.  Only without gradients: the trainable
+    op's backward is causal, so under autograd this raises (training the
+    audio family is ROADMAP Queue 1, item 16.6)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "non-causal attention has no backward yet (ROADMAP Queue 1, "
+            "item 16.6: a non-causal flash backward)")
+    return flash_attention(q, k, v, causal=False, kv_len=kv_len, scale=scale,
+                           layout="bshd")
 
 
 def _decode_mask(b: int, sq: int, skv: int, pos, device) -> torch.Tensor:

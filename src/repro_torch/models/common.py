@@ -1,8 +1,6 @@
-"""Shared layer primitives: RMSNorm and RoPE (standard and partial), the
-token embedding with a deterministic gradient, and the per-layer
-rematerialization of the train forward.
-
-M-RoPE (qwen2-vl) is not ported yet (ROADMAP Queue 1, item 16).
+"""Shared layer primitives: RMSNorm and RoPE (standard, partial and
+qwen2-vl's M-RoPE), the token embedding with a deterministic gradient, and
+the per-layer rematerialization of the train forward.
 """
 
 from __future__ import annotations
@@ -50,13 +48,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: the head dim's rotated halves are split
+    into (temporal, height, width) sections, each rotated by its own
+    position stream.  x (B, S, H, D_rot), positions (3, B, S) integer,
+    ``sections`` half-dims summing to D_rot / 2.  Three equal streams give
+    the standard rotary embedding, bit for bit."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to half "
+                         f"the rotary dim {d}")
+    if len(sections) != positions.shape[0]:
+        raise ValueError(f"{len(sections)} sections, {positions.shape[0]} "
+                         "position streams")
+    inv = rope_freqs(d, theta, x.device)                     # (d/2,)
+    pos_full = torch.cat(
+        [stream[..., None].float().expand(*stream.shape, sec)
+         for sec, stream in zip(sections, positions)], -1)   # (B, S, d/2)
+    ang = pos_full * inv
+    cos, sin = ang.cos()[:, :, None, :], ang.sin()[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
 def rope_for(cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor) -> torch.Tensor:
     """Rotary embedding of the configured kind; the caller slices the
-    rotary part of a partial-rotary head."""
+    rotary part of a partial-rotary head.  With M-RoPE, (B, S) positions
+    (the model's, text only) are repeated as all three streams; (3, B, S)
+    are taken as they are."""
     if cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP Queue 1, item 16)")
+        if positions.dim() == 2:
+            positions = positions[None].expand(3, *positions.shape)
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(x, positions, cfg.rope_theta)
 
 

@@ -6,25 +6,37 @@ A model is an ``nn.Module``: its parameters live on one device, its layers
 in an ``nn.ModuleList``.  ``device=None`` means the card and raises without
 one (:func:`repro_torch.device.resolve_device`); the tests pass
 ``device="cpu"``, which runs the kernels' plain versions; ``device="meta"``
-builds a full-size model's shapes without allocating them.  The dense and
-MoE families (``transformer``, with GQA or MLA attention) and the RWKV
-family (``rwkv``) are ported; the vlm, hybrid and audio families and
-embedding inputs raise (ROADMAP Queue 1, items 16.5-16.7).
-:func:`num_params` counts any registry architecture from its family's
-shape table without building a module.
+builds a full-size model's shapes without allocating them.  Every family
+of the registry builds: dense and MoE (``transformer``, with GQA or MLA
+attention), the vlm backbone (``transformer`` on embedding inputs, with
+M-RoPE), RWKV (``rwkv``), the audio encoder-decoder (``whisper``) and the
+hybrid (``jamba``, Mamba and attention layers).  :func:`num_params` counts
+any registry architecture from its family's shape table without building a
+module.
+
+Inputs: ``tokens`` (B, S) integer, or for a config with ``embeds_input``
+(qwen2-vl) ``embeds`` (B, S, d) in their place; the audio family takes
+``enc_frames`` (B, encoder_seq, d) beside its decoder tokens in train and
+prefill mode.
 
 Two forwards share the weights: :meth:`Model.apply` (no gradients) runs
 prefill, decode and a train-mode forward for serving and checks, and
 :meth:`Model.forward` is the training forward, with gradients, each layer
 rematerialized in the backward pass by default (``remat=True``, the
 configured ``remat_policy``), as the JAX package's train forward is.
-Every built family trains: dense and MoE layers (the dense prefix too),
-GQA and MLA attention, RWKV.
+The dense, MoE and RWKV families train (the dense prefix too, GQA and MLA
+attention); the vlm, audio and hybrid families serve only (ROADMAP Queue
+1, items 16.5-16.7: a train forward on ``embeds``, a non-causal flash
+backward, a backward for the Mamba scan).
 
 Caches are dictionaries of tensors stacked over layers, the slot (batch)
-axis second: ``cache[name][layer, slot]``.  ``apply`` updates the cache it
-is given in place and returns it, so a view of some slots
-(:meth:`Model.slot_view`) is written through to the pool it views.
+axis second: ``cache[name][layer, slot]``.  A family whose layers hold
+caches of several kinds stacks each kind over its own layers
+(:meth:`Model.cache_groups`, :meth:`Model.layer_cache`: jamba's k/v over
+its attention layers, conv tail and state over its Mamba layers).
+``apply`` updates the cache it is given in place and returns it, so a view
+of some slots (:meth:`Model.slot_view`) is written through to the pool it
+views.
 """
 
 from __future__ import annotations
@@ -50,10 +62,16 @@ from repro_torch.models.params import (
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+#: The families that serve but do not train yet, with their ROADMAP item.
+_SERVE_ONLY = {"vlm": "16.5", "audio": "16.6", "hybrid": "16.7"}
+
+
 class Model(nn.Module):
-    """Embedding, a stack of family layers, final norm and LM head.
-    Subclasses set ``layer_cls`` (the class of layer ``i``) and
-    ``cache_specs``."""
+    """Embedding (unless the config takes embeddings), a stack of family
+    layers, final norm and LM head.  Subclasses set ``layer_cls`` (the
+    class of layer ``i``) and ``cache_specs``, or override
+    :meth:`add_body`, :meth:`body_layers`, :meth:`_prelude` (what comes
+    before the layers) and the cache hooks."""
 
     @staticmethod
     def layer_cls(cfg: ModelConfig, i: int) -> type:
@@ -61,27 +79,29 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        if cfg.embeds_input:
-            raise NotImplementedError(
-                f"{cfg.name}: embedding inputs are not ported yet (ROADMAP "
-                "Queue 1, item 16.5)")
         self.cfg = cfg
         # "meta" allocates nothing: parameter and cache shapes only
         self.device = (torch.device("meta") if str(device) == "meta"
                        else resolve_device(device))
         self.dtype = _DTYPES[cfg.dtype]
-        add_parameters(self, {
-            "embed": Spec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
-                          fan_in=1),
-        }, self.dtype, self.device)
-        self.layers = nn.ModuleList(
-            self.layer_cls(cfg, i)(cfg, dtype=self.dtype, device=self.device)
-            for i in range(cfg.num_layers))
+        if not cfg.embeds_input:
+            add_parameters(self, {
+                "embed": Spec((cfg.vocab_size, cfg.d_model),
+                              ("vocab", "embed"), fan_in=1),
+            }, self.dtype, self.device)
+        self.add_body(cfg)
         add_parameters(self, {
             "final_norm": rms_norm_spec(cfg.d_model),
             "lm_head": Spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
                             fan_in=cfg.d_model),
         }, self.dtype, self.device)
+
+    def add_body(self, cfg: ModelConfig) -> None:
+        """Register what lies between the embedding and the final norm:
+        here ``layers``, one ``layer_cls(cfg, i)`` per layer."""
+        self.layers = nn.ModuleList(
+            self.layer_cls(cfg, i)(cfg, dtype=self.dtype, device=self.device)
+            for i in range(cfg.num_layers))
 
     # ---- params ----
     def init(self, generator: torch.Generator) -> "Model":
@@ -98,14 +118,25 @@ class Model(nn.Module):
     def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> dict[str, Spec]:
         raise NotImplementedError
 
+    def cache_groups(self, batch: int,
+                     seq: int) -> list[tuple[int, dict[str, Spec]]]:
+        """The cache by kind: (layers stacked, one layer's specs) each;
+        here one kind over every layer."""
+        return [(self.cfg.num_layers, self.cache_specs(self.cfg, batch, seq))]
+
     def init_cache(self, batch: int, seq: int) -> dict[str, torch.Tensor]:
-        """Zeroed cache, each tensor (num_layers, batch, ...) on the
-        model's device."""
+        """Zeroed cache, each tensor (layers of its kind, batch, ...) on
+        the model's device."""
         return {
-            name: torch.zeros((self.cfg.num_layers, *s.shape),
-                              dtype=s.dtype or self.dtype, device=self.device)
-            for name, s in self.cache_specs(self.cfg, batch, seq).items()
+            name: torch.zeros((layers, *s.shape), dtype=s.dtype or self.dtype,
+                              device=self.device)
+            for layers, specs in self.cache_groups(batch, seq)
+            for name, s in specs.items()
         }
+
+    def layer_cache(self, cache: dict, i: int) -> dict[str, torch.Tensor]:
+        """Layer ``i``'s cache: views into ``cache``."""
+        return {name: t[i] for name, t in cache.items()}
 
     @staticmethod
     def slot_view(cache: dict, slot: int) -> dict[str, torch.Tensor]:
@@ -114,40 +145,82 @@ class Model(nn.Module):
 
     # ---- forward ----
     @torch.no_grad()
-    def apply(self, tokens: torch.Tensor, *, mode: str = "train",
+    def apply(self, tokens: torch.Tensor | None = None, *,
+              embeds: torch.Tensor | None = None,
+              enc_frames: torch.Tensor | None = None, mode: str = "train",
               cache: dict | None = None, pos=0):
-        """tokens (B, S) integer -> (logits float32, cache), without
-        gradients.  Logits are (B, S, V), or (B, 1, V) in prefill:
-        next-token logits only.  ``pos`` is an int or a (B,) tensor of
-        per-row offsets (decode: the fill levels).  ``cache`` is updated
-        in place and returned."""
-        return self._run(tokens, mode=mode, cache=cache, pos=pos,
-                         remat=False)
+        """tokens (B, S) integer, or ``embeds`` (B, S, d) for a config with
+        ``embeds_input`` (cast to the model's dtype), and for the audio
+        family ``enc_frames`` (B, encoder_seq, d) in train and prefill ->
+        (logits float32, cache), without gradients.  Logits are (B, S, V),
+        or (B, 1, V) in prefill: next-token logits only.  ``pos`` is an int
+        or a (B,) tensor of per-row offsets (decode: the fill levels).
+        ``cache`` is updated in place and returned."""
+        return self._run(tokens, embeds=embeds, enc_frames=enc_frames,
+                         mode=mode, cache=cache, pos=pos, remat=False)
 
     def forward(self, tokens: torch.Tensor, *, remat: bool = True):
         """The training forward: tokens (B, S) -> logits (B, S, V) float32
         with gradients, attention and the RWKV6 recurrence through their
         trainable ops.  ``remat`` checkpoints every layer
-        (:func:`repro_torch.models.common.checkpoint_body`)."""
+        (:func:`repro_torch.models.common.checkpoint_body`).  The vlm,
+        audio and hybrid families raise ``NotImplementedError``."""
+        item = _SERVE_ONLY.get(self.cfg.family)
+        if item is not None:
+            raise NotImplementedError(
+                f"training the {self.cfg.family!r} family is not ported yet "
+                f"(ROADMAP Queue 1, item {item}); Model.apply serves it")
         logits, _ = self._run(tokens, mode="train", cache=None, pos=0,
                               remat=remat)
         return logits
 
-    def _run(self, tokens, *, mode, cache, pos, remat):
+    def _inputs(self, tokens, embeds) -> torch.Tensor:
+        """The first layer's input (B, S, d): the embedding rows of
+        ``tokens``, or ``embeds`` for a config that takes embeddings."""
+        cfg = self.cfg
+        if cfg.embeds_input:
+            if embeds is None or tokens is not None:
+                raise ValueError(f"{cfg.name} takes embeds (B, S, d), not "
+                                 "tokens")
+            return embeds.to(device=self.device, dtype=self.dtype)
+        if tokens is None or embeds is not None:
+            raise ValueError(f"{cfg.name} takes tokens (B, S), not embeds")
         tokens = tokens.to(self.device)
-        if isinstance(pos, torch.Tensor):
-            pos = pos.to(self.device)
         # the sorted, deterministic gradient only where one is taken;
         # serving (prefill, decode) gathers directly
-        x = (embed(self.embed, tokens) if torch.is_grad_enabled()
-             else self.embed[tokens])
-        positions = _positions(pos, *tokens.shape, self.device)
-        for i, layer in enumerate(self.layers):
-            cache_l = None if cache is None else {
-                name: t[i] for name, t in cache.items()}
+        return (embed(self.embed, tokens) if torch.is_grad_enabled()
+                else self.embed[tokens])
+
+    @property
+    def prefill_inputs(self) -> tuple[str, ...]:
+        """The inputs a prefill takes: ``embeds`` for a config with
+        ``embeds_input``, else ``tokens``."""
+        return ("embeds",) if self.cfg.embeds_input else ("tokens",)
+
+    def body_layers(self) -> nn.ModuleList:
+        """The layers :meth:`_run` walks, each with its cache slice
+        ``layer_cache(cache, i)``."""
+        return self.layers
+
+    def _prelude(self, x, pos, mode: str, enc_frames):
+        """Before the layers: (x, the layers' (B, S) positions, extra
+        keywords for every layer).  Here the positions from ``pos``, and
+        no ``enc_frames``."""
+        if enc_frames is not None:
+            raise ValueError(f"{self.cfg.name} takes no enc_frames")
+        return x, _positions(pos, *x.shape[:2], self.device), {}
+
+    def _run(self, tokens, *, embeds=None, enc_frames=None, mode, cache,
+             pos, remat):
+        if isinstance(pos, torch.Tensor):
+            pos = pos.to(self.device)
+        x = self._inputs(tokens, embeds)
+        x, positions, extra = self._prelude(x, pos, mode, enc_frames)
+        for i, layer in enumerate(self.body_layers()):
+            cache_l = None if cache is None else self.layer_cache(cache, i)
             body = checkpoint_body(layer, self.cfg) if remat else layer
             x = body(x, mode=mode, cache=cache_l, pos=pos,
-                     positions=positions)
+                     positions=positions, **extra)
         if mode == "prefill":
             # next-token logits only: a long prompt's full (S, V) float32
             # logits are vocab-head work and traffic nobody reads
@@ -167,14 +240,12 @@ def _positions(pos, b: int, s: int, device) -> torch.Tensor:
 def build(cfg: ModelConfig, *, device=None) -> Model:
     """The model of ``cfg``'s family, parameters allocated (not yet
     initialized: call ``init``) on ``device`` (default the card)."""
-    from repro_torch.models import rwkv, transformer
+    from repro_torch.models import jamba, rwkv, transformer, whisper
 
     families = {"dense": transformer.Transformer,
-                "moe": transformer.Transformer, "ssm": rwkv.RWKV}
-    if cfg.family not in families:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP Queue 1, "
-            "item 16)")
+                "moe": transformer.Transformer,
+                "vlm": transformer.Transformer, "ssm": rwkv.RWKV,
+                "hybrid": jamba.Jamba, "audio": whisper.Whisper}
     return families[cfg.family](cfg, device=device)
 
 

@@ -1,6 +1,6 @@
 """Decoder-only transformer LM: the dense family (stablelm-1.6b,
-minicpm3-4b with MLA) and the MoE family (granite-moe-1b-a400m,
-deepseek-v2-lite-16b with MLA).
+minicpm3-4b with MLA), the MoE family (granite-moe-1b-a400m,
+deepseek-v2-lite-16b with MLA) and the vlm backbone (qwen2-vl-7b).
 
 Each layer is pre-norm attention (GQA or MLA, as the config says) plus a
 SwiGLU MLP (:class:`DenseLayer`) or a MoE (:class:`MoELayer`): the first
@@ -10,9 +10,12 @@ and the cache is one set of tensors stacked over every layer, written in
 place layer by layer.  (The JAX module keeps the dense prefix apart, as
 ``params["prefix"]`` and ``cache["prefix"]``, from its scanned stack;
 ``convert.model_params_from_reference`` maps both onto the one list.)
-The VLM variant (embedding inputs, M-RoPE) is not ported yet (ROADMAP
-Queue 1, item 16.5); :func:`param_specs` is the reference's shape table
-for every variant, for parameter counts.
+The vlm variant (``embeds_input``) has no token embedding: its first
+layer takes the given embeddings (the reference stubs the vision
+frontend), and its attention rotates by M-RoPE (``common.rope_for``),
+whose three position streams are the one (B, S) stream of the model, as
+in the reference.  :func:`param_specs` is the reference's shape table for
+every variant.
 """
 
 from __future__ import annotations

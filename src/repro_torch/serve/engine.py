@@ -10,8 +10,14 @@ after the layer axis), so a prefill writes through a one-slot view
 straight into its slot (:meth:`Model.slot_view`): the reference's
 prefill-then-merge, without the copy.  Slots the prefill does not write
 keep what they held; the fill levels mask stale cache entries, and the
-RWKV state is overwritten whole.  The host keeps each slot's fill level;
-a tick copies the sampled tokens back, which is its one sync.
+RWKV and Mamba states and whisper's cross-attention k/v are overwritten
+whole.  The host keeps each slot's fill level; a tick copies the sampled
+tokens back, which is its one sync.
+
+As the JAX engine, it feeds the model tokens only: a model whose
+``prefill_inputs`` are not tokens alone (qwen2-vl's ``embeds``,
+whisper's ``enc_frames``) is refused with a ``ValueError`` at
+construction.
 """
 
 from __future__ import annotations
@@ -35,6 +41,11 @@ class Request:
 
 class ServeEngine:
     def __init__(self, model: Model, *, num_slots: int, cache_len: int):
+        if model.prefill_inputs != ("tokens",):
+            raise ValueError(
+                f"{model.cfg.name} prefills on "
+                f"{', '.join(model.prefill_inputs)}, and the engine feeds "
+                "tokens only (as the reference's does)")
         self.model = model
         self.num_slots = num_slots
         self.cache_len = cache_len

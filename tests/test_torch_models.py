@@ -39,14 +39,13 @@ from repro_torch.models.model import build  # noqa: E402
 BF16_ARCHS = ["stablelm-1.6b", "rwkv6-3b"]
 MOE_MLA = ["minicpm3-4b", "granite-moe-1b-a400m", "deepseek-v2-lite-16b"]
 ARCHS = BF16_ARCHS + MOE_MLA
-# every registry architecture whose family and attention the port builds
+# registry architectures of the dense, MoE and RWKV families
 BUILT = ["deepseek-v2-lite-16b", "granite-moe-1b-a400m", "internlm2-20b",
          "minicpm3-4b", "phi3-medium-14b", "rwkv6-3b", "stablelm-1.6b"]
-# the rest, each with what of it is not ported yet (ROADMAP item 16)
-UNBUILT = {
-    "jamba-v0.1-52b": "'hybrid' family", "qwen2-vl-7b": "'vlm' family",
-    "whisper-small": "'audio' family",
-}
+# the vlm, audio and hybrid families' published parameter counts
+SERVE_ONLY_PARAMS = {"jamba-v0.1-52b": 51_570_315_264,
+                     "whisper-small": 304_217_088,
+                     "qwen2-vl-7b": 7_070_490_112}
 F32_TOL = {"stablelm-1.6b": 1e-4, "rwkv6-3b": 2e-3,
            **{arch: 1e-4 for arch in MOE_MLA}}
 
@@ -235,21 +234,23 @@ def test_init_rule_and_seed():
         cfg.d_ff ** -0.5, rel=0.05)
 
 
-def test_unported_paths_raise():
-    """Every registry config resolves; building a family or feature the
-    port does not run yet raises, naming ROADMAP item 16."""
-    assert set(BUILT) | set(UNBUILT) == set(jconfigs.ARCHS) == set(
+@pytest.mark.parametrize("arch", sorted(jconfigs.ARCHS))
+def test_every_registry_arch_builds(arch):
+    """Every registry config builds at full size on the meta device (the
+    vlm, audio and hybrid families too), with as many
+    parameters as its shape table and the JAX model count."""
+    from repro_torch.models.model import num_params
+
+    assert set(BUILT) | set(SERVE_ONLY_PARAMS) == set(jconfigs.ARCHS) == set(
         configs.ARCHS)
-    for name, what in UNBUILT.items():
-        cfg = configs.get(name)
-        with pytest.raises(NotImplementedError,
-                           match=f"{what}.*ROADMAP Queue 1, item 16"):
-            build(cfg, device="meta")
+    cfg = configs.get(arch)
+    tm = build(cfg, device="meta")
+    assert tm.num_params() == num_params(cfg) == jbuild(
+        jconfigs.get(arch)).num_params()
+    if arch in SERVE_ONLY_PARAMS:
+        assert tm.num_params() == SERVE_ONLY_PARAMS[arch]
     with pytest.raises(KeyError):
         configs.get("no-such-arch")
-    dense = configs.reduced("stablelm-1.6b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(dataclasses.replace(dense, family="hybrid"), device="cpu")
 
 
 @pytest.mark.parametrize("arch", MOE_MLA)
