@@ -12,11 +12,12 @@ the published stablelm-1.6b, rwkv6-3b, granite-moe-1b-a400m (MoE) and
 deepseek-v2-lite-16b (MoE with MLA), internlm2-20b with the int8 KV
 cache, qwen2-vl-7b (embedding inputs, M-RoPE), whisper-small (encoder-
 decoder) and jamba-v0.1-52b (Mamba, attention and MoE, cut to 16 layers),
-and the trainer on the published stablelm-1.6b and granite-moe-1b-a400m
-(rwkv6-3b cut to two layers, deepseek-v2-lite-16b to four) — and checks
-each of their kernels (commitment sweep, revocation walk, generation
-turnover, flash attention, RWKV6 recurrence, Mamba's selective scan)
-against its plain PyTorch version.  Flash
+and the trainer on the published stablelm-1.6b, granite-moe-1b-a400m and
+whisper-small (rwkv6-3b cut to two layers, deepseek-v2-lite-16b to four,
+qwen2-vl-7b to eight, jamba-v0.1-52b to one block of two experts) — and
+checks each of their kernels (commitment sweep, revocation walk,
+generation turnover, flash attention, RWKV6 recurrence, Mamba's selective
+scan and its backward) against its plain PyTorch version.  Flash
 attention is three CUDA kernels, routed by dtype, head dim and query rows
 (``flash_attention.route``): a tensor-core bf16 prefill (``prefill_tc``),
 a split-KV decode (``decode_split``) and the SIMT kernel (``simt``: f32
@@ -174,7 +175,13 @@ failure:
             448, ragged fill levels up to 448), qwen2-vl's prefill (1,
             2048, 28/4, 128) and jamba's (1, 2048, 32/8, 128) causal and
             their decodes (8 slots, D 128, cache 4096, ragged fill
-            levels), each on the kernel its route names; each bf16
+            levels), and the three families' train steps' shapes
+            (FLASH_FAMILIES_TRAIN, bf16): whisper-small's encoder (16,
+            1500, 12, 64) and cross-attention (16, 448 -> 1500, 12, 64)
+            non-causal and its decoder's self-attention (16, 448, 12,
+            64) causal, qwen2-vl's (4, 2048, 28/4, 128) and jamba's (4,
+            2048, 32/8, 128) causal, each on the kernel its route
+            names; each bf16
             query row's error
             norm against its reference norm as well as element by element;
             decode_split's int8 instance (FLASH_INT8_*: 8 slots with 8
@@ -193,10 +200,16 @@ failure:
             T = 2048, and (1, 40, 2048, 64), where the states entering the
             chunks (the scan's scratch) are also held against the
             chunk-parallel plain version
-  mamba     the Mamba scan kernel vs its plain step loop on the card:
-            jamba's d_inner 8192 and state 16 at S = 1, 13, 64 and 2048,
-            and state 8 at a ragged (2, 37, 256); y and the final h within
-            1e-5 of their largest, one launch a call, a rerun bit for bit
+  mamba     the Mamba scan kernels (chunked, three passes each) vs their
+            plain step loops on the card: the forward at jamba's d_inner
+            8192 and state 16 at S = 1, 13, 64 and 2048, and state 8 at a
+            ragged (2, 37, 256), y and the final h within 1e-5 of their
+            largest; the backward from the forward's chunk-start states at
+            (1, 64, 8192, 16), (2, 13, 256, 8) and (1, 2048, 8192, 16),
+            with and without the final state's gradient, each gradient
+            within 1e-5 of its largest against the reverse-time loop; one
+            launch a call, reruns bit for bit, the trainable op's
+            gradients bit for bit with the backward kernel's
   walk      revocation-walk kernel vs its plain per-hour loop on the card:
             T = 1, ragged T and lanes, all-available and all-revoked
             starts, hazard 0 with recovery 1, and the main shape (32 draws
@@ -301,21 +314,36 @@ failure:
             peak memory, one step under torch.profiler (device busy, the
             flash backward's, the expert products' and the MoE combine
             backward's shares) (a main path)
+  train_families  the reduced f32 qwen2-vl, whisper and jamba card vs CPU
+            (as phase train); then Trainer.fit (bf16, 12 steps, remat
+            "full") on whisper-small whole (16 x 448 decoder tokens over
+            1500 frames a row), qwen2-vl-7b at full width cut to 8 layers
+            (4 x 2048 embeddings, rows of a seeded stand-in table) and
+            jamba-v0.1-52b as one period-8 block with 2 experts at every
+            published width (4 x 2048 tokens), the cuts under "reduced":
+            step 1 twice bit for bit, losses finite and descending,
+            exactly the step's launches (prefill_tc for every attention,
+            causal and non-causal, forward and recompute; jamba's 14 scan
+            forwards and 7 scan backwards), step seconds, tokens/s, peak
+            memory, one step profiled (the non-causal flash backward's and
+            the scan backward's shares) (a main path)
   timing    each kernel's and its plain version's times at its main-path
             shape (the sweep also at the scenario plan's 262,144 x 128 x
             1,344; flash: prefill_tc at the bf16 prefill and MLA's two
             prefill shapes (with the backend SDPA took there) and the MoE
             train shapes (4, 2048, 16, 64) and (4, 2048, 16, 192/128),
             serve_int8's prefill (1, 2048, 48/8, 128) beside SDPA, the
-            FLASH_FAMILIES shapes beside SDPA and its backend,
+            FLASH_FAMILIES and FLASH_FAMILIES_TRAIN shapes beside SDPA
+            and its backend,
             decode_split at the bf16 decode and, int8 instance beside the
             bf16 one, at internlm2-20b's (8, 4096, 8, 128) cache (no
             library call reads int8: SDPA over the bf16 cache for
             context), simt at the f32 prefill, and
             at head dim 128 beside the library; RWKV6 also at a short prompt's T = 128;
             the Mamba scan at jamba's longest prefill (1, 2048, 8192, 16)
-            beside its plain loop and bound, and summed over
-            serve_hybrid's prompts and Mamba layers;
+            beside its plain loop and its bound, and summed over serve_hybrid's prompts and
+            Mamba layers; at jamba's train step (4, 2048, 8192, 16) the
+            forward, and the backward beside its plain loop and bound;
             the revocation walk at its main shape; the turnover kernel's
             from phase turnover),
             library times,
@@ -550,7 +578,8 @@ FLASH_PROFILE_NAMES = {
 # op's backward, the embedding's backward, the MoE's expert products, MLA's
 # absorbed decode, the MoE combine's backward)
 ANNOTATIONS = ("flash_attention_backward", "embed_backward", "moe_experts",
-               "mla_absorbed_decode", "moe_combine_backward")
+               "mla_absorbed_decode", "moe_combine_backward",
+               "flash_attention_backward_noncausal", "mamba_scan_backward")
 SERVE_RANGES = ("moe_experts", "mla_absorbed_decode")
 # the three kernels of one RWKV6 call (all hold "rwkv6_")
 RWKV6_PROFILE_NAMES = ("rwkv6_chunk_kernel", "rwkv6_state_scan_kernel",
@@ -584,6 +613,18 @@ MAMBA_CHECKS = ((1, 1, 8192, 16), (1, 13, 8192, 16), (1, 64, 8192, 16),
 MAMBA_MAIN = (1, PROMPT_MAX, 8192, 16)
 MAMBA_TOL = 1e-5
 MAMBA_OPS = 9
+# the backward kernel's checks (B, S, D, N), each gradient within
+# MAMBA_BWD_TOL of its largest magnitude against mamba_scan_bwd_ref: one
+# chunk at jamba's width, the reduced config's N = 8 at a ragged shape,
+# jamba's longest prompt; its timed shape is jamba's train step
+# (JAMBA_TRAIN's batch and sequence).  MAMBA_BWD_OPS operations per (step,
+# channel, state), the backward's own (the forward states it needs are not
+# counted): the adjoint's multiply-add and carry (3), the ddelta, dx and da
+# terms (7), dB's and dC's products (3) and their adds (2)
+MAMBA_BWD_CHECKS = ((1, 64, 8192, 16), (2, 13, 256, 8),
+                    (1, PROMPT_MAX, 8192, 16))
+MAMBA_BWD_TOL = 1e-5
+MAMBA_BWD_OPS = 15
 # serve_audio: decoder prompts of Whisper's special tokens plus a previous-
 # text prompt, at most half its 448-token text context; the cache holds
 # that context
@@ -723,6 +764,7 @@ def kernel_modules():
 def reset_launches():
     for mod in kernel_modules().values():
         mod.LAUNCHES = 0
+    kernel_modules()["mamba_scan"].BWD_LAUNCHES = 0
     fk = kernel_modules()["flash_attention"]
     for name in fk.LAUNCHES_BY_KERNEL:
         fk.LAUNCHES_BY_KERNEL[name] = 0
@@ -734,6 +776,7 @@ def read_launches():
     fk = kernel_modules()["flash_attention"]
     out["flash_by_kernel"] = dict(fk.LAUNCHES_BY_KERNEL)
     out["flash_int8"] = fk.LAUNCHES_INT8
+    out["mamba_scan_bwd"] = kernel_modules()["mamba_scan"].BWD_LAUNCHES
     return out
 
 
@@ -2613,7 +2656,8 @@ def phase_flash(dev):
                                          FLASH_BF16)
     routes[key] = used
     del q, k, v, got, want
-    for i, (key, case) in enumerate(FLASH_FAMILIES.items()):
+    for i, (key, case) in enumerate({**FLASH_FAMILIES,
+                                     **FLASH_FAMILIES_TRAIN}.items()):
         q, k, v, lens = family_flash_inputs(dev, case, 25 + i)
         causal = case[6]
         got, used = flash_routed(fk, lambda: ops.flash_attention(
@@ -2651,6 +2695,8 @@ def phase_flash(dev):
          mla_shapes={k: list(v) for k, v in FLASH_MLA.items()},
          internlm2_prefill_shape=list(FLASH_INTERNLM2_PREFILL),
          family_shapes={k: list(v[:7]) for k, v in FLASH_FAMILIES.items()},
+         family_train_shapes={k: list(v[:7])
+                              for k, v in FLASH_FAMILIES_TRAIN.items()},
          int8=dict(cache=FLASH_INT8_CACHE, kv_len=list(FLASH_INT8_LENS),
                    groups_head_dims=[list(c) for c in FLASH_INT8_CASES],
                    bit_for_bit_with_dequantized=True),
@@ -2768,14 +2814,23 @@ def mamba_inputs(dev, b, s, d, n, seed):
 
 
 def phase_mamba(dev):
-    """The Mamba scan kernel against its plain step loop on the card at
-    MAMBA_CHECKS (jamba's d_inner 8192 and N 16 at S = 1, 13, 64 and 2048,
-    and N = 8 at a ragged B = 2 shape): y and the final h within MAMBA_TOL
-    of their largest magnitude, one launch a call, a rerun bit for bit.
-    Returns the largest error of y."""
+    """The Mamba scan kernels against their plain step loops on the card.
+    The forward at MAMBA_CHECKS (jamba's d_inner 8192 and N 16 at S = 1,
+    13, 64 and 2048, and N = 8 at a ragged B = 2 shape): y and the final
+    h within MAMBA_TOL of their largest magnitude, one launch a call, a
+    rerun bit for bit.  The backward at MAMBA_BWD_CHECKS from the
+    forward's chunk-start states, with and without a final state's
+    gradient: every gradient within MAMBA_BWD_TOL of its largest against
+    mamba_scan_bwd_ref, one backward launch a call, a rerun bit for bit;
+    and the trainable op under autograd (one forward and one backward
+    launch, the same bits).  Returns the largest error of y and of the
+    gradients."""
     from repro_torch.kernels.mamba_scan import mamba_scan as mk
     from repro_torch.kernels.mamba_scan import ops
-    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    from repro_torch.kernels.mamba_scan.ref import (
+        mamba_scan_bwd_ref,
+        mamba_scan_ref,
+    )
     cases = {}
     for i, (b, s, d, n) in enumerate(MAMBA_CHECKS):
         args = mamba_inputs(dev, b, s, d, n, 50 + i)
@@ -2796,9 +2851,54 @@ def phase_mamba(dev):
         if not all(torch.equal(u, w) for u, w in zip((y, h), again)):
             raise AssertionError(f"mamba {(b, s, d, n)}: a rerun differs")
         cases[f"{b}x{s}x{d}x{n}"] = res
+    names = ("ddelta", "dx", "da", "dbm", "dcm", "dh0")
+    bwd = {}
+    for i, (b, s, d, n) in enumerate(MAMBA_BWD_CHECKS):
+        args = mamba_inputs(dev, b, s, d, n, 70 + i)
+        gen = torch.Generator(device=dev).manual_seed(80 + i)
+        dy = torch.randn(b, s, d, generator=gen, device=dev)
+        dh = torch.randn(b, d, n, generator=gen, device=dev)
+        _, _, states = mk.mamba_scan_cuda(*args)
+        for dh_final in (dh, None):
+            before = mk.BWD_LAUNCHES
+            got = mk.mamba_scan_bwd_cuda(*args[:5], dy, states, dh_final)
+            if mk.BWD_LAUNCHES != before + 1:
+                raise AssertionError("mamba: the backward did not launch")
+            want = mamba_scan_bwd_ref(*args, dy, dh_final)
+            torch.cuda.synchronize()
+            res = {}
+            for label, g, w in zip(names, got, want):
+                err, big = float((g - w).abs().max()), float(w.abs().max())
+                if not err <= MAMBA_BWD_TOL * big:
+                    raise AssertionError(
+                        f"mamba backward {(b, s, d, n)} {label}: {err} > "
+                        f"{MAMBA_BWD_TOL} x {big}")
+                res[label] = dict(max_abs_err=err, largest=big)
+            again = mk.mamba_scan_bwd_cuda(*args[:5], dy, states, dh_final)
+            if not all(torch.equal(u, w) for u, w in zip(got, again)):
+                raise AssertionError(
+                    f"mamba backward {(b, s, d, n)}: a rerun differs")
+            key = f"{b}x{s}x{d}x{n}" + ("" if dh_final is not None
+                                        else " no dh_final")
+            bwd[key] = res
+        del want
+        # the trainable op: one forward and one backward launch, the same
+        # bits as the direct calls
+        leaves = [t.clone().requires_grad_() for t in args]
+        f0, b0 = mk.LAUNCHES, mk.BWD_LAUNCHES
+        y, h = ops.mamba_scan_trainable(*leaves)
+        grads = torch.autograd.grad((y, h), leaves, (dy, dh))
+        if (mk.LAUNCHES, mk.BWD_LAUNCHES) != (f0 + 1, b0 + 1):
+            raise AssertionError("mamba: the trainable op's launches")
+        direct = mk.mamba_scan_bwd_cuda(*args[:5], dy, states, dh)
+        if not all(torch.equal(g, w) for g, w in zip(grads, direct)):
+            raise AssertionError("mamba: the trainable op's gradients "
+                                 "differ from the backward kernel's")
     emit("mamba", cases=cases, tol_of_largest=MAMBA_TOL,
-         rerun_bit_for_bit=True)
-    return max(c["y"]["max_abs_err"] for c in cases.values())
+         backward=bwd, backward_tol_of_largest=MAMBA_BWD_TOL,
+         rerun_bit_for_bit=True, trainable_op_bit_for_bit=True)
+    return (max(c["y"]["max_abs_err"] for c in cases.values()),
+            max(g["max_abs_err"] for c in bwd.values() for g in c.values()))
 
 
 def walk_inputs(dev, n, p, t, seed, clouds=None):
@@ -3262,12 +3362,14 @@ def phase_serve(name, cfg, dev, counted, extra=None, traffic=token_traffic):
     names = (RWKV6_PROFILE_NAMES if mix is None else tuple(
         n for kern, count in mix.items() if count
         for n in FLASH_PROFILE_NAMES[kern]))
+    scan_names = ("scan_chunks", "scan_combine")  # the forward's kernels
     if mamba_layers:
-        names += ("mamba_scan_kernel",)
+        names += scan_names
     prof = profile_serving(name, engine, reqs, stats, counted, names)
     if mamba_layers:  # the scan's device ms in the longest prompt's prefill
-        prof["prefill_longest"]["mamba_scan_ms"] = 1e3 * prof[
-            "prefill_longest"]["kernel_device_s_by_name"]["mamba_scan_kernel"]
+        by_name = prof["prefill_longest"]["kernel_device_s_by_name"]
+        prof["prefill_longest"]["mamba_scan_ms"] = 1e3 * sum(
+            by_name[n] for n in scan_names)
     ttft = sorted(stats["ttft"].values())
     out = dict(
         arch=cfg.name, params=model.num_params(), dtype=cfg.dtype,
@@ -3695,7 +3797,10 @@ TRAIN_CPU_STEPS, TRAIN_CPU_SEQ, TRAIN_CPU_BATCH = 3, 64, 2
 #   sqrt(v_hat) is small, and three steps compound it (measured on an H100
 #   80GB HBM3: 1.6e-4 for stablelm, 6.3e-3 for rwkv6, 6.0e-5 / 4.4e-5 /
 #   5.2e-5 for granite-moe / deepseek / minicpm3, whose gradients read
-#   7.1e-7 / 9.5e-7 / 1.4e-6 of their largest).  The control, a CPU run
+#   7.1e-7 / 9.5e-7 / 1.4e-6 of their largest; 3.9e-5 / 5.1e-5 / 6.9e-4
+#   for qwen2-vl / whisper / jamba, gradients 9.9e-7 / 9.9e-7 / 8.0e-6:
+#   jamba's scan kernels sum in chunks of 64 steps, the plain loop step by
+#   step, so its gradients are held to 2e-5).  The control, a CPU run
 #   whose learning rate is 1% higher (`TRAIN_CPU_CONTROL_LR`), must read
 #   above `update_rel` (on the CPU: 2.3e-2 for stablelm, 0.20 for rwkv6,
 #   1.7e-2 / 2.0e-2 / 1.4e-2 for the MoE and MLA three), so the gate
@@ -3705,12 +3810,18 @@ TRAIN_CPU_ARCHS = ("stablelm-1.6b", "rwkv6-3b", "granite-moe-1b-a400m",
 TRAIN_CPU_TOL = dict(grad={"stablelm-1.6b": 1e-5, "rwkv6-3b": 2e-4,
                            "granite-moe-1b-a400m": 1e-5,
                            "deepseek-v2-lite-16b": 1e-5,
-                           "minicpm3-4b": 1e-5},
+                           "minicpm3-4b": 1e-5, "qwen2-vl-7b": 1e-5,
+                           "whisper-small": 1e-5, "jamba-v0.1-52b": 2e-5},
                      loss_rtol=1e-5,
                      update_rel={"stablelm-1.6b": 2e-3, "rwkv6-3b": 2e-2,
                                  "granite-moe-1b-a400m": 2e-3,
                                  "deepseek-v2-lite-16b": 2e-3,
-                                 "minicpm3-4b": 2e-3})
+                                 "minicpm3-4b": 2e-3, "qwen2-vl-7b": 2e-3,
+                                 "whisper-small": 2e-3,
+                                 "jamba-v0.1-52b": 2e-3})
+# phase train_families' card-vs-CPU configs (reduced, float32; jamba's
+# Mamba layers on the scan kernels' N = 8 instance)
+TRAIN_CPU_FAMILY_ARCHS = ("qwen2-vl-7b", "whisper-small", "jamba-v0.1-52b")
 TRAIN_CPU_CONTROL_LR = 1.01
 # the trainable ops' gradients against autograd through the plain version
 # on the card: both compute them in float32 from the same inputs, so only
@@ -3850,13 +3961,14 @@ def train_rwkv6_checks(dev):
                 shapes={n: list(c[:4]) for n, c in cases.items()})
 
 
-def train_card_vs_cpu(dev):
-    """The reduced float32 TRAIN_CPU_ARCHS (MLA at MLA_CARD_DIMS, as
-    phase model_cpu runs them) on the card (kernels) and on the CPU
-    (plain versions) from the same weights and batches: step 1's
-    gradients, then TRAIN_CPU_STEPS train steps (TRAIN_CPU_TOL), beside a
-    CPU control run at TRAIN_CPU_CONTROL_LR times the learning rate that
-    the update gate must reject."""
+def train_card_vs_cpu(dev, archs=TRAIN_CPU_ARCHS):
+    """The reduced float32 ``archs`` (MLA at MLA_CARD_DIMS, as phase
+    model_cpu runs them) on the card (kernels) and on the CPU (plain
+    versions) from the same weights and batches (with the family's inputs,
+    family_inputs_np): step 1's gradients, then TRAIN_CPU_STEPS train
+    steps (TRAIN_CPU_TOL), beside a CPU control run at
+    TRAIN_CPU_CONTROL_LR times the learning rate that the update gate must
+    reject."""
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.models.model import build
@@ -3886,7 +3998,7 @@ def train_card_vs_cpu(dev):
         return rel, worst
 
     out = {}
-    for arch in TRAIN_CPU_ARCHS:
+    for arch in archs:
         cfg = dataclasses.replace(configs.reduced(arch), dtype="float32")
         if cfg.attention == "mla":
             cfg = dataclasses.replace(cfg, **MLA_CARD_DIMS)
@@ -3902,7 +4014,8 @@ def train_card_vs_cpu(dev):
         pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                         seq_len=TRAIN_CPU_SEQ,
                                         global_batch=TRAIN_CPU_BATCH))
-        batches = [pipe.next_batch() for _ in range(TRAIN_CPU_STEPS)]
+        batches = [family_inputs_np(cfg, pipe.next_batch(), i)
+                   for i in range(TRAIN_CPU_STEPS)]
         grads = []
         for model in models[:2]:
             loss = build_loss_fn(model)(batches[0])
@@ -3948,14 +4061,72 @@ def train_card_vs_cpu(dev):
                 control_lr_scale=TRAIN_CPU_CONTROL_LR)
 
 
+class FamilyPipeline:
+    """TokenPipeline's batches with the inputs of a model that takes more
+    than tokens, made on the model's card from seeds: for a config with
+    ``embeds_input`` the tokens' rows of a seeded stand-in table (as
+    serve_vlm's decode inputs) in place of the tokens; for the audio
+    family ``encoder_seq`` frames a row, drawn from a generator seeded by
+    the step, so a rerun of a step sees the same frames."""
+
+    def __init__(self, base, model):
+        self.base, self.cfg = base, model.cfg
+        self.dev, self.dtype = model.device, model.dtype
+        self.table = None
+        if self.cfg.embeds_input:
+            gen = torch.Generator(device=self.dev).manual_seed(1)
+            self.table = torch.randn(
+                self.cfg.vocab_size, self.cfg.d_model, generator=gen,
+                device=self.dev).to(self.dtype)
+
+    @property
+    def step(self):
+        return self.base.step
+
+    def skip_to(self, step):
+        self.base.skip_to(step)
+
+    def next_batch(self):
+        cfg, step = self.cfg, self.base.step
+        batch = self.base.next_batch()
+        if self.table is not None:
+            tokens = torch.from_numpy(batch.pop("tokens")).to(self.dev)
+            batch["embeds"] = self.table[tokens.long()]
+        if cfg.family == "audio":
+            gen = torch.Generator(device=self.dev).manual_seed(1000 + step)
+            batch["enc_frames"] = torch.randn(
+                batch["labels"].shape[0], cfg.encoder_seq, cfg.d_model,
+                generator=gen, device=self.dev).to(self.dtype)
+        return batch
+
+
+def family_inputs_np(cfg, batch, step):
+    """A TokenPipeline batch with the family's inputs as numpy arrays (the
+    card-vs-CPU runs hand both the same): a seeded stand-in table's rows
+    in place of the tokens for a config with ``embeds_input``, frames
+    seeded by the step for the audio family; token-only batches as they
+    are."""
+    out = dict(batch)
+    if cfg.embeds_input:
+        table = np.random.default_rng(1).normal(
+            size=(cfg.vocab_size, cfg.d_model)).astype(np.float32)
+        out["embeds"] = table[out.pop("tokens")]
+    if cfg.family == "audio":
+        out["enc_frames"] = np.random.default_rng(1000 + step).normal(
+            size=(out["labels"].shape[0], cfg.encoder_seq,
+                  cfg.d_model)).astype(np.float32)
+    return out
+
+
 def train_trainer(model, ckpt_dir, *, ckpt_every=TRAIN_NO_CKPT,
-                  steps=TRAIN_STEPS):
+                  steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
     pipe = TokenPipeline(DataConfig(vocab_size=model.cfg.vocab_size,
-                                    seq_len=TRAIN_SEQ,
-                                    global_batch=TRAIN_BATCH))
+                                    seq_len=seq, global_batch=batch))
+    if model.cfg.embeds_input or model.cfg.family == "audio":
+        pipe = FamilyPipeline(pipe, model)
     trainer = Trainer(model, pipe, TrainerConfig(
         total_steps=steps, ckpt_every=ckpt_every,
         opt=AdamWConfig(**TRAIN_OPT)), str(ckpt_dir))
@@ -3992,6 +4163,19 @@ def profile_train_step(trainer, step_s, name):
 
     flash_bwd, embed_bwd = ranged("flash_attention_backward"), ranged(
         "embed_backward")
+    # the non-causal flash backward (whisper's encoder and cross-attention);
+    # the scan's kernels by their names (launched through ctypes, they are
+    # no torch op's children, so its backward's range holds only the torch
+    # sums of its partials, added to its kernels)
+    flash_nc = ranged("flash_attention_backward_noncausal")
+
+    def named(*parts):
+        return sum(k[0] for k in kernels
+                   if any(f"::{part}" in k[2] for part in parts)) / 1e6
+
+    scan_fwd = named("scan_chunks", "scan_combine")
+    scan_bwd = (named("bwd_local", "bwd_combine", "bwd_grads")
+                + ranged("mamba_scan_backward"))
     # the MoE's ranges: the expert products (forward and remat recompute)
     # and the combine's backward
     moe = {label: ranged(label) for label in ("moe_experts",
@@ -4012,6 +4196,12 @@ def profile_train_step(trainer, step_s, name):
         prefill_tc_share_of_busy=prefill / busy,
         embed_backward_device_s=embed_bwd,
         embed_backward_share_of_busy=embed_bwd / busy,
+        flash_backward_noncausal_device_s=flash_nc,
+        flash_backward_noncausal_share_of_busy=flash_nc / busy,
+        mamba_scan_backward_device_s=scan_bwd,
+        mamba_scan_backward_share_of_busy=scan_bwd / busy,
+        mamba_scan_forward_device_s=scan_fwd,
+        mamba_scan_forward_share_of_busy=scan_fwd / busy,
         moe_ranges_device_s=moe,
         moe_ranges_share_of_busy={k: v / busy for k, v in moe.items()},
         top_kernels=[[round(us / 1e3, 3), n, key[:80]]
@@ -4048,25 +4238,32 @@ def embed_grad_cost(dev, cfg, tokens):
             embed(table, tokens), table, g)[0])))
 
 
-def train_fit(dev, cfg, label, extra=None):
+def train_fit(dev, cfg, label, extra=None, *, batch=TRAIN_BATCH,
+              seq=TRAIN_SEQ, per_step=None):
     """Trainer.fit on ``cfg`` in bf16 (random weights, seed 0 on the
-    card), TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens, remat
-    "full": first a rerun of step 1 bit for bit; then the losses finite
-    and descending, exactly 2 x layers prefill_tc launches a step and no
-    other flash kernel, step seconds, peak memory and one step profiled.
-    ``extra(trainer, model)`` adds fields before the model is freed."""
+    card), TRAIN_STEPS steps of ``batch`` x ``seq`` tokens (the vlm and
+    audio families' batches through FamilyPipeline), remat "full": first a
+    rerun of step 1 bit for bit; then the losses finite and descending,
+    exactly ``per_step`` launches a step (default 2 x layers prefill_tc:
+    each layer's forward and its remat recompute) and no other flash
+    kernel, step seconds, peak memory and one step profiled.
+    ``per_step`` holds prefill_tc's count and, for a Mamba model, the
+    scan's forward and backward calls (``mamba_scan``,
+    ``mamba_scan_bwd``).  ``extra(trainer, model)`` adds fields before the
+    model is freed."""
     import shutil
 
     from repro_torch.models.model import build
     root = ROOT / "build" / "chip_smoke" / f"train_{label}"
     model = build(cfg, device=dev)
-    first = train_trainer(model, root / "a")
+    kw = dict(batch=batch, seq=seq)
+    first = train_trainer(model, root / "a", **kw)
     first.init_or_restore()
     first.fit(1)
     snap = {n: p.detach().clone() for n, p in model.named_parameters()}
     loss0 = first.losses[0]
     del first
-    main = train_trainer(model, root / "b")
+    main = train_trainer(model, root / "b", **kw)
     main.init_or_restore()
     torch.cuda.synchronize()
     reset_launches()
@@ -4083,12 +4280,17 @@ def train_fit(dev, cfg, label, extra=None):
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     losses = list(main.losses)
-    per_step = 2 * cfg.num_layers          # forward and remat recompute
+    if per_step is None:                   # forward and remat recompute
+        per_step = dict(prefill_tc=2 * cfg.num_layers)
+    per_step = dict(dict(mamba_scan=0, mamba_scan_bwd=0), **per_step)
     expect_launches(f"{label} flash_by_kernel", launches["flash_by_kernel"],
-                    dict(prefill_tc=per_step * TRAIN_STEPS, decode_split=0,
-                         simt=0))
+                    dict(prefill_tc=per_step["prefill_tc"] * TRAIN_STEPS,
+                         decode_split=0, simt=0))
     expect_launches(f"{label} flash", launches["flash_attention"],
-                    per_step * TRAIN_STEPS)
+                    per_step["prefill_tc"] * TRAIN_STEPS)
+    for name in ("mamba_scan", "mamba_scan_bwd"):
+        expect_launches(f"{label} {name}", launches[name],
+                        per_step[name] * TRAIN_STEPS)
     if not np.isfinite(losses).all():
         raise AssertionError(f"train {label}: non-finite losses {losses}")
     if not np.mean(losses[-3:]) < np.mean(losses[:3]):
@@ -4104,13 +4306,14 @@ def train_fit(dev, cfg, label, extra=None):
     shutil.rmtree(root, ignore_errors=True)
     return dict(
         arch=cfg.name, params=n_params, dtype=cfg.dtype,
-        layers=cfg.num_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        layers=cfg.num_layers, batch=batch, seq=seq,
         steps=TRAIN_STEPS, opt=TRAIN_OPT, remat=cfg.remat_policy,
         losses=losses, step_s=step_s, step_s_median_3_12=med,
-        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / med,
+        tokens_per_s=batch * seq / med,
         max_memory_allocated=peak, rerun_bit_for_bit=rerun_equal,
         launches=launches, launches_per_step=dict(
-            prefill_tc=per_step, decode_split=0, simt=0),
+            {k: v for k, v in per_step.items() if v or k == "prefill_tc"},
+            decode_split=0, simt=0),
         profile=prof, nvidia_smi=smi(), **more)
 
 
@@ -4285,6 +4488,97 @@ def phase_train_moe(dev):
         emit("train_moe", part=arch, **res)
         out[arch if layers is None else f"{arch} ({layers} layers)"] = res[
             "launches_per_step"]["prefill_tc"]
+    return out
+
+
+# phase train_families: the vlm, audio and hybrid families' training at
+# published width: (overrides of the published config, batch, sequence).
+# whisper-small whole, its decoder at its 448-token text context (batch
+# 16, 1500 frames a row); qwen2-vl-7b cut to 8 of 28 layers (no embedding
+# table: the lm_head's 0.545e9 parameters plus ~0.233e9 a layer, 2.41e9
+# at 8 layers, 38.5 GB of train state at TRAIN_BYTES_PER_PARAM); jamba as
+# one period-8 block (7 Mamba layers, 1 attention, 4 MoE) with 2 of its 16
+# experts at top-2 (one block with all 16 is ~13e9 parameters, over 200 GB
+# of train state): every width stays published (d_model 4096, d_inner
+# 8192, N 16, d_conv 4, 32/8 heads), so the scan kernels run at the serve
+# path's shape.  JAMBA_TRAIN is the scan's (B, S, D, N) in that run.
+TRAIN_FAMILIES = {
+    "whisper-small": ({}, 16, 448),
+    "qwen2-vl-7b": (dict(num_layers=8), TRAIN_BATCH, TRAIN_SEQ),
+    "jamba-v0.1-52b": (dict(num_layers=8, num_experts=2), TRAIN_BATCH,
+                       TRAIN_SEQ),
+}
+JAMBA_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 8192, 16)
+# the flash kernels at those train steps' attention shapes (B, Hq, Hkv,
+# Sq, Skv, D, causal, kv_len), as FLASH_FAMILIES: whisper-small's encoder
+# over its 1500 frames, its decoder's cross-attention and causal self-
+# attention over the 448-token text context, at batch 16; qwen2-vl's and
+# jamba's causal self-attention at TRAIN_BATCH x TRAIN_SEQ
+FLASH_FAMILIES_TRAIN = {
+    "whisper_train_encoder": (16, 12, 12, 1500, 1500, 64, False, None),
+    "whisper_train_cross": (16, 12, 12, 448, 1500, 64, False, None),
+    "whisper_train_self": (16, 12, 12, 448, 448, 64, True, None),
+    "qwen2vl_train": (TRAIN_BATCH, 28, 4, TRAIN_SEQ, TRAIN_SEQ, 128, True,
+                      None),
+    "jamba_train": (TRAIN_BATCH, 32, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True,
+                    None),
+}
+# each of those shapes' train run
+FLASH_TRAIN_ARCH = {"whisper": "whisper-small", "qwen2vl": "qwen2-vl-7b",
+                    "jamba": "jamba-v0.1-52b"}
+TRAIN_FAMILY_WHY = {
+    "qwen2-vl-7b": "the whole model's bf16 weights and gradients and "
+                   "float32 AdamW state (16 bytes a parameter) exceed one "
+                   "card's 80 GB; depth is cut, every width kept",
+    "jamba-v0.1-52b": "one period-8 block with all 16 experts is ~13e9 "
+                      "parameters, over 200 GB of train state; only the "
+                      "experts are cut (top-2 kept), every width kept, so "
+                      "the scan kernels run at the serve path's shape",
+}
+
+
+def family_train_launches(cfg):
+    """Launches a train step of ``cfg`` makes under remat "full": every
+    attention's flash forward and its recompute (prefill_tc in bf16; the
+    audio family's encoder self-attention and its decoder's self- and
+    cross-attention), every Mamba layer's scan forward and recompute, and
+    one scan backward a Mamba layer."""
+    if cfg.family == "audio":
+        return dict(prefill_tc=2 * (cfg.encoder_layers + 2 * cfg.num_layers))
+    if cfg.family != "hybrid":
+        return dict(prefill_tc=2 * cfg.num_layers)
+    attn = sum(map(cfg.is_attn_layer, range(cfg.num_layers)))
+    mamba = cfg.num_layers - attn
+    return dict(prefill_tc=2 * attn, mamba_scan=2 * mamba,
+                mamba_scan_bwd=mamba)
+
+
+def phase_train_families(dev):
+    """Training the vlm, audio and hybrid families on the card (module
+    docstring, phase ``train_families``): the reduced f32 configs card vs
+    CPU, then Trainer.fit at TRAIN_FAMILIES; returns each run's launches
+    per step."""
+    from repro_torch import configs
+    from repro_torch.models.model import num_params
+    emit("train_families", part="card_vs_cpu",
+         **train_card_vs_cpu(dev, TRAIN_CPU_FAMILY_ARCHS))
+    out = {}
+    for arch, (cut, batch, seq) in TRAIN_FAMILIES.items():
+        full = configs.get(arch)
+        cfg = dataclasses.replace(full, **cut)
+        res = train_fit(dev, cfg, arch, batch=batch, seq=seq,
+                        per_step=family_train_launches(cfg))
+        if cut:
+            res["reduced"] = dict(
+                **{k: [getattr(full, k), v] for k, v in cut.items()},
+                full_params=num_params(full),
+                full_train_state_bytes=TRAIN_BYTES_PER_PARAM
+                * num_params(full),
+                why=TRAIN_FAMILY_WHY[arch])
+        emit("train_families", part=arch, **res)
+        out[arch] = res["launches_per_step"]
+        out[f"{arch} run"] = {k: res["launches"][k] for k in (
+            "flash_by_kernel", "mamba_scan", "mamba_scan_bwd")}
     return out
 
 
@@ -4608,14 +4902,29 @@ def mamba_flops_bytes(b, s, d, n):
             4 * (3 * b * s * d + 2 * b * s * n + d * n + 2 * b * d * n))
 
 
+def mamba_bwd_flops_bytes(b, s, d, n, dh_final=False):
+    """MAMBA_BWD_OPS operations per (step, channel, state); the function's
+    inputs (delta, x, dy; bm, cm; a; h0, and dh_final where it is given)
+    read once and its outputs (ddelta, dx; dbm, dcm; da; dh0) written
+    once, float32.  The kernel's own residual, the chunk-start states, is
+    not counted: only h0 among them is an input of the function."""
+    return (MAMBA_BWD_OPS * b * s * d * n,
+            4 * (5 * b * s * d + 4 * b * s * n + 2 * d * n
+                 + (3 if dh_final else 2) * b * d * n))
+
+
 def timing_mamba(dev, peak):
     """The Mamba scan and its plain step loop at jamba's longest prefill
-    (MAMBA_MAIN), in turns; then the kernel at each of serve_hybrid's
-    prompt lengths, summed over its Mamba layers: the scan's device time
-    in one serve run and its bound."""
+    (MAMBA_MAIN), in turns; then the kernel at each of serve_hybrid's prompt
+    lengths, summed over its Mamba layers: the scan's device time in one
+    serve run and its bound.  At jamba's train step (JAMBA_TRAIN): the
+    forward, and the backward beside mamba_scan_bwd_ref in turns."""
     from repro_torch import configs
     from repro_torch.kernels.mamba_scan import mamba_scan as mk
-    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    from repro_torch.kernels.mamba_scan.ref import (
+        mamba_scan_bwd_ref,
+        mamba_scan_ref,
+    )
     b, s, d, n = MAMBA_MAIN
     args = mamba_inputs(dev, b, s, d, n, 60)
     ms, plain_ms, kern_sets, plain_sets = time_turns(
@@ -4638,17 +4947,58 @@ def timing_mamba(dev, peak):
         run_ms += layers * median_ms(call, 10)
         run_bound += layers * bound(*mamba_flops_bytes(1, t, d, n),
                                     peak["fp32_flops"], peak)[0]
-    return dict(shape=[b, s, d, n], ms=ms, plain_ms=plain_ms,
+    del args
+    # jamba's train step: the forward (with its chunk-start states, as the
+    # trainable op calls it) and the backward
+    tb, ts, td, tn = JAMBA_TRAIN
+    targs = mamba_inputs(dev, tb, ts, td, tn, 62)
+    gen = torch.Generator(device=dev).manual_seed(63)
+    dy = torch.randn(tb, ts, td, generator=gen, device=dev)
+    _, _, states = mk.mamba_scan_cuda(*targs)
+    train_fwd_ms = library_ms(lambda: mk.mamba_scan_cuda(*targs))
+    train_fwd_bound = bound(*mamba_flops_bytes(tb, ts, td, tn),
+                            peak["fp32_flops"], peak)
+    bwd_ms, bwd_plain_ms, bwd_sets, bwd_plain_sets = time_turns(
+        lambda: mk.mamba_scan_bwd_cuda(*targs[:5], dy, states),
+        lambda: mamba_scan_bwd_ref(*targs, dy), plain_reps=1)
+    bwd_flops, bwd_bytes = mamba_bwd_flops_bytes(tb, ts, td, tn)
+    bwd_bound, bwd_by = bound(bwd_flops, bwd_bytes, peak["fp32_flops"], peak)
+    # both kernels held to their plain versions at the train shape too
+    train_errs = {}
+    for label, got, want, tol in (
+            *zip(("y", "h"), mk.mamba_scan_cuda(*targs),
+                 mamba_scan_ref(*targs), (MAMBA_TOL,) * 2),
+            *zip(("ddelta", "dx", "da", "dbm", "dcm", "dh0"),
+                 mk.mamba_scan_bwd_cuda(*targs[:5], dy, states),
+                 mamba_scan_bwd_ref(*targs, dy), (MAMBA_BWD_TOL,) * 6)):
+        err, big = float((got - want).abs().max()), float(want.abs().max())
+        if not err <= tol * big:
+            raise AssertionError(f"mamba at {JAMBA_TRAIN} {label}: {err} > "
+                                 f"{tol} x {big}")
+        train_errs[label] = dict(max_abs_err=err, largest=big)
+    return dict(shape=[b, s, d, n], ms=ms,
+                plain_ms=plain_ms,
                 kernel_ms=kern_sets, plain_ms_sets=plain_sets,
                 bound_ms=ms_bound, bound_by=by, bound_flops=flops,
                 bound_bytes=nbytes, exponentials=b * s * d * n,
                 share_of_bound=ms_bound / ms,
                 serve_run=dict(calls=layers * SERVE_REQUESTS, ms=run_ms,
-                               bound_ms=run_bound))
+                               bound_ms=run_bound),
+                train=dict(shape=list(JAMBA_TRAIN), forward_ms=train_fwd_ms,
+                           forward_bound_ms=train_fwd_bound[0],
+                           forward_bound_by=train_fwd_bound[1],
+                           errors=train_errs),
+                backward=dict(shape=list(JAMBA_TRAIN), ms=bwd_ms,
+                              kernel_ms=bwd_sets, plain_ms=bwd_plain_ms,
+                              plain_ms_sets=bwd_plain_sets,
+                              bound_ms=bwd_bound, bound_by=bwd_by,
+                              bound_flops=bwd_flops, bound_bytes=bwd_bytes,
+                              share_of_bound=bwd_bound / bwd_ms))
 
 
 def timing_families_flash(dev, peak):
-    """The flash kernels at FLASH_FAMILIES's shapes, each with its plain
+    """The flash kernels at FLASH_FAMILIES's and FLASH_FAMILIES_TRAIN's
+    shapes, each with its plain
     version and scaled_dot_product_attention (and the backend it took)
     in the same call: the encoder and cross-attention non-causal without
     a mask, the decodes with a boolean mask of each row's kv_len, GQA by
@@ -4658,7 +5008,8 @@ def timing_families_flash(dev, peak):
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention.ref import attention_ref
     out = {}
-    for i, (key, case) in enumerate(FLASH_FAMILIES.items()):
+    for i, (key, case) in enumerate({**FLASH_FAMILIES,
+                                     **FLASH_FAMILIES_TRAIN}.items()):
         b, hq, hkv, sq, skv, d, causal, _ = case
         q, k, v, lens = family_flash_inputs(dev, case, 30 + i)
         full = (lens if lens is not None
@@ -4821,6 +5172,9 @@ def phase_timing(dev, launches, errs, turnover):
     flash_mix = launches["flash_by_kernel"]
     pre = fl["prefill_tc"]
     served = launches["serve_families"]
+    mbwd = mam["backward"]
+    jamba_step = launches["train_families"]["jamba-v0.1-52b"]
+    jamba_run = launches["train_families"]["jamba-v0.1-52b run"]
     # each shape's serve phase, whose launches of the shape's route it
     # reports (the phase's total on that kernel)
     shape_phase = {"whisper": "serve_audio", "qwen2vl": "serve_vlm",
@@ -4888,6 +5242,11 @@ def phase_timing(dev, launches, errs, turnover):
             # the MoE family's train steps (phase train_moe), prefill_tc
             # at (64, 64) and (192, 128), and those shapes' times
             "launches_per_train_moe_step": launches["train_moe"],
+            # the vlm, audio and hybrid families' train steps (phase
+            # train_families), prefill_tc causal and non-causal
+            "launches_per_train_families_step": {
+                arch: launches["train_families"][arch]["prefill_tc"]
+                for arch in TRAIN_FAMILIES},
             "moe_train_shapes": {
                 name: dict(
                     shape=f"prefill (B, H, S, Dqk, Dv) = {shape} causal bf16",
@@ -4974,6 +5333,20 @@ def phase_timing(dev, launches, errs, turnover):
                         "route", "ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms", "library_backend")})
                 for key, case in FLASH_FAMILIES.items()},
+            # the three families' train steps' shapes (phase
+            # train_families), each with its run's prefill_tc launches a
+            # step (causal and non-causal together)
+            "family_train_shapes": {
+                key: dict(
+                    shape=f"(B, Hq, Hkv, Sq, Skv, D, causal, kv_len) = "
+                          f"{case}",
+                    route_launches_per_train_step=launches[
+                        "train_families"][FLASH_TRAIN_ARCH[
+                            key.split("_")[0]]][fl_fam[key]["route"]],
+                    **{k: fl_fam[key][k] for k in (
+                        "route", "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "library_backend")})
+                for key, case in FLASH_FAMILIES_TRAIN.items()},
             # simt at head dim 128, which no main path gives it: a shape
             # timed for ranking, beside the library call
             "simt_d128": dict(
@@ -5016,6 +5389,11 @@ def phase_timing(dev, launches, errs, turnover):
                              "not a Pallas kernel",
             "launches": launches["mamba_scan"],
             "launches_per_serve_hybrid": launches["mamba_scan"],
+            # jamba's train step (phase train_families, one period-8
+            # block): each Mamba layer's forward and its remat recompute
+            "launches_per_train_step_jamba":
+                jamba_step["mamba_scan"],
+            "launches_per_train_run_jamba": jamba_run["mamba_scan"],
             "max_abs_err": errs["mamba_scan"], "ms": mam["ms"],
             "plain_ms": mam["plain_ms"], "bound_ms": mam["bound_ms"],
             "bound_by": mam["bound_by"], "library_ms": None,
@@ -5023,6 +5401,26 @@ def phase_timing(dev, launches, errs, turnover):
                             "scan",
             "shape": f"(B, S, D, N) = {MAMBA_MAIN} float32",
             "per_serve_run": mam["serve_run"],
+            "train_shape": mam["train"],
+        },
+        {
+            "name": "mamba_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/mamba_scan/csrc/"
+                      "mamba_scan.cu",
+            "replaces": "src/repro/models/mamba.py:94",
+            "replaces_note": "autodiff of the jax.lax.associative_scan of "
+                             "_ssm_scan, not a Pallas kernel",
+            "launches": jamba_run["mamba_scan_bwd"],
+            "launches_per_train_step_jamba": jamba_step["mamba_scan_bwd"],
+            "max_abs_err": max(
+                errs["mamba_scan_bwd"],
+                *(e["max_abs_err"] for k, e in mam["train"]["errors"].items()
+                  if k not in ("y", "h"))), "ms": mbwd["ms"],
+            "plain_ms": mbwd["plain_ms"], "bound_ms": mbwd["bound_ms"],
+            "bound_by": mbwd["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes the scan's "
+                            "backward",
+            "shape": f"(B, S, D, N) = {JAMBA_TRAIN} float32",
         },
         {
             "name": "revocation_walk", "route": "cuda",
@@ -5075,7 +5473,7 @@ def main() -> int:
     phase_ties(dev)
     errs["flash_attention"] = phase_flash(dev)
     errs["rwkv6"] = phase_linrec(dev)
-    errs["mamba_scan"] = phase_mamba(dev)
+    errs["mamba_scan"], errs["mamba_scan_bwd"] = phase_mamba(dev)
     errs["revocation_walk"] = phase_walk(dev)
     from repro_torch import configs
     from repro_torch.data import traces
@@ -5128,6 +5526,7 @@ def main() -> int:
         "mamba_scan"]
     launches["train"] = phase_train(dev)
     launches["train_moe"] = phase_train_moe(dev)
+    launches["train_families"] = phase_train_families(dev)
     phase_timing(dev, launches, errs, turnover)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

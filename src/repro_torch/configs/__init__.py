@@ -2,13 +2,12 @@
 
 Each module holds the exact published config, copied from the JAX
 package's registry, so all ten architectures resolve here.  The port
-builds and serves every one of them: the dense family (GQA: stablelm-1.6b,
-internlm2-20b, phi3-medium-14b; MLA: minicpm3-4b), the MoE family
-(granite-moe-1b-a400m, deepseek-v2-lite-16b), RWKV (rwkv6-3b), which it
-also trains, and the vlm (qwen2-vl-7b), audio (whisper-small) and hybrid
-(jamba-v0.1-52b) families, which it does not train yet (ROADMAP Queue 1,
-items 16.5-16.7).  :func:`repro_torch.models.model.num_params` counts
-every one of them from its shape tables.
+builds, serves and trains every one of them: the dense family (GQA:
+stablelm-1.6b, internlm2-20b, phi3-medium-14b; MLA: minicpm3-4b), the MoE
+family (granite-moe-1b-a400m, deepseek-v2-lite-16b), RWKV (rwkv6-3b), the
+vlm (qwen2-vl-7b), audio (whisper-small) and hybrid (jamba-v0.1-52b)
+families.  :func:`repro_torch.models.model.num_params` counts every one
+of them from its shape tables.
 """
 
 from __future__ import annotations

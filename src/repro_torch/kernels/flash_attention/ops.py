@@ -18,10 +18,11 @@ tensor runs the plain version on the dequantized cache.
 
 :func:`flash_attention_trainable` is the training path's op, a
 ``torch.autograd.Function``: its forward is :func:`flash_attention` (the
-routed kernel on the card), its backward the reference's, the VJP of causal
-attention recomputed from q, k and v (:func:`attention_vjp`), in query
-chunks of ``TRAIN_CHUNK`` with ``torch.matmul``.  The backward never calls
-``ref.py``, so the plain version stays off the card's path.
+routed kernel on the card), its backward the reference's, the VJP of
+attention recomputed from q, k and v (:func:`attention_vjp`), causal or
+not, with ``kv_len``, in query chunks of ``TRAIN_CHUNK`` with
+``torch.matmul``.  The backward never calls ``ref.py``, so the plain
+version stays off the card's path.
 """
 
 from __future__ import annotations
@@ -104,19 +105,26 @@ def flash_attention(
 
 
 def attention_vjp(q, k, v, g, *, scale: float, layout: str = "bhsd",
-                  chunk: int = TRAIN_CHUNK):
-    """Gradients (dq, dk, dv) of causal attention at (q, k, v) for the
-    output gradient ``g``, in the inputs' layout and dtypes.  v and g may
-    have a head dim of their own (Dv, MLA's); dv takes v's shape.
+                  chunk: int = TRAIN_CHUNK, causal: bool = True,
+                  kv_len: "int | torch.Tensor | None" = None):
+    """Gradients (dq, dk, dv) of attention at (q, k, v) for the output
+    gradient ``g``, in the inputs' layout and dtypes.  v and g may have a
+    head dim of their own (Dv, MLA's); dv takes v's shape.
 
-    The queries are the last Sq of Skv positions (no ``kv_len``).  Query
-    rows go in chunks of ``chunk``; each chunk recomputes, in float32,
-    P = softmax(scale q k^T) over the keys it can see, then
-    dV += P^T dO, dP = dO V^T, dS = P (dP - rowsum(dO O)) with O = P V,
-    dQ = scale dS K and dK += scale dS^T Q.  The query heads of a GQA
-    group ride one matmul against their kv head, so dK and dV come out
+    The mask is :func:`flash_attention`'s: keys at or past ``kv_len`` (an
+    int or a (B,) integer tensor, default Skv) are masked and, when
+    ``causal``, the queries are the last Sq of each row's ``kv_len``
+    positions.  Query rows go in chunks of ``chunk``; each chunk
+    recomputes, in float32, P = softmax(scale q k^T) over the keys it can
+    see, then dV += P^T dO, dP = dO V^T, dS = P (dP - rowsum(dO O)) with
+    O = P V, dQ = scale dS K and dK += scale dS^T Q.  The query heads of a
+    GQA group ride one matmul against their kv head, so dK and dV come out
     summed over the group.  At most two (B, Hkv, G x chunk, keys) float32
-    blocks are live: P and dP, which turns into dS in place."""
+    blocks are live: P and dP, which turns into dS in place.  Causal
+    attention without ``kv_len`` reads only the keys a chunk can see (Sq
+    <= Skv); otherwise every chunk reads all Skv keys under a per-row
+    mask, Sq and Skv in any proportion, and a row with no key left gets
+    zero gradients."""
     if layout not in _SEQ_DIM:
         raise ValueError(f"layout must be one of {sorted(_SEQ_DIM)}")
     if layout == "bshd":
@@ -125,27 +133,49 @@ def attention_vjp(q, k, v, g, *, scale: float, layout: str = "bhsd",
     hkv, skv, d_v = k.shape[1], k.shape[2], v.shape[3]
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
-    if sq > skv:
+    prefix = causal and kv_len is None
+    if prefix and sq > skv:
         raise ValueError(f"{sq} queries over {skv} keys: causal attention "
                          "needs Sq <= Skv")
     grp, off = hq // hkv, skv - sq
+    lens = None
+    if not prefix:
+        lens = torch.as_tensor(skv if kv_len is None else kv_len,
+                               device=q.device).reshape(-1)
+        lens = lens.expand(b).to(torch.int64)
     kf, vf = k.float(), v.float()
     dq = torch.empty((b, hq, sq, d), dtype=torch.float32, device=q.device)
     dk = torch.zeros((b, hkv, skv, d), dtype=torch.float32, device=q.device)
     dv = torch.zeros((b, hkv, skv, d_v), dtype=torch.float32, device=q.device)
     for a in range(0, sq, chunk):
         e = min(a + chunk, sq)
-        n, keys = e - a, off + e
+        n = e - a
+        keys = off + e if prefix else skv
         qc = q[:, :, a:e].float().reshape(b, hkv, grp * n, d)
         gc = g[:, :, a:e].float().reshape(b, hkv, grp * n, d_v)
         kc, vc = kf[:, :, :keys], vf[:, :, :keys]
         p = torch.matmul(qc, kc.transpose(-1, -2)).mul_(scale)
-        row = torch.arange(off + a, off + e, device=q.device)
         col = torch.arange(keys, device=q.device)
-        masked = (col[None, :] > row[:, None]).repeat(grp, 1)
+        if prefix:
+            row = torch.arange(off + a, off + e, device=q.device)
+            masked = (col[None, :] > row[:, None]).repeat(grp, 1)
+        else:
+            masked = (col[None, None, :] >= lens[:, None, None]).expand(
+                b, n, keys)
+            if causal:
+                row = (torch.arange(a, e, device=q.device)[None, :]
+                       + (lens[:, None] - sq))                  # (B, n)
+                masked = masked | (col[None, None, :] > row[:, :, None])
+            masked = masked.repeat(1, grp, 1)[:, None]
         p.masked_fill_(masked, float("-inf"))
-        p.sub_(p.amax(-1, keepdim=True)).exp_()
-        p.div_(p.sum(-1, keepdim=True))
+        if prefix:
+            p.sub_(p.amax(-1, keepdim=True)).exp_()
+            p.div_(p.sum(-1, keepdim=True))
+        else:
+            top = p.amax(-1, keepdim=True)
+            p.sub_(torch.where(torch.isfinite(top), top, 0.0)).exp_()
+            den = p.sum(-1, keepdim=True)
+            p.div_(torch.where(den > 0, den, 1.0))
         dv[:, :, :keys] += torch.matmul(p.transpose(-1, -2), gc)
         delta = (gc * torch.matmul(p, vc)).sum(-1, keepdim=True)
         ds = torch.matmul(gc, vc.transpose(-1, -2)).sub_(delta).mul_(p)
@@ -162,19 +192,25 @@ def attention_vjp(q, k, v, g, *, scale: float, layout: str = "bhsd",
 
 class _FlashTrainable(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, scale, layout):
+    def forward(ctx, q, k, v, scale, layout, causal, kv_len):
         ctx.save_for_backward(q, k, v)
         ctx.scale, ctx.layout = scale, layout
-        return flash_attention(q, k, v, causal=True, scale=scale,
-                               layout=layout)
+        ctx.causal, ctx.kv_len = causal, kv_len
+        return flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                               scale=scale, layout=layout)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        with torch.profiler.record_function("flash_attention_backward"):
+        # profiler ranges: the causal backward, and the non-causal one
+        # (whisper's encoder and cross-attention) apart
+        label = ("flash_attention_backward" if ctx.causal
+                 else "flash_attention_backward_noncausal")
+        with torch.profiler.record_function(label):
             dq, dk, dv = attention_vjp(q, k, v, g, scale=ctx.scale,
-                                       layout=ctx.layout)
-        return dq, dk, dv, None, None
+                                       layout=ctx.layout, causal=ctx.causal,
+                                       kv_len=ctx.kv_len)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_trainable(
@@ -184,18 +220,23 @@ def flash_attention_trainable(
     *,
     scale: float | None = None,
     layout: str = "bhsd",
+    causal: bool = True,
+    kv_len: "int | torch.Tensor | None" = None,
 ) -> torch.Tensor:
-    """Causal attention with a backward: the queries are the last Sq of
-    Skv positions, as in :func:`flash_attention` without ``kv_len``.  The
+    """:func:`flash_attention` with a backward, its mask included: causal
+    (the queries the last Sq of each row's ``kv_len`` positions) or not
+    (whisper's encoder and cross-attention, Sq and Skv in any
+    proportion), keys at or past ``kv_len`` (default Skv) masked.  The
     forward launches the routed kernel on a CUDA tensor (``prefill_tc``
     for bf16 at the head-dim pairs it is built for, (64, 64), (128, 128)
     and MLA's (192, 128) and (96, 64); ``simt`` for float32) and runs the
     plain version on a CPU tensor; a pair the routed kernel is not built
     for is refused by the kernel's wrapper.  The backward is
-    :func:`attention_vjp` on either, at v's own head dim.  Under
-    ``torch.utils.checkpoint`` the forward runs again in the backward
-    pass, so a remat'ed layer launches the kernel twice per step."""
+    :func:`attention_vjp` on either, at v's own head dim, with the same
+    mask.  Under ``torch.utils.checkpoint`` the forward runs again in the
+    backward pass, so a remat'ed layer launches the kernel twice per
+    step."""
     if layout not in _SEQ_DIM:
         raise ValueError(f"layout must be one of {sorted(_SEQ_DIM)}")
     scale = q.shape[3] ** -0.5 if scale is None else scale
-    return _FlashTrainable.apply(q, k, v, scale, layout)
+    return _FlashTrainable.apply(q, k, v, scale, layout, causal, kv_len)

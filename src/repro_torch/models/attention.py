@@ -12,12 +12,11 @@ Three execution modes share one set of weights:
 Every mode goes through the flash-attention ops
 (``repro_torch.kernels.flash_attention.ops``): on the card the CUDA kernel
 reads q and the cache in their (B, S, H, D) layout in place, with per-row
-``kv_len``; on the CPU the plain version.  Causal train mode takes the
+``kv_len``; on the CPU the plain version.  Train mode takes the
 trainable op (``flash_attention_trainable``), whose backward recomputes
-attention from q, k and v; non-causal attention (:func:`noncausal_attention`:
-whisper's encoder and cross-attention) runs without gradients only.
-Caches are laid out
-(B, S, Hkv, D), as the reference's, and are written in place.
+attention from q, k and v, causal or not (:func:`noncausal_attention`:
+whisper's encoder and cross-attention, with ``kv_len``).  Caches are
+laid out (B, S, Hkv, D), as the reference's, and are written in place.
 
 With ``kv_cache_dtype="int8"`` a GQA cache holds int8 ``k``/``v`` and one
 bf16 scale per position and kv head (``k_scale``/``v_scale``, (B, S, Hkv,
@@ -185,9 +184,8 @@ class GQAAttention(nn.Module):
         "v_scale"}), written in place in prefill and decode; ``pos`` is
         the write offset (prefill) or fill level (decode), an int or a
         (B,) tensor; ``positions`` (B, S) are the rotary positions.
-        ``causal=False`` (whisper's encoder) attends over every key; its
-        train mode runs without gradients only: the trainable op's
-        backward is causal (ROADMAP Queue 1, item 16.6)."""
+        ``causal=False`` (whisper's encoder) attends over every key, in
+        train mode through the trainable op as well."""
         cfg = self.cfg
         b, s, d = x.shape
         h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -243,13 +241,13 @@ class GQAAttention(nn.Module):
 def noncausal_attention(q, k, v, *, kv_len, scale: float) -> torch.Tensor:
     """Bidirectional attention of q (B, Sq, H, D) over k, v (B, Skv, Hkv,
     D), keys at or past ``kv_len`` masked, through the flash op: whisper's
-    encoder and cross-attention.  Only without gradients: the trainable
-    op's backward is causal, so under autograd this raises (training the
-    audio family is ROADMAP Queue 1, item 16.6)."""
+    encoder and cross-attention.  Under autograd it goes through the
+    trainable op, whose backward is ``ops.attention_vjp``'s non-causal
+    branch; the forward launches the same routed kernel either way."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "non-causal attention has no backward yet (ROADMAP Queue 1, "
-            "item 16.6: a non-causal flash backward)")
+        return flash_attention_trainable(q, k, v, causal=False,
+                                         kv_len=kv_len, scale=scale,
+                                         layout="bshd")
     return flash_attention(q, k, v, causal=False, kv_len=kv_len, scale=scale,
                            layout="bshd")
 

@@ -2,8 +2,7 @@
 
 The port's own copy of ``repro.models.config``: the same fields, defaults
 and ``__post_init__``, so a configuration means the same model in both
-packages.  Every family builds and serves; the vlm, audio and hybrid
-families do not train yet (ROADMAP Queue 1, items 16.5-16.7).
+packages.  Every family builds, serves and trains.
 ``kv_cache_dtype="int8"`` quantizes a GQA cache (MLA and RWKV caches
 ignore it, as in the reference).
 ``unroll_layers`` steers the JAX package's compiler and means nothing

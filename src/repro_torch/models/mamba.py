@@ -7,12 +7,15 @@ in jnp), the projections of Δ (softplus, float32), B and C, A = -exp(a_log),
 the selective scan, the ``d_skip`` term and the SiLU(z) gate.
 
 Prefill and train mode start from h = 0 and run the scan through
-``kernels.mamba_scan.ops`` (on the card the CUDA kernel, on the CPU the
-plain step loop); a one-token decode keeps the reference's own one-step
-formula in torch, as the reference branches there too, so the kernel
-launches once per Mamba layer and prefill.  The kernel walks the sequence
-in order, so there is no chunk length to pick: the port has no copy of
-the reference's ``scan_utils`` (``pick_chunk``, ``unrolled_chunk_scan``).
+``kernels.mamba_scan.ops`` (on the card the CUDA kernels, on the CPU the
+plain step loops): prefill through ``mamba_scan``, train mode through
+``mamba_scan_trainable``, whose backward is the scan's backward kernel; a
+one-token decode keeps the reference's own one-step formula in torch, as
+the reference branches there too, so the forward kernel launches once per
+Mamba layer and prefill (twice per layer and train step under remat, the
+backward once).  The kernels pick their own chunks: the port has no copy
+of the reference's ``scan_utils`` (``pick_chunk``,
+``unrolled_chunk_scan``).
 
 The layer's state is the conv tail (B, d_conv - 1, d_inner) in the model's
 dtype and h (B, d_inner, d_state) in float32, written in place.
@@ -24,7 +27,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.mamba_scan.ops import mamba_scan
+from repro_torch.kernels.mamba_scan.ops import (
+    mamba_scan,
+    mamba_scan_trainable,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Spec, add_parameters
 
@@ -113,7 +119,8 @@ class Mamba(nn.Module):
             h_final = da * h0 + bx
             y = torch.einsum("bn,bdn->bd", c_ssm[:, 0], h_final)[:, None, :]
         else:
-            y, h_final = mamba_scan(delta, xf, a, b_ssm, c_ssm, h0)
+            scan = mamba_scan_trainable if mode == "train" else mamba_scan
+            y, h_final = scan(delta, xf, a, b_ssm, c_ssm, h0)
 
         y = y + self.d_skip * xf
         y = (y * F.silu(z.to(f32))).to(x.dtype)

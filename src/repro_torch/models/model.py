@@ -24,10 +24,10 @@ prefill, decode and a train-mode forward for serving and checks, and
 :meth:`Model.forward` is the training forward, with gradients, each layer
 rematerialized in the backward pass by default (``remat=True``, the
 configured ``remat_policy``), as the JAX package's train forward is.
-The dense, MoE and RWKV families train (the dense prefix too, GQA and MLA
-attention); the vlm, audio and hybrid families serve only (ROADMAP Queue
-1, items 16.5-16.7: a train forward on ``embeds``, a non-causal flash
-backward, a backward for the Mamba scan).
+Every family trains: dense and MoE (the dense prefix too, GQA and MLA
+attention), RWKV, the vlm backbone on ``embeds``, the audio
+encoder-decoder (non-causal attention through the trainable flash op)
+and the hybrid (Mamba through the scan's trainable op).
 
 Caches are dictionaries of tensors stacked over layers, the slot (batch)
 axis second: ``cache[name][layer, slot]``.  A family whose layers hold
@@ -60,10 +60,6 @@ from repro_torch.models.params import (
 )
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-#: The families that serve but do not train yet, with their ROADMAP item.
-_SERVE_ONLY = {"vlm": "16.5", "audio": "16.6", "hybrid": "16.7"}
 
 
 class Model(nn.Module):
@@ -159,19 +155,19 @@ class Model(nn.Module):
         return self._run(tokens, embeds=embeds, enc_frames=enc_frames,
                          mode=mode, cache=cache, pos=pos, remat=False)
 
-    def forward(self, tokens: torch.Tensor, *, remat: bool = True):
-        """The training forward: tokens (B, S) -> logits (B, S, V) float32
-        with gradients, attention and the RWKV6 recurrence through their
-        trainable ops.  ``remat`` checkpoints every layer
-        (:func:`repro_torch.models.common.checkpoint_body`).  The vlm,
-        audio and hybrid families raise ``NotImplementedError``."""
-        item = _SERVE_ONLY.get(self.cfg.family)
-        if item is not None:
-            raise NotImplementedError(
-                f"training the {self.cfg.family!r} family is not ported yet "
-                f"(ROADMAP Queue 1, item {item}); Model.apply serves it")
-        logits, _ = self._run(tokens, mode="train", cache=None, pos=0,
-                              remat=remat)
+    def forward(self, tokens: torch.Tensor | None = None, *,
+                embeds: torch.Tensor | None = None,
+                enc_frames: torch.Tensor | None = None, remat: bool = True):
+        """The training forward: the inputs of :meth:`apply` in train mode
+        (tokens (B, S), or ``embeds`` for a config with ``embeds_input``;
+        ``enc_frames`` for the audio family) -> logits (B, S, V) float32
+        with gradients, attention, the RWKV6 recurrence and the Mamba scan
+        through their trainable ops, and the same ``ValueError`` for an
+        input that does not belong.  ``remat`` checkpoints every layer
+        (:func:`repro_torch.models.common.checkpoint_body`), the audio
+        family's encoder layers too."""
+        logits, _ = self._run(tokens, embeds=embeds, enc_frames=enc_frames,
+                              mode="train", cache=None, pos=0, remat=remat)
         return logits
 
     def _inputs(self, tokens, embeds) -> torch.Tensor:
@@ -202,10 +198,10 @@ class Model(nn.Module):
         ``layer_cache(cache, i)``."""
         return self.layers
 
-    def _prelude(self, x, pos, mode: str, enc_frames):
+    def _prelude(self, x, pos, mode: str, enc_frames, remat: bool = False):
         """Before the layers: (x, the layers' (B, S) positions, extra
         keywords for every layer).  Here the positions from ``pos``, and
-        no ``enc_frames``."""
+        no ``enc_frames``; ``remat`` is the train forward's."""
         if enc_frames is not None:
             raise ValueError(f"{self.cfg.name} takes no enc_frames")
         return x, _positions(pos, *x.shape[:2], self.device), {}
@@ -215,7 +211,8 @@ class Model(nn.Module):
         if isinstance(pos, torch.Tensor):
             pos = pos.to(self.device)
         x = self._inputs(tokens, embeds)
-        x, positions, extra = self._prelude(x, pos, mode, enc_frames)
+        x, positions, extra = self._prelude(x, pos, mode, enc_frames,
+                                            remat)
         for i, layer in enumerate(self.body_layers()):
             cache_l = None if cache is None else self.layer_cache(cache, i)
             body = checkpoint_body(layer, self.cfg) if remat else layer

@@ -11,10 +11,12 @@ rotary embedding anywhere).
 Encoder and decoder layers are two ``nn.ModuleList``s, ``enc_layers`` and
 ``dec_layers``, in order (the reference stacks each and scans it;
 ``convert.model_params_from_reference`` splits the stacks).  Every
-attention goes through the flash ops: the encoder's and the
-cross-attention at ``causal=False`` with ``kv_len = encoder_seq``, so a
-prefill launches one flash kernel per encoder layer and two per decoder
-layer (self and cross), a decode step two per decoder layer.
+attention goes through the flash ops (in train mode their trainable
+forms, whose backward recomputes attention causal or not): the encoder's
+and the cross-attention at ``causal=False`` with ``kv_len =
+encoder_seq``, so a prefill launches one flash kernel per encoder layer
+and two per decoder layer (self and cross), a decode step two per
+decoder layer.
 
 The cache holds, per decoder layer, the self-attention's ``k``/``v`` (B,
 S, Hkv, D) and the cross-attention's ``cross_k``/``cross_v`` (B,
@@ -32,7 +34,11 @@ from torch import nn
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn
-from repro_torch.models.common import rms_norm, rms_norm_spec
+from repro_torch.models.common import (
+    checkpoint_body,
+    rms_norm,
+    rms_norm_spec,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model, _positions
 from repro_torch.models.params import Spec, add_parameters, stack_spec_tree
@@ -180,8 +186,10 @@ class Whisper(Model):
     def cache_specs(cfg: ModelConfig, batch: int, seq: int):
         return cache_specs(cfg, batch, seq)
 
-    def encode(self, enc_frames: torch.Tensor) -> torch.Tensor:
-        """The encoder: frames (B, encoder_seq, d) -> (B, encoder_seq, d)."""
+    def encode(self, enc_frames: torch.Tensor, *,
+               remat: bool = False) -> torch.Tensor:
+        """The encoder: frames (B, encoder_seq, d) -> (B, encoder_seq, d);
+        ``remat`` checkpoints every layer, as the train forward does."""
         cfg = self.cfg
         x = enc_frames.to(device=self.device, dtype=self.dtype)
         b, s, _ = x.shape
@@ -191,7 +199,8 @@ class Whisper(Model):
         x = x + self.enc_pos[None, :s]
         positions = torch.zeros((b, s), dtype=torch.int64, device=self.device)
         for layer in self.enc_layers:
-            x = layer(x, positions)
+            x = (checkpoint_body(layer, cfg) if remat else layer)(
+                x, positions)
         return rms_norm(x, self.enc_norm, cfg.norm_eps)
 
     @property
@@ -201,16 +210,17 @@ class Whisper(Model):
     def body_layers(self) -> nn.ModuleList:
         return self.dec_layers
 
-    def _prelude(self, x, pos, mode: str, enc_frames):
-        """Train and prefill encode ``enc_frames``; decode reads the cached
-        cross k/v.  The decoder adds ``dec_pos`` at each row's positions
-        and rotates nothing (its layers' positions are zeros)."""
+    def _prelude(self, x, pos, mode: str, enc_frames, remat: bool = False):
+        """Train and prefill encode ``enc_frames`` (the train forward's
+        encoder layers rematerialized with its decoder's); decode reads
+        the cached cross k/v.  The decoder adds ``dec_pos`` at each row's
+        positions and rotates nothing (its layers' positions are zeros)."""
         cfg = self.cfg
         if mode in ("train", "prefill"):
             if enc_frames is None:
                 raise ValueError(f"{cfg.name}: {mode} takes enc_frames "
                                  "(B, encoder_seq, d)")
-            enc_out = self.encode(enc_frames)
+            enc_out = self.encode(enc_frames, remat=remat)
         elif enc_frames is not None:
             raise ValueError(f"{cfg.name}: decode reads the cached cross "
                              "k/v and takes no enc_frames")

@@ -48,11 +48,15 @@ def to_device(batch: Mapping, device) -> dict[str, torch.Tensor]:
 
 
 def build_loss_fn(model: Model) -> Callable:
-    """batch {"tokens", "labels"} -> the loss of the model's parameters,
-    with gradients (the train forward, every layer rematerialized)."""
+    """batch -> the loss of the model's parameters, with gradients (the
+    train forward, every layer rematerialized).  Every input but
+    ``labels`` goes to the model, as the reference passes them:
+    {"tokens", "labels"}, {"embeds", "labels"} (vlm) or {"tokens",
+    "enc_frames", "labels"} (audio)."""
     def loss_fn(batch: Mapping) -> torch.Tensor:
         batch = to_device(batch, model.device)
-        return cross_entropy(model(batch["tokens"]), batch["labels"])
+        inputs = {k: v for k, v in batch.items() if k != "labels"}
+        return cross_entropy(model(**inputs), batch["labels"])
 
     return loss_fn
 

@@ -340,6 +340,7 @@ def test_split_decode_algebra_gives_zeros_without_keys():
 # rtol 1e-4 of the output's own tolerance, bf16 within 2e-2 (the
 # gradients are computed in float32 from bf16 inputs and rounded once).
 
+import jax  # noqa: E402
 from jax import vjp as jvjp  # noqa: E402
 
 from repro.kernels.flash_attention.ops import (  # noqa: E402
@@ -441,3 +442,62 @@ def test_model_train_mode_calls_the_trainable_op(monkeypatch):
     tm.apply(tok, mode="prefill", cache=tm.init_cache(2, 16), pos=0)
     assert calls == {"trainable": tm.cfg.num_layers,
                      "raw": tm.cfg.num_layers}
+
+
+# The non-causal branch of attention_vjp (whisper's encoder and
+# cross-attention) against jax.vjp of the reference's jnp attention
+# (``repro.kernels.flash_attention.ref.attention_ref``) at causal=False, one
+# batch row at a time at its own kv_len (the reference takes a scalar);
+# float32, the tolerance of the causal cases above.
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,lens", [
+    (2, 4, 2, 30, 75, 32, (75, 52)),    # Sq < Skv, GQA, ragged kv_len
+    (2, 4, 4, 90, 40, 32, (40, 17)),    # Sq > Skv (cross-attention)
+    (1, 8, 2, 64, 64, 64, (61,)),       # group 4, square
+])
+def test_noncausal_vjp_matches_jax_vjp(b, hq, hkv, sq, skv, d, lens):
+    q, k, v = _qkv(sq + skv + d, b, hq, hkv, sq, skv, d)
+    g = _randn(np.random.default_rng(skv), b, hq, sq, d)
+    kv_len = torch.tensor(lens)
+    targs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = tops.flash_attention_trainable(*targs, causal=False,
+                                         kv_len=kv_len, scale=d ** -0.5)
+    grads = torch.autograd.grad(out, targs, torch.from_numpy(g))
+    direct = tops.attention_vjp(*(x.detach() for x in targs),
+                                torch.from_numpy(g), scale=d ** -0.5,
+                                causal=False, kv_len=kv_len, chunk=16)
+    tol = GRAD_TOL["float32"]
+    for row in range(b):
+        def attend(q_, k_, v_, n=lens[row]):
+            return jref(q_, k_, v_, causal=False, kv_len=n)
+
+        jout, pullback = jvjp(jax.jit(attend), *(jnp.asarray(x[row:row + 1])
+                                        for x in (q, k, v)))
+        jgrads = pullback(jnp.asarray(g[row:row + 1]))
+        np.testing.assert_allclose(out.detach()[row:row + 1].numpy(),
+                                   np.asarray(jout), **tol)
+        for name, got, chunked, want in zip("qkv", grads, direct, jgrads):
+            np.testing.assert_allclose(got[row:row + 1].numpy(),
+                                       np.asarray(want), **tol,
+                                       err_msg=f"d{name} row {row}")
+            np.testing.assert_allclose(chunked[row:row + 1].numpy(),
+                                       np.asarray(want), **tol,
+                                       err_msg=f"chunked d{name} row {row}")
+        # masked keys get no gradient
+        assert not grads[1][row, :, lens[row]:].any()
+
+
+def test_causal_vjp_with_kv_len_matches_the_plain_version():
+    """The trainable op at causal=True with a per-row kv_len (the queries
+    the last Sq of each row's kv_len positions): its gradients equal
+    autograd through the plain version."""
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv(11, 2, 4, 2, 20, 50, 32))
+    kv_len = torch.tensor([50, 33])
+    g = torch.randn(2, 4, 20, 32, generator=torch.Generator().manual_seed(3))
+    got = torch.autograd.grad(tops.flash_attention_trainable(
+        q, k, v, kv_len=kv_len), (q, k, v), g)
+    want = torch.autograd.grad(attention_ref(q, k, v, causal=True,
+                                             kv_len=kv_len), (q, k, v), g)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **GRAD_TOL["float32"])

@@ -158,3 +158,219 @@ def test_layer_prefill_and_decode_match_reference(layer_pair):
         _within(state[name], jstate[name], LAYER_TOL)
     # the conv tail is the last d_conv - 1 inputs of the projection
     assert state["conv"].shape == (2, cfg.ssm_d_conv - 1, cfg.ssm_d_inner)
+
+
+# ---------------------------------------------------------- the backward
+# ``mamba_scan_trainable`` on CPU tensors (forward mamba_scan_ref, backward
+# mamba_scan_bwd_ref) against ``jax.vjp`` of the reference's ``_ssm_scan``;
+# ``mamba_scan_bwd_ref`` against torch autograd through ``mamba_scan_ref``;
+# the chunked algebra of the CUDA kernels (``*_chunked_ref`` below, the
+# kernels' three passes in plain PyTorch) against the step loops.  Each
+# gradient within 1e-5 of its largest magnitude.
+from repro_torch.kernels.mamba_scan import ref as mref  # noqa: E402
+
+GRAD_TOL = 1e-5
+
+
+def _chunks(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B, S, ...) -> (B, C, chunk, ...), zero-padded past S (a padded
+    step has delta = 0: decay 1, no input, no output gradient)."""
+    b, s = t.shape[:2]
+    pad = -s % chunk
+    if pad:
+        t = torch.cat([t, t.new_zeros((b, pad, *t.shape[2:]))], 1)
+    return t.reshape(b, -1, chunk, *t.shape[2:])
+
+
+def mamba_scan_chunked_ref(delta, x, a, bm, cm, h0,
+                           chunk: int = mref.CHUNK):
+    """The forward kernel's three passes: (y, final h, the chunk-start
+    states (B, C, D, N)), float32, C = ceil(S / chunk).  Pass 1 runs
+    every chunk from h = 0 (its local end state) and sums its deltas;
+    pass 2 walks the chunks in order, start_k = h, h = exp(a sum_k delta)
+    h + local_k; pass 3 runs every chunk again from its start for y, the
+    last one also for the final h."""
+    delta, x, a, bm, cm = (t.float() for t in (delta, x, a, bm, cm))
+    b, s, d = delta.shape
+    dc, xc, bc, cc = (_chunks(t, chunk) for t in (delta, x, bm, cm))
+    nc = dc.shape[1]
+
+    def run(h, out):
+        ys = []
+        for r in range(chunk):
+            dt = dc[:, :, r, :, None]                      # (B, C, D, 1)
+            h = (torch.exp(dt * a) * h
+                 + dt * bc[:, :, r, None, :] * xc[:, :, r, :, None])
+            if out:
+                ys.append((cc[:, :, r, None, :] * h).sum(-1))
+        return h, ys
+
+    local, _ = run(torch.zeros((b, nc, d, a.shape[1]),
+                               device=delta.device), False)
+    decay = torch.exp(dc.sum(2)[..., None] * a)            # (B, C, D, N)
+    h, starts = h0.float(), []
+    for k in range(nc):
+        starts.append(h)
+        h = decay[:, k] * h + local[:, k]
+    states = torch.stack(starts, 1)
+    ends, ys = run(states, True)
+    y = torch.stack(ys, 2).reshape(b, nc * chunk, d)[:, :s]
+    return y, ends[:, -1], states
+
+
+def mamba_scan_bwd_chunked_ref(delta, x, a, bm, cm, dy, states,
+                               dh_final=None, chunk: int = mref.CHUNK):
+    """The backward kernel's three passes, from the forward's chunk-start
+    ``states``: the same gradients as :func:`mamba_scan_bwd_ref`.  Pass A
+    runs every chunk's adjoint back from 0, u_k = A_{t0} g_{t0}; pass B
+    walks the chunks back, G_{C-1} = dh_final, G_{k-1} = exp(a sum_k
+    delta) G_k + u_k, dh0 = exp(a sum_0 delta) G_0 + u_0; pass C runs
+    every chunk forward from its start (its states) and back from G_k,
+    with the gradients of each step; dB and dC sum over the channels, da
+    over the batch and the chunks."""
+    delta, x, a, bm, cm, dy = (t.float() for t in (delta, x, a, bm, cm, dy))
+    b, s, d = delta.shape
+    n = a.shape[1]
+    dc, xc, bc, cc, gc = (_chunks(t, chunk)
+                          for t in (delta, x, bm, cm, dy))
+    nc = dc.shape[1]
+    zero = torch.zeros((b, nc, d, n), device=delta.device)
+
+    u = zero
+    for r in range(chunk - 1, -1, -1):
+        big_a = torch.exp(dc[:, :, r, :, None] * a)
+        u = big_a * (gc[:, :, r, :, None] * cc[:, :, r, None, :] + u)
+    decay = torch.exp(dc.sum(2)[..., None] * a)
+    g_in = [None] * nc
+    g = (torch.zeros((b, d, n), device=delta.device) if dh_final is None
+         else dh_final.float())
+    for k in range(nc - 1, -1, -1):
+        g_in[k] = g
+        g = decay[:, k] * g + u[:, k]
+    dh0 = g
+
+    h, hist = states, [states]
+    for r in range(chunk):
+        dt = dc[:, :, r, :, None]
+        h = (torch.exp(dt * a) * h
+             + dt * bc[:, :, r, None, :] * xc[:, :, r, :, None])
+        hist.append(h)
+    carry = torch.stack(g_in, 1)
+    outs = {k: [None] * chunk for k in ("ddelta", "dx", "dbm", "dcm")}
+    da = torch.zeros_like(zero)
+    for r in range(chunk - 1, -1, -1):
+        dt, xt = dc[:, :, r, :, None], xc[:, :, r, :, None]
+        bt, ct = bc[:, :, r, None, :], cc[:, :, r, None, :]
+        big_a = torch.exp(dt * a)
+        g = gc[:, :, r, :, None] * ct + carry
+        outs["dcm"][r] = (gc[:, :, r, :, None] * hist[r + 1]).sum(2)
+        outs["dbm"][r] = (g * dt * xt).sum(2)
+        outs["dx"][r] = (g * dt * bt).sum(-1)
+        outs["ddelta"][r] = (g * (a * big_a * hist[r] + bt * xt)).sum(-1)
+        da = da + g * dt * big_a * hist[r]
+        carry = big_a * g
+    ddelta, dx, dbm, dcm = (
+        torch.stack(outs[k], 2).reshape(b, nc * chunk, -1)[:, :s]
+        for k in ("ddelta", "dx", "dbm", "dcm"))
+    return ddelta, dx, da.sum((0, 1)), dbm, dcm, dh0
+
+
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("s", [13, 37, 64])
+def test_trainable_grads_match_jax_vjp(s, n):
+    delta, a, bm, cm, x, h0 = _scan_inputs(2, s, 12, n, 100 + s + n)
+    rng = np.random.default_rng(s * n)
+    gy = rng.normal(size=delta.shape).astype(np.float32)
+    gh = rng.normal(size=h0.shape).astype(np.float32)
+    chunk = pick_chunk(s, target_iters=16, max_chunk=2048)
+    (jy, jh), pullback = jax.vjp(
+        jax.jit(functools.partial(jmamba._ssm_scan, chunk=chunk)),
+        *(jnp.asarray(t) for t in (delta, a, bm, cm, x, h0)))
+    jd, ja, jb, jc, jx, jh0 = pullback((jnp.asarray(gy), jnp.asarray(gh)))
+    leaves = [torch.from_numpy(t).requires_grad_()
+              for t in (delta, x, a, bm, cm, h0)]
+    before = mk.BWD_LAUNCHES
+    y, h = ops.mamba_scan_trainable(*leaves)
+    grads = torch.autograd.grad((y, h), leaves, (torch.from_numpy(gy),
+                                                 torch.from_numpy(gh)))
+    assert mk.BWD_LAUNCHES == before
+    _within(y.detach(), jy, SCAN_TOL)
+    for name, got, want in zip(("delta", "x", "a", "bm", "cm", "h0"), grads,
+                               (jd, jx, ja, jb, jc, jh0)):
+        assert got.shape == leaves[0].shape or got.dtype == torch.float32
+        _within(got, want, GRAD_TOL)
+
+
+@pytest.mark.parametrize("with_dh", [True, False])
+def test_bwd_ref_matches_autograd_of_the_step_loop(with_dh):
+    """The reverse-time loop against autograd through the forward loop;
+    without ``dh_final`` the final state takes no gradient."""
+    delta, a, bm, cm, x, h0 = (torch.from_numpy(t) for t in _scan_inputs(
+        2, 41, 10, 8, 7))
+    leaves = [t.clone().requires_grad_() for t in (delta, x, a, bm, cm, h0)]
+    y, h = mamba_scan_ref(*leaves)
+    gen = torch.Generator().manual_seed(8)
+    dy = torch.randn(y.shape, generator=gen)
+    dh = torch.randn(h.shape, generator=gen) if with_dh else None
+    outs, gouts = ((y, h), (dy, dh)) if with_dh else ((y,), (dy,))
+    want = torch.autograd.grad(outs, leaves, gouts)
+    got = mref.mamba_scan_bwd_ref(delta, x, a, bm, cm, h0, dy, dh)
+    for g, w in zip(got, want):
+        _within(g, w.numpy(), GRAD_TOL)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 150])
+def test_chunked_algebra_matches_the_step_loops(s):
+    """The kernels' chunks (64 steps, a ragged last one) run from zero and
+    combined by each chunk's decay: y, the final state and every gradient
+    as the step loops give them; the chunk-start states are the loop's
+    states at each chunk's first step."""
+    delta, a, bm, cm, x, h0 = (torch.from_numpy(t) for t in _scan_inputs(
+        2, s, 10, 16, 9 + s))
+    args = (delta, x, a, bm, cm, h0)
+    y, h = mamba_scan_ref(*args)
+    cy, ch, states = mamba_scan_chunked_ref(*args)
+    assert states.shape == (2, -(-s // mref.CHUNK), 10, 16)
+    _within(cy, y.numpy(), SCAN_TOL)
+    _within(ch, h.numpy(), SCAN_TOL)
+    _within(states[:, 0], h0.numpy(), 0.0)
+    if s > mref.CHUNK:
+        _, h64 = mamba_scan_ref(*(t[:, :mref.CHUNK] for t in args[:5]), h0)
+        _within(states[:, 1], h64.numpy(), SCAN_TOL)
+    gen = torch.Generator().manual_seed(s)
+    dy, dh = torch.randn(y.shape, generator=gen), torch.randn(
+        h.shape, generator=gen)
+    want = mref.mamba_scan_bwd_ref(*args, dy, dh)
+    got = mamba_scan_bwd_chunked_ref(*args[:5], dy, states, dh)
+    for g, w in zip(got, want):
+        _within(g, w.numpy(), GRAD_TOL)
+
+
+def test_layer_train_mode_goes_through_the_trainable_op(layer_pair,
+                                                         monkeypatch):
+    """Train mode under autograd calls ``mamba_scan_trainable`` once and
+    gives every parameter a gradient; prefill keeps ``mamba_scan``."""
+    _, _, cfg, layer = layer_pair
+    calls = {"trainable": 0, "plain": 0}
+    real_t, real_p = mamba.mamba_scan_trainable, mamba.mamba_scan
+
+    def trainable(*a):
+        calls["trainable"] += 1
+        return real_t(*a)
+
+    def plain(*a):
+        calls["plain"] += 1
+        return real_p(*a)
+
+    monkeypatch.setattr(mamba, "mamba_scan_trainable", trainable)
+    monkeypatch.setattr(mamba, "mamba_scan", plain)
+    x = torch.from_numpy(np.random.default_rng(10).normal(
+        size=(2, 9, cfg.d_model)).astype(np.float32))
+    layer(x, mode="train", state=None).square().sum().backward()
+    assert calls == {"trainable": 1, "plain": 0}
+    assert all(p.grad is not None and p.grad.abs().max() > 0
+               for p in layer.parameters())
+    layer.zero_grad()
+    with torch.no_grad():
+        layer(x, mode="prefill", state=None)
+    assert calls == {"trainable": 1, "plain": 1}

@@ -149,8 +149,15 @@ def test_inputs_are_refused_where_they_do_not_belong(pair):
         tm.apply(torch.zeros(1, 4, dtype=torch.long), mode="train")
     with pytest.raises(ValueError, match="enc_frames"):
         tm.apply(embeds=emb, enc_frames=emb, mode="train")
-    with pytest.raises(NotImplementedError, match="item 16.5"):
+    # the train forward refuses the same inputs, and on embeds gives
+    # apply's train logits with gradients
+    with pytest.raises(ValueError, match="embeds"):
         tm(torch.zeros(1, 4, dtype=torch.long))
+    emb = torch.from_numpy(_embeds(tm.cfg.d_model, 2, 10, 3))
+    fl = tm(embeds=emb)
+    assert fl.requires_grad
+    want, _ = tm.apply(embeds=emb, mode="train")
+    torch.testing.assert_close(fl.detach(), want, rtol=1e-6, atol=1e-6)
 
 
 def test_bf16_prefill_decode_consistency():

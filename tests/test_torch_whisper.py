@@ -6,9 +6,11 @@ The JAX model's parameters are carried across by
 ``convert.model_params_from_reference`` (the stacked ``enc_layers`` and
 ``dec_layers`` split per layer); frames and tokens are numpy draws handed
 to both.  Tolerances, float32 with full float32 matmuls:
-- the encoder's output, the non-causal attention layer, and the train,
-  prefill and decode logits within 1e-4: the same float32 products and
-  softmax as the other transformer families, summed in other orders;
+- the encoder's output, the non-causal attention layer (its output and,
+  under autograd, its gradients), and the train, prefill and decode
+  logits within 1e-4: the same float32 products and softmax as the other
+  transformer families, summed in other orders; the train forward
+  (``Model.forward``) equals ``apply``'s train logits within 1e-6;
 - the four caches (self k/v, cross k/v) within 1e-5: projections of the
   same inputs, before any softmax.
 """
@@ -119,9 +121,24 @@ def test_noncausal_attention_layer_matches_jax():
                        positions=torch.from_numpy(pos).long())
     _close(got, want)
     assert not torch.allclose(got, causal, atol=1e-3)
-    with pytest.raises(NotImplementedError, match="item 16.6"):
-        layer(torch.from_numpy(x), mode="train", cache=None, pos=0,
-              positions=torch.from_numpy(pos).long(), causal=False)
+    # under autograd (the trainable op): the same output, and the
+    # gradients of x and of every weight as jax.vjp of the reference's
+    g = np.random.default_rng(4).normal(size=x.shape).astype(np.float32)
+    _, pullback = jax.vjp(
+        jax.jit(lambda p_, x_: jattn.gqa_attention(
+            p_, x_, jcfg, mode="train", cache=None, pos=0,
+            positions=jnp.asarray(pos), causal=False)[0]),
+        p, jnp.asarray(x))
+    jgp, jgx = pullback(jnp.asarray(g))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = layer(xt, mode="train", cache=None, pos=0,
+                positions=torch.from_numpy(pos).long(), causal=False)
+    _close(out.detach(), want)
+    grads = torch.autograd.grad(out, [xt, *layer.parameters()],
+                                torch.from_numpy(g))
+    _close(grads[0], jgx)
+    for (name, _), got_g in zip(layer.named_parameters(), grads[1:]):
+        _close(got_g, jgp[name])
 
 
 def test_train_logits_match_jax(pair):
@@ -133,7 +150,12 @@ def test_train_logits_match_jax(pair):
                          enc_frames=torch.from_numpy(frames), mode="train")
     assert tl.shape == (2, 17, tm.cfg.vocab_size) and cache is None
     _close(tl, jl)
-    with pytest.raises(NotImplementedError, match="item 16.6"):
+    # the train forward (remat, under autograd) gives apply's logits
+    fl = tm(torch.from_numpy(tok).long(),
+            enc_frames=torch.from_numpy(frames))
+    assert fl.requires_grad
+    torch.testing.assert_close(fl.detach(), tl, rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="enc_frames"):
         tm(torch.from_numpy(tok).long())
 
 
