@@ -15,7 +15,13 @@ note says what bounds it on the card and what its design does about that:
     bf16, any GQA group: split-KV flash decoding, a split kernel writing
     float32 partials and a combine kernel (one launch of the pair).  Its
     int8 instance reads the quantized KV cache (int8 K and V, one bf16
-    scale per position and kv head) and dequantizes in registers.
+    scale per position and kv head) with a kernel of its own: a split's
+    rows staged in shared memory by ``cp.async``, each scale loaded once,
+    the values dequantized without a conversion instruction (``prmt``
+    into 2^23's mantissa, bf16 rounded two at a time), only the live
+    query heads in registers, then the bf16/f32 instance's arithmetic in
+    its order, so the two give the same bits on the same dequantized
+    cache.  Both are bound by instructions, not bytes.
 ``simt`` (``csrc/flash_attention.cu``)
     everything else, on the CUDA cores: float32 prefill (whose 2e-5
     tolerance bf16 tensor cores cannot meet) and bf16 with head dim 32.

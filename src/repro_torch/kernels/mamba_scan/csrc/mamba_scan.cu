@@ -56,45 +56,61 @@
 //      G = dh_final (or 0), then for k = C-1 .. 0: gbuf_k = G (the adjoint
 //      entering chunk k from its end), G = exp(a dsum_k) G + u_k; finally
 //      dh0 = G;
-//   C. bwd_grads: every (b, chunk, channel) recomputes its forward states
-//      from its saved start state, in sub-chunks of kSub = 16 steps held
-//      in registers (one pass over the chunk keeps each sub-chunk's start
-//      state; each sub-chunk, last first, is rerun into registers and then
-//      walked back carrying g), so h_{t-1} is never recovered by dividing
-//      by A_t (which underflows).  L = N / 4 neighbouring lanes of a warp
-//      hold one channel's states, 4 each; a block of 8 N threads covers 32
-//      channels, whose delta, x and dy rows it stages for the chunk in
-//      shared memory by cp.async.  Per step: ddelta and dx (sums over the
-//      lanes of a channel), written over the staged delta and x rows once
-//      every lane has read them (__syncwarp); dB and dC (sums over the
-//      block's 32 channels: shuffles within a warp, then a fixed-order sum
-//      over the warps in shared memory) as one partial per (b, channel
-//      block, t) into `dbm_part`, `dcm_part` (B, D / 32, S, N); da summed
-//      over the chunk's steps per thread, into `gbuf` (B, C, D, N) in
-//      place of the adjoint it read.
+//   C. bwd_grads: a block is one (b, chunk) and kCpb = 128 channels,
+//      taken kCh = 32 at a time; L = N / 4 neighbouring lanes hold one
+//      channel's states, 4 each.  Each pass stages its delta, x and dy
+//      columns for the chunk by cp.async, runs the chunk forward from its
+//      saved start state keeping each kSub = 8-step sub-chunk's start
+//      state (one exponential), then reruns each sub-chunk, last first,
+//      keeping A_t and A_t h_{t-1} in registers (the second exponential),
+//      and walks it back carrying g with no exponential of its own; h_{t-1}
+//      is never recovered by dividing by A_t (which underflows).  The sums
+//      go two steps at a time through reduce-scatter butterflies, each
+//      round sending half of what a lane holds: ddelta and dx (over the
+//      lanes of a channel; dx = delta sum_n g B) in 3 shuffles a lane
+//      where plain trees take 8, each lane then storing one of the four to
+//      global memory; dC (in the forward run) and dB (in the walk) over the
+//      warp's channels in 7 shuffles where plain trees take 24, added by
+//      each warp into its own rows of shared memory, pass after pass; at
+//      the end the block sums its warps in order into one partial per (b,
+//      128 channels, t) in `dbm_part`, `dcm_part` (B, D / 128, S, N); da
+//      summed over the chunk's steps per thread, into `gbuf` (B, C, D, N)
+//      in place of the adjoint it read.  The sub-chunk loops are rolled
+//      (the start states in local memory): unrolled over the eight
+//      sub-chunks, the same kernel took ~1.5x as long, most likely from
+//      instruction-cache misses.
 // No float atomics: the wrapper sums the partials over their axis with
-// torch (a fixed order), so a rerun is bit for bit.  A simple first
-// design: its shuffles and three exponentials a (step, channel, state)
-// keep it far above its bound.
+// torch (a fixed order), so a rerun is bit for bit.  The partials are 67
+// MB at jamba's train shape.  What bounds pass C, by probes that removed
+// one part at a time at jamba's train shape (pass C ~2.2 ms;
+// tools/kernel_ab.py): the forward run that keeps the sub-chunk starts
+// (~0.6 ms, dC's sums included), the shuffles and their selects (~0.55
+// ms), instruction issue at 12 warps an SM (160 registers and 64 KB of
+// shared memory a block of 4 warps); hardly its exponentials (~0.17
+// ms).  Taking the sub-chunk starts
+// from pass A instead (run forward) would move ~1.2 GB more through HBM,
+// about what the forward run costs.
 //
 // Bound: bytes.  The forward must read delta and x and write y once: 12
 // bytes per (step, channel), against ~8 operations per (step, channel,
 // state), 2.4 operations a byte at N = 16, below the card's ~20 float32
 // operations per byte: ~0.06 ms at (1, 2048, 8192, 16) and 3.35 TB/s.
 // The backward must read delta, x and dy and write ddelta and dx: 20
-// bytes per (step, channel).
+// bytes per (step, channel).  The exponentials are taken by the special
+// function unit, 16 a clock an SM (an eighth of the FMA rate).
 //
 // Numerics: exp(delta a) is 2^(delta (a log2 e)) by ex2.approx.ftz (~2 ulp;
 // a decay below 2^-126 flushes to 0), a's scale rounded once (relative
 // error ~|delta a| x 2^-24 in the decay); a chunk's decay in the combines
 // is 2^((a log2 e) sum delta), the deltas summed in step order, where the
 // plain versions multiply the per-step decays: equal but for float32
-// rounding.  Products in the reference's order ((delta * bm) * x); nvcc
-// fuses the updates into fma; the group and block sums are butterflies and
-// fixed trees.  The plain versions (ref.py, torch step loops) round each
-// operation apart and sum in their own order, so the two agree to float32
-// rounding (within 1e-5 of each output's largest on the card), not bit for
-// bit.
+// rounding.  The forward's products in the reference's order ((delta *
+// bm) * x), the backward's as bm * (delta * x), delta * x taken once a
+// step; nvcc fuses the updates into fma; the group and block sums are
+// butterflies and fixed trees.  The plain versions (ref.py, torch step
+// loops) round each operation apart and sum in their own order, so the two
+// agree to float32 rounding (within 1e-5 of each output's largest on the
+// card), not bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -103,8 +119,10 @@
 namespace {
 
 constexpr int kChunk = 64;   // steps per chunk
-constexpr int kSub = 16;     // steps per register-held sub-chunk (backward)
-constexpr int kCpb = 32;     // channels per block of bwd_grads
+constexpr int kSub = 8;      // steps per register-held sub-chunk (backward)
+constexpr int kCh = 32;      // channels a pass of bwd_grads stages
+constexpr int kPasses = 4;   // passes a block of bwd_grads
+constexpr int kCpb = kCh * kPasses;  // channels a block: one dB/dC partial
 constexpr int kSpl = 4;      // states per lane
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kLaneThreads = 128;  // one thread a channel: channels a block
@@ -125,8 +143,13 @@ template <int N>
 struct Shape {
   static_assert(N == 8 || N == 16, "state sizes the kernels are built for");
   static constexpr int kL = N / kSpl;            // lanes per channel
-  static constexpr int kThreads = kCpb * kL;     // 256 / 128 ... 64
+  static constexpr int kThreads = kCh * kL;      // 128 at N 16, 64 at N 8
   static constexpr int kWarps = kThreads / 32;
+  // bwd_grads' dynamic shared memory (floats): delta, x, dy of a pass
+  // (kChunk x kCh each), bm and cm (kChunk x N each), and each warp's dB
+  // and dC sums over its channels (kWarps x kChunk x N each)
+  static constexpr int kGradFloats =
+      3 * kChunk * kCh + 2 * kChunk * N + 2 * kWarps * kChunk * N;
 };
 
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
@@ -160,15 +183,15 @@ __device__ __forceinline__ void load4(float* out, const float* src) {
 }
 
 // Rows t0 .. t0 + rows - 1 of a (S, D) plane's columns c0 .. c0 + 31 into
-// dst[kChunk][kCpb]; columns past D are zeroed.
+// dst[kChunk][kCh]; columns past D are zeroed.
 template <int Threads>
 __device__ __forceinline__ void stage_cols(float* dst, const float* src,
                                            int t0, int rows, int c0, int D,
                                            bool vec) {
   if (vec) {
-    for (int i = threadIdx.x; i < rows * (kCpb / 4); i += Threads) {
-      const int r = i / (kCpb / 4), cc = (i % (kCpb / 4)) * 4;
-      float* s = dst + r * kCpb + cc;
+    for (int i = threadIdx.x; i < rows * (kCh / 4); i += Threads) {
+      const int r = i / (kCh / 4), cc = (i % (kCh / 4)) * 4;
+      float* s = dst + r * kCh + cc;
       if (c0 + cc < D) {
         cp_async16(s, src + static_cast<long long>(t0 + r) * D + c0 + cc);
       } else {
@@ -176,8 +199,8 @@ __device__ __forceinline__ void stage_cols(float* dst, const float* src,
       }
     }
   } else {
-    for (int i = threadIdx.x; i < rows * kCpb; i += Threads) {
-      const int r = i / kCpb, cc = i % kCpb;
+    for (int i = threadIdx.x; i < rows * kCh; i += Threads) {
+      const int r = i / kCh, cc = i % kCh;
       if (c0 + cc < D) {
         cp_async4(dst + i, src + static_cast<long long>(t0 + r) * D + c0 + cc);
       } else {
@@ -201,56 +224,63 @@ __device__ __forceinline__ void stage_states(float* dst, const float* src,
   }
 }
 
-// Rows back to global memory: dst (S, D) rows t0.. from src[kChunk][kCpb].
-template <int Threads>
-__device__ __forceinline__ void store_cols(float* dst, const float* src,
-                                           int t0, int rows, int c0, int D) {
-  for (int i = threadIdx.x; i < rows * kCpb; i += Threads) {
-    const int r = i / kCpb, cc = i % kCpb;
-    if (c0 + cc < D)
-      __stcs(dst + static_cast<long long>(t0 + r) * D + c0 + cc, src[i]);
+// The channel's sums over its L lanes (the lanes' state groups) of two
+// steps' (ddelta, dx) terms v[slot][0 | 1], reduced and scattered: the
+// round L / 2 apart sends one slot and adds the partner's other (a select
+// pair, one shuffle and one add per value), the round 1 apart (L = 4)
+// sends one of the two sums.  At L = 4 the lane ends with the sum of term
+// (lane & 1) of slot (lane >> 1) & 1; at L = 2 with both terms of slot
+// (lane & 1), in out[0], out[1].
+template <int L>
+__device__ __forceinline__ void group_rs(const float (&v)[2][2], int lane,
+                                         float (&out)[2]) {
+  const bool hi = lane & (L / 2);
+  float k0 = hi ? v[1][0] : v[0][0], k1 = hi ? v[1][1] : v[0][1];
+  k0 += __shfl_xor_sync(0xffffffffu, hi ? v[0][0] : v[1][0], L / 2);
+  k1 += __shfl_xor_sync(0xffffffffu, hi ? v[0][1] : v[1][1], L / 2);
+  if constexpr (L == 4) {
+    const bool odd = lane & 1;
+    out[0] = (odd ? k1 : k0) +
+             __shfl_xor_sync(0xffffffffu, odd ? k0 : k1, 1);
+  } else {
+    out[0] = k0;
+    out[1] = k1;
   }
 }
 
-// Sum over the L lanes of a channel (a butterfly within the group).
+// The sums over the warp's channels (lanes L, 2 L, .. 16 apart) of two
+// steps' terms of this lane's four states, v[slot][0..3], reduced and
+// scattered: the rounds 16, 8 and 4 apart each send half of what a lane
+// still holds and add the partner's half, a round 2 apart (L = 2) is a
+// plain butterfly.  The lane ends with the sum for slot (lane >> 4) & 1
+// and state n0 + rs_state(lane); the rs_writer lanes hold each once.
 template <int L>
-__device__ __forceinline__ float group_sum(float v) {
+__device__ __forceinline__ float channel_rs(const float (&v)[2][kSpl],
+                                            int lane) {
+  const bool hi16 = lane & 16, hi8 = lane & 8, hi4 = lane & 4;
+  float k[kSpl];
 #pragma unroll
-  for (int off = L / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off, L);
-  return v;
+  for (int j = 0; j < kSpl; ++j) {
+    k[j] = (hi16 ? v[1][j] : v[0][j]) +
+           __shfl_xor_sync(0xffffffffu, hi16 ? v[0][j] : v[1][j], 16);
+  }
+  const float k0 = (hi8 ? k[2] : k[0]) +
+                   __shfl_xor_sync(0xffffffffu, hi8 ? k[0] : k[2], 8);
+  const float k1 = (hi8 ? k[3] : k[1]) +
+                   __shfl_xor_sync(0xffffffffu, hi8 ? k[1] : k[3], 8);
+  float kk = (hi4 ? k1 : k0) +
+             __shfl_xor_sync(0xffffffffu, hi4 ? k0 : k1, 4);
+  if constexpr (L == 2) kk += __shfl_xor_sync(0xffffffffu, kk, 2);
+  return kk;
 }
 
-// Sum over the warp's channels, lanes with the same state group (stride L).
-template <int L>
-__device__ __forceinline__ float channel_sum(float v) {
-#pragma unroll
-  for (int off = L; off < 32; off <<= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ int rs_state(int lane) {
+  return ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
 }
 
-// The block's (batch, chunk, channel block) and this thread's channel.
-struct Place {
-  long long b;
-  int k, c0, cl, g, c, t0, rows;
-  bool live;
-};
-
-template <int N>
-__device__ __forceinline__ Place place(int S, int D) {
-  constexpr int kL = Shape<N>::kL;
-  Place p;
-  p.c0 = blockIdx.x * kCpb;
-  p.k = blockIdx.y;
-  p.b = blockIdx.z;
-  p.cl = threadIdx.x / kL;
-  p.g = threadIdx.x % kL;
-  p.c = p.c0 + p.cl;
-  p.live = p.c < D;
-  p.t0 = p.k * kChunk;
-  p.rows = min(kChunk, S - p.t0);
-  return p;
+template <int L>
+__device__ __forceinline__ bool rs_writer(int lane) {
+  return L == 4 || (lane & 2) == 0;
 }
 
 // Forward pass 1 (OutY = false) and pass 3 (OutY = true): one thread a
@@ -480,9 +510,25 @@ __global__ void bwd_combine(const float* __restrict__ a,
   dh0[i] = g;
 }
 
-// Backward pass C: the gradients of each chunk's steps.
+// Backward pass C: the gradients of each chunk's steps.  A block is one
+// (b, chunk) and kCpb channels, taken kCh at a time (a pass); within a
+// pass L = N / 4 neighbouring lanes hold one channel's states, 4 each.
+// Per pass: the pass's delta, x, dy columns staged by cp.async; pass 1
+// runs the chunk forward from its saved start state, keeping each
+// sub-chunk's start state and summing dC over the warp's channels; then
+// each sub-chunk, last first, is rerun with its decays A_t and A_t h_{t-1}
+// kept in registers (kSub x 4 each) and walked back carrying g, with no
+// exponential of its own.  The sums go two steps at a time through
+// reduce-scatter butterflies: ddelta and dx over the channel's lanes
+// (group_rs), each lane storing one of the four to global memory; dB and
+// dC over the warp's channels (channel_rs), kept in registers until the
+// sub-chunk's last step and then added by each warp into its own rows of
+// shared memory, pass after pass.  da is summed per thread over the
+// chunk.  The sub-chunk loops stay rolled (see the header); the start
+// states live in local memory.  At the end the block sums its warps in
+// order: one dB and one dC partial per (b, kCpb channels, t).
 template <int N>
-__global__ void __launch_bounds__(Shape<N>::kThreads)
+__global__ void __launch_bounds__(Shape<N>::kThreads, 3)
     bwd_grads(const float* __restrict__ delta, const float* __restrict__ x,
               const float* __restrict__ a, const float* __restrict__ bm,
               const float* __restrict__ cm, const float* __restrict__ dy,
@@ -492,147 +538,198 @@ __global__ void __launch_bounds__(Shape<N>::kThreads)
               int S, int D, int C) {
   constexpr int kL = Shape<N>::kL, kThreads = Shape<N>::kThreads;
   constexpr int kWarps = Shape<N>::kWarps;
-  __shared__ __align__(16) float s_d[kChunk * kCpb], s_x[kChunk * kCpb],
-      s_g[kChunk * kCpb];
-  __shared__ __align__(16) float s_b[kChunk * N], s_c[kChunk * N];
-  // per warp, per step of a sub-chunk: its channels' dB and dC sums
-  __shared__ float s_rb[kWarps][kSub][N], s_rc[kWarps][kSub][N];
-  const Place p = place<N>(S, D);
-  const long long row = p.b * S;
+  constexpr int kNsub = kChunk / kSub;
+  static_assert(kSub % 2 == 0, "the sums go two steps at a time");
+  extern __shared__ __align__(16) float smem[];
+  float* s_d = smem;                      // [kChunk][kCh]
+  float* s_x = s_d + kChunk * kCh;
+  float* s_g = s_x + kChunk * kCh;
+  float* s_b = s_g + kChunk * kCh;        // [kChunk][N]
+  float* s_c = s_b + kChunk * N;
+  float* s_db = s_c + kChunk * N;         // [kWarps][kChunk][N]
+  float* s_dc = s_db + kWarps * kChunk * N;
+
+  const int k = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int t0 = k * kChunk, rows = min(kChunk, S - t0);
+  const int cl = threadIdx.x / kL, sg = threadIdx.x % kL, n0 = sg * kSpl;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // where this lane's scattered sums belong: dB/dC (step of the pair,
+  // state); ddelta/dx (step of the pair, term)
+  const bool writer = rs_writer<kL>(lane);
+  const int wslot = (lane >> 4) & 1, wn = n0 + rs_state(lane);
+  const int gslot = kL == 4 ? (lane >> 1) & 1 : lane & 1;
+  float* const g_w = (kL == 4 && (lane & 1)) ? dx : ddelta;
+  float* const acc_b = s_db + warp * kChunk * N + wn;
+  float* const acc_c = s_dc + warp * kChunk * N + wn;
+  const long long row = b * S;
   const bool vec = (D % 4 == 0) && aligned16(delta) && aligned16(x) &&
                    aligned16(dy);
-  const bool vec_n = aligned16(bm) && aligned16(cm);
-  stage_cols<kThreads>(s_d, delta + row * D, p.t0, p.rows, p.c0, D, vec);
-  stage_cols<kThreads>(s_x, x + row * D, p.t0, p.rows, p.c0, D, vec);
-  stage_cols<kThreads>(s_g, dy + row * D, p.t0, p.rows, p.c0, D, vec);
-  stage_states<N, kThreads>(s_b, bm + row * N, p.t0, p.rows, vec_n);
-  stage_states<N, kThreads>(s_c, cm + row * N, p.t0, p.rows, vec_n);
-  cp_async_wait_all();
-  __syncthreads();
+  stage_states<N, kThreads>(s_b, bm + row * N, t0, rows,
+                            aligned16(bm) && aligned16(cm));
+  stage_states<N, kThreads>(s_c, cm + row * N, t0, rows,
+                            aligned16(bm) && aligned16(cm));
+  for (int i = threadIdx.x; i < 2 * kWarps * kChunk * N; i += kThreads)
+    s_db[i] = 0.0f;
 
-  const int n0 = p.g * kSpl;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long sidx = ((p.b * C + p.k) * D + p.c) * N + n0;
-  const int cblocks = gridDim.x;
-  float an[kSpl], av[kSpl], carry[kSpl], da[kSpl];
-  float hs[kChunk / kSub][kSpl];   // each sub-chunk's start state
-  {
-    float h[kSpl];
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int c0 = blockIdx.x * kCpb + pass * kCh;
+    if (c0 >= D) break;  // uniform across the block
+    if (pass > 0) __syncthreads();  // every warp is done with the last pass
+    stage_cols<kThreads>(s_d, delta + row * D, t0, rows, c0, D, vec);
+    stage_cols<kThreads>(s_x, x + row * D, t0, rows, c0, D, vec);
+    stage_cols<kThreads>(s_g, dy + row * D, t0, rows, c0, D, vec);
+    cp_async_wait_all();
+    __syncthreads();
+
+    const int c = c0 + cl;
+    const bool live = c < D;
+    const long long sidx = ((b * C + k) * D + c) * N + n0;
+    float an[kSpl], av[kSpl], carry[kSpl], da[kSpl], h[kSpl];
 #pragma unroll
     for (int j = 0; j < kSpl; ++j) {
-      av[j] = p.live ? a[static_cast<long long>(p.c) * N + n0 + j] : 0.0f;
+      av[j] = live ? a[static_cast<long long>(c) * N + n0 + j] : 0.0f;
       an[j] = av[j] * kLog2e;
-      h[j] = p.live ? states[sidx + j] : 0.0f;
-      carry[j] = p.live ? gbuf[sidx + j] : 0.0f;
+      h[j] = live ? states[sidx + j] : 0.0f;
+      carry[j] = live ? gbuf[sidx + j] : 0.0f;
       da[j] = 0.0f;
     }
-#pragma unroll
-    for (int q = 0; q < kChunk / kSub; ++q) {
+
+    // pass 1: each sub-chunk's start state; dC_t = sum_c dy_t h_t
+    float hs[kNsub][kSpl];
+#pragma unroll 1
+    for (int q = 0; q < kNsub; ++q) {
+      const int r0 = q * kSub;
+      if (r0 >= rows) break;  // uniform across the block
 #pragma unroll
       for (int j = 0; j < kSpl; ++j) hs[q][j] = h[j];
+      float zc[2][kSpl], zq[kSub / 2];
 #pragma unroll
       for (int i = 0; i < kSub; ++i) {
-        const int r = q * kSub + i;
-        if (r < p.rows) {
-          const float dv = s_d[r * kCpb + p.cl], xv = s_x[r * kCpb + p.cl];
+        const int r = r0 + i;
+#pragma unroll
+        for (int j = 0; j < kSpl; ++j) zc[i & 1][j] = 0.0f;
+        if (r < rows) {  // uniform across the block
+          const float dv = s_d[r * kCh + cl], xv = s_x[r * kCh + cl];
+          const float gv = s_g[r * kCh + cl], dvx = dv * xv;
           float bv[kSpl];
           load4(bv, &s_b[r * N + n0]);
 #pragma unroll
-          for (int j = 0; j < kSpl; ++j)
-            h[j] = fexp2(dv * an[j]) * h[j] + dv * bv[j] * xv;
+          for (int j = 0; j < kSpl; ++j) {
+            h[j] = fmaf(fexp2(dv * an[j]), h[j], bv[j] * dvx);
+            zc[i & 1][j] = gv * h[j];
+          }
+        }
+        if (i & 1) {  // steps r - 1, r summed
+          zq[i / 2] = r - 1 < rows ? channel_rs<kL>(zc, lane) : 0.0f;
+        }
+      }
+      // into shared memory after the sub-chunk: no store orders its steps
+      if (writer) {
+#pragma unroll
+        for (int i = 0; i < kSub / 2; ++i) {
+          const int rw = r0 + 2 * i + wslot;
+          if (rw < rows) acc_c[rw * N] += zq[i];
         }
       }
     }
-  }
 
-#pragma unroll
-  for (int q = kChunk / kSub - 1; q >= 0; --q) {
-    const int r0 = q * kSub;
-    if (r0 >= p.rows) continue;   // uniform across the block
-    float hist[kSub][kSpl];       // h_t of the sub-chunk's steps
-    {
-      float h[kSpl];
+    // the walk back, a sub-chunk at a time
+#pragma unroll 1
+    for (int q = kNsub - 1; q >= 0; --q) {
+      const int r0 = q * kSub;
+      if (r0 >= rows) continue;  // uniform across the block
+      float ea[kSub][kSpl], qa[kSub][kSpl];  // A_t, A_t h_{t-1}
 #pragma unroll
       for (int j = 0; j < kSpl; ++j) h[j] = hs[q][j];
 #pragma unroll
       for (int i = 0; i < kSub; ++i) {
         const int r = r0 + i;
-        if (r < p.rows) {
-          const float dv = s_d[r * kCpb + p.cl], xv = s_x[r * kCpb + p.cl];
+        if (r < rows) {
+          const float dv = s_d[r * kCh + cl], xv = s_x[r * kCh + cl];
+          const float dvx = dv * xv;
           float bv[kSpl];
           load4(bv, &s_b[r * N + n0]);
 #pragma unroll
-          for (int j = 0; j < kSpl; ++j)
-            h[j] = fexp2(dv * an[j]) * h[j] + dv * bv[j] * xv;
-        }
-#pragma unroll
-        for (int j = 0; j < kSpl; ++j) hist[i][j] = h[j];
-      }
-    }
-#pragma unroll
-    for (int i = kSub - 1; i >= 0; --i) {
-      const int r = r0 + i;
-      if (r >= p.rows) continue;  // uniform across the block
-      const float dv = s_d[r * kCpb + p.cl], xv = s_x[r * kCpb + p.cl];
-      const float gv = s_g[r * kCpb + p.cl];
-      float bv[kSpl], cv[kSpl];
-      load4(bv, &s_b[r * N + n0]);
-      load4(cv, &s_c[r * N + n0]);
-      float dd = 0.0f, dxp = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kSpl; ++j) {
-        const float hp = i > 0 ? hist[i - 1][j] : hs[q][j];
-        const float ea = fexp2(dv * an[j]);
-        const float gj = gv * cv[j] + carry[j];
-        const float bx = bv[j] * xv;
-        dd += gj * (av[j] * ea * hp + bx);
-        dxp += gj * dv * bv[j];
-        da[j] += gj * dv * ea * hp;
-        carry[j] = ea * gj;
-        // this step's dC and dB, summed over the warp's channels
-        const float sc = channel_sum<kL>(gv * hist[i][j]);
-        const float sb = channel_sum<kL>(gj * dv * xv);
-        if (lane < kL) {
-          s_rc[warp][i][n0 + j] = sc;
-          s_rb[warp][i][n0 + j] = sb;
+          for (int j = 0; j < kSpl; ++j) {
+            ea[i][j] = fexp2(dv * an[j]);
+            qa[i][j] = ea[i][j] * h[j];
+            h[j] = qa[i][j] + bv[j] * dvx;
+          }
         }
       }
-      dd = group_sum<kL>(dd);
-      dxp = group_sum<kL>(dxp);
-      __syncwarp();   // every lane of the channel has read delta and x
-      if (p.g == 0) {
-        s_d[r * kCpb + p.cl] = dd;
-        s_x[r * kCpb + p.cl] = dxp;
+      float gd[2][2], zb[2][kSpl], zq[kSub / 2];  // a pair of steps' terms
+#pragma unroll
+      for (int i = kSub - 1; i >= 0; --i) {
+        const int r = r0 + i, slot = i & 1;
+        gd[slot][0] = gd[slot][1] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kSpl; ++j) zb[slot][j] = 0.0f;
+        if (r < rows) {  // uniform across the block
+          const float dv = s_d[r * kCh + cl], xv = s_x[r * kCh + cl];
+          const float gv = s_g[r * kCh + cl], dvx = dv * xv;
+          float bv[kSpl], cv[kSpl];
+          load4(bv, &s_b[r * N + n0]);
+          load4(cv, &s_c[r * N + n0]);
+          float dd = 0.0f, dxp = 0.0f;
+#pragma unroll
+          for (int j = 0; j < kSpl; ++j) {
+            const float gj = fmaf(gv, cv[j], carry[j]);
+            dd = fmaf(gj, fmaf(av[j], qa[i][j], bv[j] * xv), dd);
+            dxp = fmaf(gj, bv[j], dxp);
+            da[j] = fmaf(gj * dv, qa[i][j], da[j]);
+            carry[j] = ea[i][j] * gj;
+            zb[slot][j] = gj * dvx;
+          }
+          gd[slot][0] = dd;
+          gd[slot][1] = dxp * dv;
+        }
+        if (slot == 0 && r < rows) {  // steps r, r + 1 summed
+          float gs[2];
+          group_rs<kL>(gd, lane, gs);
+          const float z = channel_rs<kL>(zb, lane);
+          const int rg = r + gslot;
+          if (rg < rows && live) {
+            const long long at = (row + t0 + rg) * D + c;
+            if constexpr (kL == 4) {
+              __stcs(g_w + at, gs[0]);
+            } else {
+              __stcs(ddelta + at, gs[0]);
+              __stcs(dx + at, gs[1]);
+            }
+          }
+          zq[i / 2] = z;
+        } else if (slot == 0) {
+          zq[i / 2] = 0.0f;
+        }
+      }
+      if (writer) {
+#pragma unroll
+        for (int i = 0; i < kSub / 2; ++i) {
+          const int rw = r0 + 2 * i + wslot;
+          if (rw < rows) acc_b[rw * N] += zq[i];
+        }
       }
     }
-    __syncthreads();
-    // the block's dB, dC partials of this sub-chunk, warps summed in order
-    const int rows = min(kSub, p.rows - r0);
-    for (int e = threadIdx.x; e < rows * N; e += kThreads) {
-      const int i = e / N, nn = e % N;
-      float sb = 0.0f, sc = 0.0f;
+    if (live) {
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        sb += s_rb[w][i][nn];
-        sc += s_rc[w][i][nn];
-      }
-      const long long at =
-          ((p.b * cblocks + blockIdx.x) * S + p.t0 + r0 + i) * N + nn;
-      dbm_part[at] = sb;
-      dcm_part[at] = sc;
+      for (int j = 0; j < kSpl; ++j) gbuf[sidx + j] = da[j];
     }
-    __syncthreads();
   }
-  store_cols<kThreads>(ddelta + row * D, s_d, p.t0, p.rows, p.c0, D);
-  store_cols<kThreads>(dx + row * D, s_x, p.t0, p.rows, p.c0, D);
-  if (p.live) {
+  __syncthreads();
+  // the block's dB, dC partials: its warps summed in order
+  for (int e = threadIdx.x; e < rows * N; e += kThreads) {
+    const int i = e / N, nn = e % N;
+    float sb = 0.0f, sc = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kSpl; ++j) gbuf[sidx + j] = da[j];
+    for (int w = 0; w < kWarps; ++w) {
+      sb += s_db[(w * kChunk + i) * N + nn];
+      sc += s_dc[(w * kChunk + i) * N + nn];
+    }
+    const long long at = ((b * gridDim.x + blockIdx.x) * S + t0 + i) * N + nn;
+    dbm_part[at] = sb;
+    dcm_part[at] = sc;
   }
-}
-
-dim3 chunk_grid(int B, int C, int D) {
-  return dim3((D + kCpb - 1) / kCpb, C, B);
 }
 
 dim3 lane_grid(int B, int C, int D) {
@@ -677,8 +774,16 @@ cudaError_t backward(const float* delta, const float* x, const float* a,
                      int S, int D, cudaStream_t stream) {
   const int C = (S + kChunk - 1) / kChunk;
   if (!grid_ok(B, C)) return cudaErrorInvalidConfiguration;
-  const dim3 grid = chunk_grid(B, C, D);
+  const dim3 grid((D + kCpb - 1) / kCpb, C, B);
   constexpr int kThreads = Shape<N>::kThreads;
+  constexpr int kSmem = Shape<N>::kGradFloats * sizeof(float);
+  static bool sized = false;  // bwd_grads may take kSmem (over 48 KB)
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bwd_grads<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
   bwd_local<N><<<lane_grid(B, C, D), kLaneThreads, 0, stream>>>(
       delta, a, cm, dy, gbuf, dsum, S, D, C);
   cudaError_t err = cudaGetLastError();
@@ -687,7 +792,7 @@ cudaError_t backward(const float* delta, const float* x, const float* a,
       a, dh_final, gbuf, dsum, dh0, B, C, D, N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_grads<N><<<grid, kThreads, 0, stream>>>(
+  bwd_grads<N><<<grid, kThreads, kSmem, stream>>>(
       delta, x, a, bm, cm, dy, states, gbuf, ddelta, dx, dbm_part, dcm_part,
       S, D, C);
   return cudaGetLastError();
@@ -724,7 +829,7 @@ extern "C" int mamba_scan_launch(const float* delta, const float* x,
 // The backward from the forward's chunk-start `states`: dy, ddelta, dx
 // (B, S, D); dh_final (B, D, N) or null; dh0 (B, D, N); gbuf (B, C, D, N)
 // scratch that ends holding da's per-(b, chunk) partials; dsum (B, C, D)
-// scratch; dbm_part, dcm_part (B, ceil(D / 32), S, N) partials.  All
+// scratch; dbm_part, dcm_part (B, ceil(D / 128), S, N) partials.  All
 // contiguous float32, S >= 1.  Launches the three backward kernels;
 // returns the first CUDA error (0 on success).
 extern "C" int mamba_scan_bwd_launch(

@@ -10,10 +10,13 @@ chunks serially per (batch, channel, state) with each chunk's decay, and
 run every chunk again from its true start; the source's header says why
 and what bounds them.  The forward's chunk-start states (B, C, D, N) are
 what the backward reads (the third value :func:`mamba_scan_cuda`
-returns).  The backward's sums over channels (dB, dC) and
-over batch and time (da) come out of the kernels as per-block partials,
-summed here by torch in a fixed order: no float atomics, a rerun is bit
-for bit.
+returns).  The backward's gradient kernel reruns each chunk in 8-step
+sub-chunks kept in registers, two exponentials a (step, channel, state),
+and sums two steps at a time through reduce-scatter shuffles.  Its sums
+over channels (dB, dC, one partial per ``CHANNELS_PER_BLOCK`` channels)
+and over batch and time (da) come out of the kernels as partials, summed
+here by torch in a fixed order: no float atomics, a rerun is bit for
+bit.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes``, at the first launch,
@@ -46,9 +49,9 @@ _INT_MAX = 2**31 - 1
 LAUNCHES = 0
 #: Backward calls made by :func:`mamba_scan_bwd_cuda` in this process.
 BWD_LAUNCHES = 0
-#: Channels per block of the kernels: the backward's dB and dC partials
-#: come one per block of channels.
-CHANNELS_PER_BLOCK = 32
+#: Channels per block of the backward's gradient kernel (``kCpb`` in the
+#: source): its dB and dC partials come one per block of channels.
+CHANNELS_PER_BLOCK = 128
 
 _SIGNATURES = {
     "mamba_scan_launch": [

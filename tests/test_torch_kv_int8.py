@@ -133,6 +133,94 @@ def test_int8_flash_op_reads_the_dequantized_cache():
         tops.flash_attention(q, k, v, layout="bshd", k_scale=ks, v_scale=vs)
 
 
+# ------------------------------------------------ the int8 kernel's bits
+# decode_split's int8 instance (``csrc/flash_decode_split.cu``, ``Int8Row``)
+# dequantizes with no conversion instruction: a word of four int8 is
+# offset by 128 (``w ^ 0x80808080``), each byte is put into the low
+# mantissa byte of 2^23 by ``prmt`` (selector ``0x7650 | i``: byte i of the
+# word, then bytes 1, 2 and 3 of 0x4B000000), and 2^23 + 128 comes off; the
+# product with the scale is exact in float32, and bf16 rounds two products
+# at a time (``cvt.rn.bf16x2.f32``: nearest even, the first in the low
+# half), unpacked by shifts.  Modelled here in numpy operation by
+# operation and held bit for bit against ``ref.dequantize_kv``.
+_MAGIC, _MAGIC_OFF = 0x4B000000, np.float32(8388736.0)   # 2^23, 2^23 + 128
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's ``__byte_perm`` (PTX ``prmt``, default mode) on uint32
+    arrays; the kernel's selectors never set a nibble's sign bit."""
+    pool = [(x >> np.uint32(8 * i)) & np.uint32(0xFF) for i in range(4)]
+    pool += [np.full_like(x, (y >> (8 * i)) & 0xFF) for i in range(4)]
+    out = np.zeros_like(x)
+    for i in range(4):
+        nib = (sel >> (4 * i)) & 0xF
+        assert nib < 8
+        out |= pool[nib] << np.uint32(8 * i)
+    return out
+
+
+def _rn_bf16_bits(f):
+    """float32 -> bf16 bits (uint32), round to nearest even, finite f."""
+    b = f.view(np.uint32).astype(np.uint64)
+    return ((b + 0x7FFF + ((b >> 16) & 1)) >> 16).astype(np.uint32)
+
+
+def _kernel_dequantize(q, scale_bits, dtype):
+    """int8 ``q`` (..., D) and bf16 scale bits (..., 1) as the kernel
+    dequantizes them, float32 values of ``dtype``."""
+    words = np.ascontiguousarray(q).view(np.uint32)        # (..., D / 4)
+    u = words ^ np.uint32(0x80808080)
+    x = np.stack([_byte_perm(u, _MAGIC, 0x7650 | i).view(np.float32)
+                  - _MAGIC_OFF for i in range(4)], -1).reshape(q.shape)
+    prod = x * (scale_bits.astype(np.uint32) << np.uint32(16)).view(
+        np.float32)
+    if dtype == torch.float32:
+        return prod
+    pairs = prod.reshape(*q.shape[:-1], -1, 2)
+    packed = _rn_bf16_bits(pairs[..., 0]) | (_rn_bf16_bits(pairs[..., 1])
+                                             << np.uint32(16))
+    return np.stack([(packed << np.uint32(16)).view(np.float32),
+                     (packed & np.uint32(0xFFFF0000)).view(np.float32)],
+                    -1).reshape(q.shape)
+
+
+def _edge_row_scales():
+    """The scales of an all-zero row (the 1e-8 floor) and of a row holding
+    both +127 and -127, as the model quantizes them."""
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, (1, 2, 1, 32)).astype(np.float32))
+    x[0, 0] = 0.0
+    x[0, 1, 0, :2] = torch.tensor([2.0, -2.0])
+    q, s = tattn._quantize_kv(x)
+    assert (q[0, 0] == 0).all() and q[0, 1, 0, 0] == 127
+    assert q[0, 1, 0, 1] == -127
+    return q, s
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_kernel_dequantization_bit_path(dtype):
+    """All 256 int8 values times a spread of bf16 scales (the all-zero
+    row's floor, the +-127 row's, 2^-30 .. 2^20, and random mantissas),
+    and the quantized edge rows themselves: the kernel's bit path equals
+    ref.dequantize_kv bit for bit, in float32 and in bf16."""
+    q_edge, s_edge = _edge_row_scales()
+    rng = np.random.default_rng(4)
+    spread = np.concatenate([
+        np.float32(2.0) ** np.arange(-30, 21, dtype=np.float32),
+        rng.uniform(1e-6, 1e3, 64).astype(np.float32)])
+    scales = torch.cat([s_edge.reshape(-1), torch.from_numpy(spread).to(
+        torch.bfloat16)])
+    values = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8)
+    q = values.expand(len(scales), 256).contiguous()
+    for qq, ss in ((q, scales[:, None]), (q_edge, s_edge)):
+        got = _kernel_dequantize(qq.numpy(), ss.view(torch.int16).numpy()
+                                 .view(np.uint16), dtype)
+        want = tref.dequantize_kv(qq, ss, dtype).float().numpy()
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
 # -------------------------------------------------------------- cache specs
 @pytest.mark.parametrize("arch", ["internlm2-20b", "deepseek-v2-lite-16b",
                                   "minicpm3-4b", "rwkv6-3b"])

@@ -275,6 +275,127 @@ def mamba_scan_bwd_chunked_ref(delta, x, a, bm, cm, dy, states,
     return ddelta, dx, da.sum((0, 1)), dbm, dcm, dh0
 
 
+# The backward kernel's gradient pass (``bwd_grads`` in the source): a
+# forward run per chunk keeping each SUB-step sub-chunk's start state and
+# dC, then each sub-chunk rerun with its decays A_t and A_t h_{t-1} kept
+# and walked back with no exponential of its own; dB and dC come out per
+# block of CHANNELS_PER_BLOCK channels and are summed over the blocks by
+# the wrapper.
+SUB = 8
+
+
+def _block_sum(t: torch.Tensor, cpb: int) -> torch.Tensor:
+    """(..., D, N) -> (..., N): summed over each block of ``cpb`` channels
+    (the last one ragged), then over the blocks."""
+    d = t.shape[-2]
+    pad = -d % cpb
+    if pad:
+        t = torch.cat([t, t.new_zeros((*t.shape[:-2], pad, t.shape[-1]))],
+                      -2)
+    return t.reshape(*t.shape[:-2], -1, cpb, t.shape[-1]).sum(-2).sum(-2)
+
+
+def mamba_scan_bwd_subchunk_ref(delta, x, a, bm, cm, dy, states,
+                                dh_final=None, chunk: int = mref.CHUNK,
+                                sub: int = SUB,
+                                cpb: int = mk.CHANNELS_PER_BLOCK):
+    """The backward kernel's algebra: passes A and B as
+    :func:`mamba_scan_bwd_chunked_ref`'s; pass C runs every chunk forward
+    from its start (h = A h + B (delta x)), keeping h at each sub-chunk's
+    start and dC_t = sum_c dy_t h_t, then each sub-chunk, last first,
+    again with A_t and Q_t = A_t h_{t-1} kept, walked back: g = dy C +
+    carry, ddelta = sum_n g (a Q + B x), dx = delta sum_n g B, da += (g
+    delta) Q, carry = A g, dB_t = sum_c g (delta x); dB and dC summed per
+    block of ``cpb`` channels, then over the blocks."""
+    delta, x, a, bm, cm, dy = (t.float() for t in (delta, x, a, bm, cm, dy))
+    b, s, d = delta.shape
+    n = a.shape[1]
+    dc, xc, bc, cc, gc = (_chunks(t, chunk)
+                          for t in (delta, x, bm, cm, dy))
+    nc = dc.shape[1]
+    u = torch.zeros((b, nc, d, n))
+    for r in range(chunk - 1, -1, -1):
+        big_a = torch.exp(dc[:, :, r, :, None] * a)
+        u = big_a * (gc[:, :, r, :, None] * cc[:, :, r, None, :] + u)
+    decay = torch.exp(dc.sum(2)[..., None] * a)
+    g_in = [None] * nc
+    g = torch.zeros((b, d, n)) if dh_final is None else dh_final.float()
+    for k in range(nc - 1, -1, -1):
+        g_in[k] = g
+        g = decay[:, k] * g + u[:, k]
+    dh0 = g
+
+    def step(h, r):
+        dt = dc[:, :, r, :, None]
+        big_a = torch.exp(dt * a)
+        q = big_a * h
+        return big_a, q, q + bc[:, :, r, None, :] * (dt * xc[:, :, r, :,
+                                                                  None])
+    h, starts = states, []
+    dcm, dbm = [None] * chunk, [None] * chunk
+    for r in range(chunk):
+        if r % sub == 0:
+            starts.append(h)
+        h = step(h, r)[2]
+        dcm[r] = _block_sum(gc[:, :, r, :, None] * h, cpb)
+    carry = torch.stack(g_in, 1)
+    dd, dxs = [None] * chunk, [None] * chunk
+    da = torch.zeros((b, nc, d, n))
+    for q0 in range(chunk - sub, -1, -sub):
+        h, kept = starts[q0 // sub], []
+        for r in range(q0, q0 + sub):
+            big_a, q, h = step(h, r)
+            kept.append((big_a, q))
+        for r in range(q0 + sub - 1, q0 - 1, -1):
+            big_a, q = kept[r - q0]
+            dt, xt = dc[:, :, r, :, None], xc[:, :, r, :, None]
+            bt = bc[:, :, r, None, :]
+            g = gc[:, :, r, :, None] * cc[:, :, r, None, :] + carry
+            dd[r] = (g * (a * q + bt * xt)).sum(-1)
+            dxs[r] = dt[..., 0] * (g * bt).sum(-1)
+            da = da + (g * dt) * q
+            carry = big_a * g
+            dbm[r] = _block_sum(g * (dt * xt), cpb)
+    ddelta, dx, dbm, dcm = (
+        torch.stack(t, 2).reshape(b, nc * chunk, -1)[:, :s]
+        for t in (dd, dxs, dbm, dcm))
+    return ddelta, dx, da.sum((0, 1)), dbm, dcm, dh0
+
+
+@pytest.mark.parametrize("s,d,n", [(13, 200, 16), (64, 128, 8),
+                                   (150, 200, 16), (150, 72, 8)])
+def test_subchunk_algebra_matches_the_step_loop(s, d, n):
+    """The backward kernel's sub-chunks, kept decays and per-block dB/dC
+    partials (a ragged last chunk, a ragged last channel block, D under
+    one block): every gradient within 1e-5 of its largest of the reverse
+    step loop's."""
+    delta, a, bm, cm, x, h0 = (torch.from_numpy(t) for t in _scan_inputs(
+        2, s, d, n, 30 + s + n))
+    args = (delta, x, a, bm, cm, h0)
+    _, _, states = mamba_scan_chunked_ref(*args)
+    gen = torch.Generator().manual_seed(s + d)
+    dy = torch.randn((2, s, d), generator=gen)
+    for dh in (torch.randn((2, d, n), generator=gen), None):
+        want = mref.mamba_scan_bwd_ref(*args, dy, dh)
+        got = mamba_scan_bwd_subchunk_ref(*args[:5], dy, states, dh)
+        for g, w in zip(got, want):
+            _within(g, w.numpy(), GRAD_TOL)
+
+
+def test_backward_constants_match_the_source():
+    """The source's chunk, sub-chunk and channel block are the ones the
+    wrapper and the models above take."""
+    import re
+    text = mk.SOURCE.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+    assert const("kChunk") == mref.CHUNK
+    assert const("kSub") == SUB
+    assert const("kCh") * const("kPasses") == mk.CHANNELS_PER_BLOCK
+    assert "constexpr int kCpb = kCh * kPasses;" in text
+
+
 @pytest.mark.parametrize("n", [8, 16])
 @pytest.mark.parametrize("s", [13, 37, 64])
 def test_trainable_grads_match_jax_vjp(s, n):
