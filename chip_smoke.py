@@ -7,15 +7,17 @@ modes, without and with the spot band and its Monte-Carlo replay, with
 the migration and convertible bands on a fleet in generation turnover,
 batched over demand scenarios, with telemetry, the breach cadence and
 the carried IRLS moments, the fleet simulator with the paper's §4 time
-shifting and §5 free pool, the policy tournament, the serving engine on
+shifting and §5 free pool, the policy tournament, the free-pool
+replica autoscaler, the serving engine on
 the published stablelm-1.6b, rwkv6-3b, granite-moe-1b-a400m (MoE) and
 deepseek-v2-lite-16b (MoE with MLA), internlm2-20b with the int8 KV
 cache, qwen2-vl-7b (embedding inputs, M-RoPE), whisper-small (encoder-
 decoder) and jamba-v0.1-52b (Mamba, attention and MoE, cut to 16 layers),
 and the trainer on the published stablelm-1.6b, granite-moe-1b-a400m and
 whisper-small (rwkv6-3b cut to two layers, deepseek-v2-lite-16b to four,
-qwen2-vl-7b to eight, jamba-v0.1-52b to one block of two experts) — and
-checks each of their kernels (commitment sweep, revocation walk,
+qwen2-vl-7b to eight, jamba-v0.1-52b to one block of two experts), the
+EF-int8 compressed train step over a one-rank "pod" mesh, and the shape
+cells' dry run on the meta device — and checks each of their kernels (commitment sweep, revocation walk,
 generation turnover, flash attention, RWKV6 recurrence, Mamba's selective
 scan and its backward) against its plain PyTorch version.  Flash
 attention is three CUDA kernels, routed by dtype, head dim and query rows
@@ -153,6 +155,14 @@ failure:
             families x 32 seeds x 3 pools x 48 weeks) on the card, against
             the CPU on the same paths (rel 1e-4 of each path's bill) and
             the loop backend (rel 1e-3)
+  autoscaler  the free-pool autoscaler (serve/autoscaler.py) on the
+            reference's demand (21 days of hourly history, 2 days held
+            out, base 20, 20% annual growth, seed 0): plan on the card and
+            on the CPU, the targets within 1e-4 of the plan's peak (the
+            free pool's tolerance), the tick-by-tick bookkeeping equal up
+            to the first target within that tolerance of an integer, and
+            the predicted pool beating the static median pool on SLO
+            misses and the static 1.2 x max pool on replica-ticks
   flash     flash-attention kernels vs plain version: ragged shapes in
             f32 and bf16 and both layouts (each case checked to launch the
             kernel its route names; among them simt's tile seams: Sq and
@@ -327,6 +337,29 @@ failure:
             forwards and 7 scan backwards), step seconds, tokens/s, peak
             memory, one step profiled (the non-causal flash backward's and
             the scan backward's shares) (a main path)
+  train_compressed  phase train's main path (the full stablelm-1.6b,
+            bf16, 4 x 2048 tokens, AdamW lr 3e-4 warmup 5) as the EF-int8
+            compressed step (train/step.py build_compressed_train_step)
+            over a one-rank NCCL process group and make_pod_mesh(1), 4
+            steps from the plain step's init and batches: exactly 48
+            prefill_tc a step as the plain step, step 1's loss equal to
+            the plain step's bit for bit, every leaf after the first sync
+            within half its shared scale (plus an ulp of g's dtype) of g
+            and g + e_old = g_avg + e_new within rounding, finite losses,
+            a rerun bit for bit; step seconds beside the plain step's,
+            the sync's device ms (profiler range ef_int8_sync), the error
+            state's bytes, peak memory
+  cells     the dry run (launch/dryrun.py) of all 32 shape cells under
+            both production mesh shapes on the meta device: per-device
+            bytes, fit against this card's memory, roofline terms; the
+            meta-device byte count of phase train's build (stablelm-1.6b
+            and its AdamW state), serve_int8's (internlm2-20b and its int8
+            cache, 8 x 4096) and serve_hybrid's (jamba at 16 layers and
+            its cache) against the card's allocations (requested bytes
+            exactly, allocated within 512 bytes a tensor) and the dry
+            run's own count of them; model FLOPs a step of phase train's
+            and train_families' runs and their share of the bf16 peak
+            beside their step seconds (readings)
   timing    each kernel's and its plain version's times at its main-path
             shape (the sweep also at the scenario plan's 262,144 x 128 x
             1,344; flash: prefill_tc at the bf16 prefill and MLA's two
@@ -527,11 +560,9 @@ FLEET_SHIFT_RTOL = 1e-6           # shift_demand's conservation of work
 SEC4_WEEKS, SEC4_JOBS, SEC4_SEED = 52, 52, 4
 FIG12_WEEKS, FIG12_SEED = 8, 5
 # Peak rates for the bound (NVIDIA data sheets, dense, at the full power
-# limit): FP32 on the CUDA cores, bf16 on the tensor cores, HBM bandwidth.
-PEAKS = {
-    "sxm": {"fp32_flops": 67e12, "bf16_flops": 989e12, "bytes": 3.35e12},
-    "pcie": {"fp32_flops": 51e12, "bf16_flops": 756e12, "bytes": 2.0e12},
-}
+# limit): FP32 on the CUDA cores, bf16 on the tensor cores, HBM bandwidth
+# (and the link's, for the dry run's collective term), by H100 variant.
+from repro_torch.launch.roofline import PEAKS  # noqa: E402
 # Serving: the engine and its requests (prompt lengths from numpy seed 0)
 SERVE_SLOTS, SERVE_CACHE, SERVE_REQUESTS = 8, 4096, 16
 PROMPT_MIN, PROMPT_MAX, NEW_TOKENS = 128, 2048, 32
@@ -579,7 +610,8 @@ FLASH_PROFILE_NAMES = {
 # absorbed decode, the MoE combine's backward)
 ANNOTATIONS = ("flash_attention_backward", "embed_backward", "moe_experts",
                "mla_absorbed_decode", "moe_combine_backward",
-               "flash_attention_backward_noncausal", "mamba_scan_backward")
+               "flash_attention_backward_noncausal", "mamba_scan_backward",
+               "ef_int8_sync")
 SERVE_RANGES = ("moe_experts", "mla_absorbed_decode")
 # the three kernels of one RWKV6 call (all hold "rwkv6_")
 RWKV6_PROFILE_NAMES = ("rwkv6_chunk_kernel", "rwkv6_state_scan_kernel",
@@ -3833,6 +3865,11 @@ TRAIN_GRAD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
 RWKV_GRAD_TOL = 2e-3
 
 
+# each train_fit run's median step seconds, by label (phase cells reads
+# them beside the model FLOPs)
+TRAIN_STEP_S: dict[str, dict] = {}
+
+
 def expect_launches(label, got, want):
     if got != want:
         raise AssertionError(f"train {label}: launches {got}, expected {want}")
@@ -4298,6 +4335,7 @@ def train_fit(dev, cfg, label, extra=None, *, batch=TRAIN_BATCH,
                              f"{losses}")
     step_s = main.step_seconds()
     med = statistics.median(step_s[TRAIN_TIMED])
+    TRAIN_STEP_S[label] = dict(cfg=cfg, batch=batch, seq=seq, step_s=med)
     prof = profile_train_step(main, med, label)
     more = extra(main, model) if extra else {}
     n_params = model.num_params()
@@ -4580,6 +4618,423 @@ def phase_train_families(dev):
         out[f"{arch} run"] = {k: res["launches"][k] for k in (
             "flash_by_kernel", "mamba_scan", "mamba_scan_bwd")}
     return out
+
+
+# ------------------------------------------------------------- autoscaler
+# the reference's TestAutoscaler demand: 21 days of hourly history, 2 days
+# held out; the card's plan against the CPU's within the free pool's own
+# tolerance (of the plan's peak, tests/test_torch_freepool.py)
+AUTOSCALER_HIST, AUTOSCALER_FUT = 24 * 21, 24 * 2
+AUTOSCALER_TOL = 1e-4
+AUTOSCALER_REPS = 5
+
+
+def autoscaler_demand():
+    """(history, future) float32 numpy: base 20, 20% annual growth, noise
+    from seed 0."""
+    from repro_torch.core import demand as dm
+    f = dm.synth_demand(AUTOSCALER_HIST + AUTOSCALER_FUT,
+                        dm.DemandConfig(base_level=20.0, annual_growth=0.2),
+                        generator=torch.Generator().manual_seed(0)).numpy()
+    return f[:AUTOSCALER_HIST], f[AUTOSCALER_HIST:]
+
+
+def phase_autoscaler(dev):
+    """The free-pool autoscaler (module docstring, phase ``autoscaler``)."""
+    from repro_torch.serve.autoscaler import (
+        AutoscalerConfig,
+        FreePoolAutoscaler,
+    )
+    hist, fut = autoscaler_demand()
+    horizon = len(fut)
+    card = FreePoolAutoscaler(AutoscalerConfig(), device=dev)
+    cpu = FreePoolAutoscaler(AutoscalerConfig(), device="cpu")
+
+    def wall(auto):
+        times = []
+        for _ in range(AUTOSCALER_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = auto.plan(hist, horizon)
+            times.append(time.perf_counter() - t0)
+        return out, statistics.median(times)
+
+    tc, card_s = wall(card)
+    tp, cpu_s = wall(cpu)
+    peak = float(np.abs(tp).max())
+    tol = AUTOSCALER_TOL * peak
+    err = float(np.abs(tc - tp).max())
+    if not err <= tol:
+        raise AssertionError(f"autoscaler: card plan {err} from the CPU's, "
+                             f"tolerance {tol}")
+    # the bookkeeping on each plan, tick by tick, up to the first target
+    # within the tolerance of an integer (where ceil may differ)
+    near = ((np.abs(tc - np.round(tc)) <= tol)
+            | (np.abs(tp - np.round(tp)) <= tol))
+    a = FreePoolAutoscaler(AutoscalerConfig(), device=dev)
+    b = FreePoolAutoscaler(AutoscalerConfig(), device="cpu")
+    compared = 0
+    for t in range(horizon):
+        if near[t]:
+            break
+        a.step(float(tc[t]), float(fut[t]))
+        b.step(float(tp[t]), float(fut[t]))
+        if (a.warm, a.pending, a.stats) != (b.warm, b.pending, b.stats):
+            raise AssertionError(f"autoscaler: tick {t} card {a.stats} "
+                                 f"CPU {b.stats}")
+        compared += 1
+    pred = FreePoolAutoscaler(AutoscalerConfig(), device=dev)
+    pred.run(hist, fut)
+    pred_cpu = FreePoolAutoscaler(AutoscalerConfig(), device="cpu")
+    pred_cpu.run(hist, fut)
+    if not near.any() and pred.stats != pred_cpu.stats:
+        raise AssertionError(f"autoscaler: run card {pred.stats} CPU "
+                             f"{pred_cpu.stats}")
+    low = FreePoolAutoscaler(AutoscalerConfig(), device=dev)
+    low.run(hist, fut, static_size=float(np.percentile(hist, 50)))
+    high = FreePoolAutoscaler(AutoscalerConfig(), device=dev)
+    high.run(hist, fut, static_size=float(hist.max() * 1.2))
+    if not (pred.stats.slo_misses < low.stats.slo_misses
+            and pred.stats.replica_ticks < high.stats.replica_ticks):
+        raise AssertionError(f"autoscaler: predicted {pred.stats}, static "
+                             f"p50 {low.stats}, static 1.2 max {high.stats}")
+    emit("autoscaler", hours=[AUTOSCALER_HIST, horizon],
+         plan_max_abs_err=err, tolerance=tol, plan_peak=peak,
+         plan_card_s=card_s, plan_cpu_s=cpu_s,
+         near_integer_ticks=int(near.sum()), ticks_compared=compared,
+         stats_equal_run=bool(pred.stats == pred_cpu.stats),
+         predicted=dataclasses.asdict(pred.stats),
+         static_p50=dataclasses.asdict(low.stats),
+         static_1_2_max=dataclasses.asdict(high.stats))
+
+
+# ------------------------------------------------------- compressed training
+# phase train_compressed: phase train's main path (stablelm-1.6b, bf16,
+# 4 x 2048 tokens, AdamW at TRAIN_OPT) as the compressed step over a
+# one-rank "pod" mesh (NCCL), from the plain step's init and batches
+COMPRESSED_STEPS = 4
+COMPRESSED_TIMED = slice(1, COMPRESSED_STEPS)       # steps 2-4 (1-based)
+# bytes the sync moves per parameter (the expectation printed beside its
+# time, not a gate): two passes reading g (bf16) and e, then q, the int32
+# payload, the new error and the average
+SYNC_BYTES_PER_PARAM = 26
+
+
+def compressed_sync_check(real, out):
+    """A stand-in for ``compression.compressed_pod_sync`` that runs it and,
+    on its first call, holds every leaf to the sync's algebra: with
+    x = g + e_old and s the leaf's shared scale (the max of |x| over its
+    stacked leaf, over 127), |g_avg - x| <= s / 2 plus one ulp of g_avg in
+    g's dtype, and x = g_avg + e_new within the rounding of the cast to
+    g's dtype and of float32.  The worst ratios go into ``out``."""
+    from repro_torch.train import compression
+
+    def sync(grads, err_state, mesh, scale_groups=None):
+        new_g, new_e = real(grads, err_state, mesh, scale_groups)
+        if out:
+            return new_g, new_e
+        keys = [scale_groups[n] for n in grads]
+        amax: dict[str, float] = {}
+        for (n, g), k in zip(grads.items(), keys):
+            m = float((g.float() + err_state[n]).abs().amax())
+            amax[k] = max(amax.get(k, 0.0), m)
+        worst_dev = worst_sum = 0.0
+        for (n, g), k in zip(grads.items(), keys):
+            s = float(compression._scale(torch.tensor(amax[k])))
+            eps = torch.finfo(g.dtype).eps
+            x = g.float() + err_state[n]
+            ga = new_g[n].float()
+            dev_ = (ga - x).abs()
+            bound = s / 2 * (1 + 2**-22) + eps * ga.abs()
+            gap = (x.double() - ga.double() - new_e[n].double()).abs()
+            bound2 = eps * ga.abs().double() + 2**-22 * x.abs().double()
+            if not (bool((dev_ <= bound).all())
+                    and bool((gap <= bound2).all())):
+                raise AssertionError(
+                    f"train_compressed: leaf {n}: |g_avg - x| "
+                    f"{float(dev_.max())} (scale {s}), |x - g_avg - e_new| "
+                    f"{float(gap.max())}")
+            worst_dev = max(worst_dev, float(dev_.max()) / s)
+            worst_sum = max(worst_sum, float((gap / bound2.clamp_min(
+                1e-30)).max()))
+        out.update(leaves=len(grads), scale_groups=len(amax),
+                   max_dev_over_scale=worst_dev,
+                   max_sum_gap_over_bound=worst_sum,
+                   nonzero_error_leaves=sum(
+                       bool(e.any()) for e in new_e.values()))
+        return new_g, new_e
+
+    return sync
+
+
+def sync_device_ms(step, state, batch):
+    """One more step under torch.profiler: the device ms of the kernels
+    under the ``ef_int8_sync`` range, and the step's device busy ms."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = step(*state, batch)
+        torch.cuda.synchronize()
+    sync = sum(ev.device_time_total for ev in prof.events()
+               if ev.name == "ef_int8_sync"
+               and str(ev.device_type).endswith("CPU")) / 1e3
+    busy = sum(k[0] for k in device_kernels(prof)) / 1e3
+    return sync, busy, list(out[1:])
+
+
+def phase_train_compressed(dev):
+    """The compressed train step (module docstring, phase
+    ``train_compressed``); returns its prefill_tc launches a step."""
+    import shutil
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.models.model import build
+    from repro_torch.train import compression
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import (
+        build_compressed_train_step,
+        build_train_step,
+        init_train_state,
+    )
+    cfg = configs.get(TRAIN_ARCH)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH))
+    batches = [pipe.next_batch() for _ in range(COMPRESSED_STEPS)]
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    model = build(cfg, device=dev)
+
+    def fresh():
+        return list(init_train_state(
+            model, torch.Generator(device=dev).manual_seed(0)))
+
+    def run(step, state):
+        losses, secs, flash = [], [], []
+        for batch in batches:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*state, batch)
+            losses.append(float(out[0]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            flash.append(read_launches()["flash_by_kernel"])
+            state = list(out[1:])
+        return losses, secs, flash, state
+
+    plain_losses, plain_s, plain_flash, state = run(
+        build_train_step(model, opt_cfg), fresh())
+    del state
+    torch.cuda.empty_cache()
+
+    root = ROOT / "build" / "chip_smoke" / "train_compressed"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{root / 'pg'}",
+                            rank=0, world_size=1,
+                            timeout=timedelta(seconds=300))
+    try:
+        mesh = make_pod_mesh(1)
+        checks: dict = {}
+        real = compression.compressed_pod_sync
+        compression.compressed_pod_sync = compressed_sync_check(real, checks)
+        try:
+            step = build_compressed_train_step(model, mesh, opt_cfg)
+        finally:
+            compression.compressed_pod_sync = real
+        params, opt = fresh()
+        err = compression.init_error_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs, flash, state = run(step, [params, opt, err])
+        peak = torch.cuda.max_memory_allocated()
+        err_bytes = sum(e.numel() * e.element_size()
+                        for e in state[2].values())
+        snap = {n: p.detach().clone() for n, p in model.named_parameters()}
+        del state, params, opt, err
+        params, opt = fresh()
+        rerun, _, _, state = run(step, [params, opt,
+                                        compression.init_error_state(params)])
+        rerun_equal = rerun == losses and all(
+            torch.equal(p, snap[n]) for n, p in model.named_parameters())
+        del snap
+        sync_ms, busy_ms, state = sync_device_ms(step, state, batches[0])
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    n_params = model.num_params()
+    del model, state
+    torch.cuda.empty_cache()
+
+    per_step = 2 * cfg.num_layers          # forward and remat recompute
+    want = dict(prefill_tc=per_step, decode_split=0, simt=0)
+    for label, got in (("plain", plain_flash), ("compressed", flash)):
+        if any(f != want for f in got):
+            raise AssertionError(f"train_compressed: {label} launches a "
+                                 f"step {got}, expected {want}")
+    if losses[0] != plain_losses[0]:
+        raise AssertionError(f"train_compressed: step 1 loss {losses[0]} "
+                             f"against the plain step's {plain_losses[0]}")
+    if not checks:
+        raise AssertionError("train_compressed: the sync never ran")
+    if not (np.isfinite(losses).all() and np.isfinite(plain_losses).all()):
+        raise AssertionError(f"train_compressed: losses {losses}, plain "
+                             f"{plain_losses}")
+    if not rerun_equal:
+        raise AssertionError(f"train_compressed: a rerun differs: {rerun} "
+                             f"against {losses}")
+    step_s = statistics.median(secs[COMPRESSED_TIMED])
+    step_plain = statistics.median(plain_s[COMPRESSED_TIMED])
+    peaks = PEAKS["pcie" if "PCIe" in torch.cuda.get_device_name(0)
+                  else "sxm"]
+    sync_bytes = SYNC_BYTES_PER_PARAM * n_params
+    emit("train_compressed", arch=cfg.name, params=n_params,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=COMPRESSED_STEPS,
+         mesh={"pod": 1}, backend="nccl", losses=losses,
+         plain_losses=plain_losses, step1_loss_equal=True,
+         step_s=secs, plain_step_s=plain_s, step_s_median_2_4=step_s,
+         plain_step_s_median_2_4=step_plain,
+         sync_device_ms=sync_ms, step_device_busy_ms=busy_ms,
+         sync_share_of_step=sync_ms / 1e3 / step_s,
+         sync_bytes_expected=sync_bytes,
+         sync_bound_ms=sync_bytes / peaks["bytes"] * 1e3,
+         error_state_bytes=err_bytes, max_memory_allocated=peak,
+         launches_per_step=want, rerun_bit_for_bit=True, sync_check=checks,
+         nvidia_smi=smi())
+    return want
+
+
+# ------------------------------------------------------------------ cells
+# phase cells: the meta-device byte count of what a phase builds on the
+# card (parameters, AdamW state, cache) against the card's allocations:
+# the requested bytes exactly, the allocated bytes within the caching
+# allocator's 512-byte rounding per tensor
+ALLOC_ROUND = 512
+CELLS_CARD = {
+    "train": ("stablelm-1.6b", {}, True, None),
+    "serve_int8": ("internlm2-20b", {"kv_cache_dtype": "int8"}, False,
+                   (SERVE_SLOTS, SERVE_CACHE)),
+    "serve_hybrid": ("jamba-v0.1-52b", {"num_layers": HYBRID_LAYERS}, False,
+                     (SERVE_SLOTS, SERVE_CACHE)),
+}
+
+
+def built_tensors(cfg, device, opt, cache):
+    """(model, every tensor a phase allocates for it on ``device``): the
+    parameters, with ``opt`` AdamW's master, m and v, with ``cache`` the
+    engine's cache of (slots, length)."""
+    from repro_torch.models.model import build
+    from repro_torch.train.optimizer import init_opt_state
+    model = build(cfg, device=device)
+    out = list(model.parameters())
+    if opt:
+        st = init_opt_state(dict(model.named_parameters()))
+        out += [t for key in ("master", "m", "v") for t in st[key].values()]
+    if cache:
+        out += list(model.init_cache(*cache).values())
+    return model, out
+
+
+def requested_bytes():
+    return torch.cuda.memory_stats().get("requested_bytes.all.current")
+
+
+def meta_vs_card(dev, name, arch, cut, opt, cache):
+    """One phase's build on the meta device and on the card (module
+    docstring, phase ``cells``)."""
+    from repro_torch import configs
+    from repro_torch.launch.cells import Cell, resolve_rules
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.sharding.rules import RULESETS
+    cfg = dataclasses.replace(configs.get(arch), **cut)
+    meta, tensors = built_tensors(cfg, "meta", opt, cache)
+    sizes = [t.numel() * t.element_size() for t in tensors]
+    meta_bytes = sum(sizes)
+    rounded = sum(-(-n // ALLOC_ROUND) * ALLOC_ROUND for n in sizes)
+    # the dry run's count of the same build on one device
+    kind = "train" if opt else "decode"
+    shape = ShapeCell(name, kind, cache[1] if cache else TRAIN_SEQ,
+                      cache[0] if cache else TRAIN_BATCH)
+    cell = Cell(arch=arch, shape=name, cfg=cfg, cell=shape, model=meta)
+    counted = cell.device_bytes({}, resolve_rules(dict(RULESETS[kind]), {},
+                                                  shape.global_batch))
+    dry = sum(counted.values())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    a0, r0 = torch.cuda.memory_allocated(), requested_bytes()
+    model, card = built_tensors(cfg, dev, opt, cache)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - a0
+    requested = None if r0 is None else requested_bytes() - r0
+    del model, card
+    torch.cuda.empty_cache()
+    if dry != meta_bytes:
+        raise AssertionError(f"cells {name}: the dry run counts {dry} "
+                             f"bytes, the meta build {meta_bytes}")
+    if requested is not None and requested != meta_bytes:
+        raise AssertionError(f"cells {name}: requested {requested} bytes, "
+                             f"meta {meta_bytes}")
+    if not 0 <= grown - meta_bytes <= ALLOC_ROUND * len(sizes):
+        raise AssertionError(f"cells {name}: allocated {grown} bytes for "
+                             f"{len(sizes)} tensors of {meta_bytes} (512-"
+                             f"rounded {rounded})")
+    return dict(arch=arch, cut=cut, tensors=len(sizes),
+                meta_bytes=meta_bytes, dryrun_bytes=dry,
+                dryrun_parts=counted, rounded_512=rounded,
+                allocated_growth=grown, requested_growth=requested,
+                allocated_minus_meta=grown - meta_bytes)
+
+
+def phase_cells(dev):
+    """The dry run of the shape cells on the meta device and its byte count
+    against the card (module docstring, phase ``cells``)."""
+    import shutil
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch.cells import all_cells
+    from repro_torch.models.model import build
+    from repro_torch.models.params import named_specs
+    out = ROOT / "build" / "chip_smoke" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    records, failures = dryrun.run_all(all_cells(), [False, True], str(out),
+                                       verbose=False)
+    dry_s = time.perf_counter() - t0
+    shutil.rmtree(out, ignore_errors=True)
+    if failures or len(records) != 64:
+        raise AssertionError(f"cells: dry run failures {failures}")
+    rows = [[r["arch"], r["shape"], r["chips"],
+             r["memory"]["total_per_device"], r["memory"]["fits"],
+             r["roofline"]["compute_s"], r["roofline"]["memory_s"],
+             r["roofline"]["dominant"]] for r in records]
+    fits = sum(r["memory"]["fits"] for r in records)
+    card = {name: meta_vs_card(dev, name, *spec)
+            for name, spec in CELLS_CARD.items()}
+    # model FLOPs a step of each train_fit run beside its step seconds
+    peak = rf.peaks_for(torch.cuda.get_device_name(0))["bf16_flops"]
+    mfu = {}
+    for label, run in TRAIN_STEP_S.items():
+        cfg = run["cfg"]
+        flops = 6.0 * rf.active_params(
+            cfg, named_specs(build(cfg, device="meta"))) * run["batch"] \
+            * run["seq"]
+        mfu[label] = dict(arch=cfg.name, layers=cfg.num_layers,
+                          model_flops_per_step=flops, step_s=run["step_s"],
+                          share_of_bf16_peak=flops / run["step_s"] / peak)
+    emit("cells", cells=len(records), dry_run_s=dry_s, fit=fits,
+         budget_bytes=records[0]["memory"]["budget_bytes"],
+         rows_columns=["arch", "shape", "chips", "bytes_per_device", "fits",
+                       "compute_s", "memory_s", "dominant"],
+         rows=rows, meta_vs_card=card, train_model_flops=mfu,
+         nvidia_smi=smi())
 
 
 def flash_flops_bytes(b, h, sq, kv_lens, d, elem_bytes, causal, dv=None,
@@ -5500,6 +5955,7 @@ def main() -> int:
     del pools, grid_rep, spot_rep, mig_pools, mig_rep
     fleet_launches = phase_fleet_sim(dev)
     phase_tournament(dev)
+    phase_autoscaler(dev)
     phase_model_cpu(dev)
     launches = {"commitment_sweep": sweep_launches,
                 "commitment_sweep_one_shot": one_shot_launches,
@@ -5527,6 +5983,8 @@ def main() -> int:
     launches["train"] = phase_train(dev)
     launches["train_moe"] = phase_train_moe(dev)
     launches["train_families"] = phase_train_families(dev)
+    launches["train_compressed"] = phase_train_compressed(dev)
+    phase_cells(dev)
     phase_timing(dev, launches, errs, turnover)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -246,6 +246,30 @@ def build(cfg: ModelConfig, *, device=None) -> Model:
     return families[cfg.family](cfg, device=device)
 
 
+def stacked_leaf(cfg: ModelConfig, name: str) -> str:
+    """The reference's parameter leaf that holds the port's parameter
+    ``name``: the port keeps one tensor per layer where the reference
+    stacks layers on a leading axis (the inverse of
+    :func:`repro_torch.convert.model_params_from_reference`).  Layer
+    ``i``'s ``layers.<i>.<rest>`` is ``layers.<rest>`` (``prefix.<i>.<rest>``
+    for the transformers' ``first_dense_layers``), jamba's is
+    ``blocks.l<i mod 8>.<rest>``, whisper's ``enc_layers.<rest>`` /
+    ``dec_layers.<rest>``; a parameter outside the layers is its own
+    leaf."""
+    head, _, tail = name.partition(".")
+    index, _, rest = tail.partition(".")
+    if head not in ("layers", "enc_layers", "dec_layers") or not (
+            index.isdigit() and rest):
+        return name
+    i = int(index)
+    if cfg.family == "hybrid":
+        from repro_torch.models.jamba import PERIOD
+        return f"blocks.l{i % PERIOD}.{rest}"
+    if head == "layers" and i < cfg.first_dense_layers:
+        return f"prefix.{i}.{rest}"
+    return f"{head}.{rest}"
+
+
 def param_specs(cfg: ModelConfig) -> dict:
     """The Spec tree of ``cfg``'s family: the reference's shape table."""
     from repro_torch.models import jamba, rwkv, transformer, whisper

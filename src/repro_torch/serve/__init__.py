@@ -1,1 +1,2 @@
-"""Serving runtime of the port: the continuous-batching engine."""
+"""Serving runtime of the port: the continuous-batching engine and the
+free-pool replica autoscaler."""

@@ -1,2 +1,3 @@
-"""Training: the loss and step builders, AdamW with float32 master
-weights, and the trainer with checkpoints and a straggler watchdog."""
+"""Training: the loss and step builders (the EF-int8 compressed step over
+a ``"pod"`` mesh too), AdamW with float32 master weights, the gradient
+compression, and the trainer with checkpoints and a straggler watchdog."""

@@ -9,8 +9,10 @@ tensors.  The signatures keep the reference's argument order with the
 parameters dropped where the model already holds them (the loss, the
 serve and the prefill steps).
 
-The compressed-DP step (EF-int8 gradients over a ``"pod"`` mesh axis)
-needs several cards and is not ported (ROADMAP item 12).
+:func:`build_compressed_train_step` is the compressed-DP step: each rank
+of a ``"pod"`` mesh takes the gradients of its shard of the batch and
+averages them with the EF-int8 all-reduce of
+:mod:`repro_torch.train.compression`.
 """
 
 from __future__ import annotations
@@ -120,6 +122,68 @@ def build_grad_accum_train_step(
         grads = {n: g * inv for (n, _), g in zip(named, grads)}
         params, opt_state = adamw_update(grads, opt_state, opt_cfg, params)
         return loss, params, opt_state
+
+    return train_step
+
+
+def build_compressed_train_step(
+    model: Model,
+    mesh,
+    opt_cfg: AdamWConfig = AdamWConfig(),
+) -> Callable:
+    """(params, opt_state, err_state, batch) -> (loss, params, opt_state,
+    err_state): pod-local gradients, EF-int8 compressed all-reduce over
+    the mesh's ``"pod"`` axis, then one AdamW step in place.
+
+    ``batch`` is the global batch; the rank of the ``"pod"`` group takes
+    its contiguous shard of the leading dim (the reference's batch spec
+    over "pod"), computes the loss and gradients on it, syncs the
+    gradients (:func:`~repro_torch.train.compression.compressed_pod_sync`)
+    and averages the loss over the group (the reference's ``pmean``).
+    ``err_state`` carries the error feedback
+    (:func:`~repro_torch.train.compression.init_error_state`).  Each
+    layer's parameter shares its quantization scale with the same
+    parameter of the layers the reference stacks with it
+    (:func:`~repro_torch.models.model.stacked_leaf`).  A mesh
+    without a ``"pod"`` axis is the plain step with the error state passed
+    through."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.models.model import stacked_leaf
+    from repro_torch.train.compression import compressed_pod_sync, pod_group
+
+    loss_fn = build_loss_fn(model)
+    pods = "pod" in mesh_axes(mesh)
+    scale_groups = {n: stacked_leaf(model.cfg, n)
+                    for n, _ in model.named_parameters()}
+
+    def local_shard(batch):
+        if not pods:
+            return batch
+        group = pod_group(mesh)
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        rows = next(iter(batch.values())).shape[0]
+        if rows % n:
+            raise ValueError(f"a batch of {rows} rows does not split over "
+                             f"{n} pods")
+        size = rows // n
+        return {k: v[r * size:(r + 1) * size] for k, v in batch.items()}
+
+    def train_step(params, opt_state, err_state, batch):
+        named = _leaves(model, params)
+        loss = loss_fn(local_shard(batch))
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        grads, err_state = compressed_pod_sync(
+            {n: g for (n, _), g in zip(named, grads)}, err_state, mesh,
+            scale_groups)
+        loss = loss.detach()
+        if pods:
+            group = pod_group(mesh)
+            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=group)
+            loss = loss / dist.get_world_size(group)
+        params, opt_state = adamw_update(grads, opt_state, opt_cfg, params)
+        return loss, params, opt_state, err_state
 
     return train_step
 
