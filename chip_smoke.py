@@ -52,7 +52,8 @@ failure:
             (migrate_demand_loop) at 1024 x 4,096 hours, bit for bit; the
             kernel's, the plain version's and the loop's times
   fleet     the 1024-pool, 3-year synthetic fleet (seed 0)
-  cpu       its first 16 pools replayed on the CPU (plain version) and on
+  cpu       its first 16 pools replayed on the CPU (plain version, in a
+            child process; checked before phase sharded) and on
             the card (kernel): totals, targets, tranche book vs carried
             stack, host syncs of the card replay; the first planner call on
             the card, so the timed plans below find CUDA initialized
@@ -77,7 +78,8 @@ failure:
             phase plan's; the bill within rel 1e-4 of SPOT_BILL), the
             one-shot plan with spot=True (2 sweep launches, its bill within
             rel 1e-4 of SPOT_ONE_SHOT_BILL), both modes on the first 16
-            pools card vs CPU, and replay_spot_plan of the rolling report
+            pools card vs CPU (the CPU's in a child process, checked
+            before phase sharded), and replay_spot_plan of the rolling report
             over 32 revocation draws (one walk launch; availability meets
             its 0.95 target, realized cost within 10% of planned); wall
             times and peak memory
@@ -92,7 +94,8 @@ failure:
             migration-blind rolling grid plan (234) on the same fleet;
             wall times, peak memory, the aware-vs-blind margin (printed);
             both modes on the 16 pools of regions 0 and 1 (whole pairs,
-            all three clouds) card vs CPU; the one-shot plan on a fleet
+            all three clouds) card vs CPU (the CPU's in a child process,
+            checked before phase sharded); the one-shot plan on a fleet
             that buys a convertible band (the planted two-edge table, 1024
             pools x 30 weeks): card vs CPU, the band nonzero, the bill
             within rel 1e-4 of PLANTED_ONE_SHOT_BILL
@@ -155,6 +158,25 @@ failure:
             families x 32 seeds x 3 pools x 48 weeks) on the card, against
             the CPU on the same paths (rel 1e-4 of each path's bill) and
             the loop backend (rel 1e-3)
+  sharded   the multi-rank pieces on two rank processes that share the one
+            card (cuda:0 each, a gloo group over a file rendezvous; the
+            parent's cached memory freed first): api.plan with the grid
+            solver and ScenarioConfig(32, "regime") at phase scenarios'
+            settings, each rank replaying 16 futures (234 sweep launches a
+            rank) and ending with phase scenarios' report bit for bit
+            (every array and scalar of it, read from a file); the
+            tournament at its defaults, its costs and hindsight optima bit
+            for bit with phase tournament's; an elastic round trip of
+            stablelm-1.6b's params and AdamW state at full width cut to 2
+            layers (SHARDED_LAYERS), drawn from a seeded generator: saved
+            by the parent at world 1 and restored onto {"data": 2} under
+            TRAIN_RULES, every local shard its slice of the full tensor
+            bit for bit, each rank's parameter and optimizer bytes equal
+            to the dry run's per-device count for that mesh; then placed
+            and saved by the ranks and restored by the parent at world 1,
+            bit for bit.  Each rank's wall seconds and peak memory, the
+            exchange's seconds and bytes, the sweep launches a rank; the
+            two ranks time-share one card, so no time is a multi-card one
   autoscaler  the free-pool autoscaler (serve/autoscaler.py) on the
             reference's demand (21 days of hourly history, 2 days held
             out, base 20, 20% annual growth, seed 0): plan on the card and
@@ -348,7 +370,10 @@ failure:
             and g + e_old = g_avg + e_new within rounding, finite losses,
             a rerun bit for bit; step seconds beside the plain step's,
             the sync's device ms (profiler range ef_int8_sync), the error
-            state's bytes, peak memory
+            state's bytes, peak memory; under that NCCL group, the
+            multi-rank pieces' host route: launch.mesh.host_group made once
+            and kept, gather_rows, and a placed bfloat16 leaf saved over
+            the host group and restored onto its mesh, bit for bit
   cells     the dry run (launch/dryrun.py) of all 32 shape cells under
             both production mesh shapes on the meta device: per-device
             bytes, fit against this card's memory, roofline terms; the
@@ -393,6 +418,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -428,6 +454,12 @@ ONE_SHOT_BILL = {"total_cost": 452913383.2636407,
 ONE_SHOT_COSTS = ("total_cost", "committed_cost", "on_demand_cost",
                   "aggregate_cost", "pooling_premium", "savings_vs_on_demand")
 CARD_CPU_RTOL = 1e-4     # one-shot costs card vs CPU, of the bill
+# The CPU references of the 16-pool card-vs-CPU checks of phases cpu, spot
+# and migration run in child processes (`chip_smoke.py --cpu-ref NAME DIR`,
+# no card) while the card runs the phases after them, each on this many
+# threads; the checks are made before phase sharded.
+CPU_REF_THREADS = 2
+CPU_REF_TIMEOUT = 600       # seconds a check waits for its reference
 # The spot band on that fleet: the rolling grid plan's and the one-shot
 # plan's bills with spot=True as this script first printed them.
 SPOT_BILL = {"total_cost": 3942802368.0, "one_shot_cost": 5440932352.0,
@@ -514,6 +546,13 @@ SCEN_SAMPLED_POOLS = (0, 1, 511, NUM_POOLS - 1)
 # ROADMAP Queue 3; a CPU run at this size puts paths 1.07e-4 apart).
 TOURNAMENT_RTOL = 1e-4
 TOURNAMENT_LOOP_RTOL = 1e-3
+# phase sharded: two rank processes on the one card
+SHARDED_WORLD = 2
+SHARDED_MESH = {"data": SHARDED_WORLD}
+SHARDED_ARCH = "stablelm-1.6b"
+SHARDED_LAYERS = 2          # the elastic round trip's depth, at full width
+SHARDED_SEED = 11
+SHARDED_TIMEOUT = 400       # seconds for both ranks
 # Telemetry, the breach cadence and the carried IRLS moments on the main
 # fleet at phase plan's settings (grid solver, 234 sweep launches each):
 # the breach plan's bill as this script first printed it (within
@@ -1088,15 +1127,93 @@ def count_syncs(fn):
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
-def phase_cpu(pools):
+class CpuRefs:
+    """The CPU references of the card-vs-CPU checks, each computed by a
+    child process of its own (``chip_smoke.py --cpu-ref NAME DIR``, which
+    sees no card) while this process drives the card; a phase starts its
+    reference, makes its card side and defers its check, and
+    :meth:`finish` makes the checks in order, waiting for each
+    reference."""
+
+    def __init__(self):
+        self.dir = ROOT / "build" / "chip_smoke" / "cpu_ref"
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.procs: dict = {}
+        self.checks: list = []
+
+    def start(self, name: str, calls: list) -> None:
+        """Start the child computing ``calls``: each ``("replan", pools,
+        kwargs)`` or ``("plan", request)``, on the CPU."""
+        import pickle
+        (self.dir / f"{name}.out.pkl").unlink(missing_ok=True)
+        with open(self.dir / f"{name}.in.pkl", "wb") as f:
+            pickle.dump(calls, f)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        self.procs[name] = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--cpu-ref",
+             name, str(self.dir)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    def get(self, name: str) -> dict:
+        """The child's results (``reports``, its ``wall_s``); raises if it
+        failed."""
+        import pickle
+        p = self.procs.pop(name)
+        _, err = p.communicate(timeout=CPU_REF_TIMEOUT)
+        if p.returncode != 0:
+            raise AssertionError(f"CPU reference {name} exited "
+                                 f"{p.returncode}:\n{err[-6000:]}")
+        with open(self.dir / f"{name}.out.pkl", "rb") as f:
+            return pickle.load(f)
+
+    def defer(self, check) -> None:
+        self.checks.append(check)
+
+    def finish(self) -> None:
+        for check in self.checks:
+            check()
+        self.checks = []
+
+    def close(self) -> None:
+        import shutil
+        for p in self.procs.values():
+            p.kill()
+            p.wait()
+        self.procs = {}
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def cpu_ref(name: str, out_dir: str) -> int:
+    """A child of :class:`CpuRefs`: the calls in ``NAME.in.pkl`` made on
+    the CPU, their reports and the wall seconds written to
+    ``NAME.out.pkl``."""
+    import pickle
+
+    from repro_torch.core.api import plan
+    from repro_torch.core.replan import replan_fleet_pools
+    torch.set_num_threads(CPU_REF_THREADS)
+    d = Path(out_dir)
+    with open(d / f"{name}.in.pkl", "rb") as f:
+        calls = pickle.load(f)
+    t0 = time.perf_counter()
+    reports = [replan_fleet_pools(c[1], device="cpu", **c[2])
+               if c[0] == "replan" else plan(c[1], device="cpu")
+               for c in calls]
+    out = {"reports": reports, "wall_s": time.perf_counter() - t0,
+           "threads": CPU_REF_THREADS}
+    with open(d / f"{name}.out.pkl.tmp", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(d / f"{name}.out.pkl.tmp", d / f"{name}.out.pkl")
+    return 0
+
+
+def phase_cpu(pools, refs):
     from repro_torch.core.demand import PoolSet
     from repro_torch.core.replan import replan_fleet_pools
     sub = PoolSet(keys=pools.keys[:16], demand=pools.demand[:16],
                   configs=pools.configs[:16])
     kw = dict(solver="grid", num_grid=NUM_GRID)
-    t0 = time.perf_counter()
-    cpu = replan_fleet_pools(sub, device="cpu", **kw)
-    cpu_s = time.perf_counter() - t0
+    refs.start("cpu", [("replan", sub, kw)])
     # Count the host syncs of the card replay: set-up and the final copy to
     # the host sync a fixed few times; a sync inside the weekly loop would
     # show up once per replayed week.
@@ -1109,28 +1226,35 @@ def phase_cpu(pools):
         raise AssertionError(
             f"{syncs} host syncs in a {len(card.weeks)}-week card replay: "
             "the weekly loop reads the device back")
-    rel = {k: abs(getattr(card, k) - getattr(cpu, k)) / abs(getattr(cpu, k))
-           for k in ("total_cost", "one_shot_cost", "hindsight_cost")}
-    if max(rel.values()) > 1e-4:
-        raise AssertionError(f"card vs CPU totals: {rel}")
-    # One grid cell, max(yhat)/(G-1), plus the drift of the grid itself:
-    # its top is max(yhat), which may move by the forecasts' rel 1e-4, and
-    # a threshold at cell g moves g times as far.
-    cells = grid_cells(sub, cpu, NUM_GRID)[:, :, None]         # (S, P, 1)
-    diff = np.abs(card.targets - cpu.targets)
-    if (diff > cells * (1.0 + (NUM_GRID - 1) * 1e-4)).any():
-        raise AssertionError(
-            "card vs CPU targets differ by more than one grid cell "
-            f"(worst {float((diff / cells).max())} cells)")
     k = len(card.options)
     for i, w in enumerate(card.weeks):
         np.testing.assert_allclose(
             card.ladders.option_widths(int(w) * 168, k), card.active[i],
             rtol=1e-4, atol=1e-4)
-    emit("cpu", pools=16, cpu_wall_s=cpu_s, card_wall_s_first_call=card_s,
-         total_rel=rel, card_replay_host_syncs=syncs,
-         max_target_diff_cells=float((diff / cells).max()),
-         ladder_matches_active=True)
+
+    def check():
+        ref = refs.get("cpu")
+        cpu = ref["reports"][0]
+        rel = {k: abs(getattr(card, k) - getattr(cpu, k)) / abs(getattr(cpu, k))
+               for k in ("total_cost", "one_shot_cost", "hindsight_cost")}
+        if max(rel.values()) > 1e-4:
+            raise AssertionError(f"card vs CPU totals: {rel}")
+        # One grid cell, max(yhat)/(G-1), plus the drift of the grid itself:
+        # its top is max(yhat), which may move by the forecasts' rel 1e-4,
+        # and a threshold at cell g moves g times as far.
+        cells = grid_cells(sub, cpu, NUM_GRID)[:, :, None]     # (S, P, 1)
+        diff = np.abs(card.targets - cpu.targets)
+        if (diff > cells * (1.0 + (NUM_GRID - 1) * 1e-4)).any():
+            raise AssertionError(
+                "card vs CPU targets differ by more than one grid cell "
+                f"(worst {float((diff / cells).max())} cells)")
+        emit("cpu", pools=16, weeks=len(card.weeks), cpu_wall_s=ref["wall_s"],
+             cpu_threads=ref["threads"], card_wall_s_first_call=card_s,
+             total_rel=rel, card_replay_host_syncs=syncs,
+             max_target_diff_cells=float((diff / cells).max()),
+             ladder_matches_active=True)
+
+    refs.defer(check)
 
 
 def fit_work(p, t, d, iters):
@@ -1306,7 +1430,7 @@ def timed(fn, counted):
             torch.cuda.max_memory_allocated())
 
 
-def phase_spot(pools, grid_rep):
+def phase_spot(pools, grid_rep, refs):
     """The spot band on the whole fleet: the rolling grid plan and the
     one-shot plan with spot=True (the main path, launches counted from 0
     around each), both modes on the first 16 pools card against the CPU,
@@ -1316,6 +1440,15 @@ def phase_spot(pools, grid_rep):
     from repro_torch.core.demand import PoolSet
     out = {}
     rolling = RollingConfig(solver="grid", num_grid=NUM_GRID)
+    # the first 16 pools, card against CPU: the CPU's plans start now
+    sub = PoolSet(keys=pools.keys[:16], demand=pools.demand[:16],
+                  configs=pools.configs[:16])
+    modes = (("rolling", ("total_cost", "one_shot_cost"),
+              PlanRequest(pools=sub, mode="rolling", rolling=rolling,
+                          spot=True)),
+             ("one_shot", ("total_cost", "committed_cost", "on_demand_cost"),
+              PlanRequest(pools=sub, spot=True)))
+    refs.start("spot", [("plan", req) for _, _, req in modes])
     rep, secs, launches, peak = timed(lambda: plan(PlanRequest(
         pools=pools, mode="rolling", rolling=rolling, spot=True)),
         "commitment_sweep")
@@ -1362,25 +1495,24 @@ def phase_spot(pools, grid_rep):
                one_shot_sweep_launches=launches, one_shot=one_costs)
 
     # the first 16 pools, card against CPU, as shares of the CPU bill
-    sub = PoolSet(keys=pools.keys[:16], demand=pools.demand[:16],
-                  configs=pools.configs[:16])
-    card_cpu = {}
-    for mode, fields, req in (
-            ("rolling", ("total_cost", "one_shot_cost"),
-             PlanRequest(pools=sub, mode="rolling", rolling=rolling,
-                         spot=True)),
-            ("one_shot", ("total_cost", "committed_cost", "on_demand_cost"),
-             PlanRequest(pools=sub, spot=True))):
-        cpu, card = plan(req, device="cpu"), plan(req)
-        bill = abs(cpu.total_cost)
-        rel = {k: abs(getattr(card, k) - getattr(cpu, k)) / bill
-               for k in fields}
-        rel["spot_cost"] = abs(float(np.sum(card.spot_cost))
-                               - float(np.sum(cpu.spot_cost))) / bill
-        if max(rel.values()) > CARD_CPU_RTOL:
-            raise AssertionError(f"spot {mode} card vs CPU: {rel}")
-        card_cpu[mode] = rel
-    out["card_vs_cpu_16_rel"] = card_cpu
+    cards = [plan(req) for _, _, req in modes]
+
+    def check():
+        ref = refs.get("spot")
+        card_cpu = {}
+        for (mode, fields, _), card, cpu in zip(modes, cards, ref["reports"]):
+            bill = abs(cpu.total_cost)
+            rel = {k: abs(getattr(card, k) - getattr(cpu, k)) / bill
+                   for k in fields}
+            rel["spot_cost"] = abs(float(np.sum(card.spot_cost))
+                                   - float(np.sum(cpu.spot_cost))) / bill
+            if max(rel.values()) > CARD_CPU_RTOL:
+                raise AssertionError(f"spot {mode} card vs CPU: {rel}")
+            card_cpu[mode] = rel
+        emit("spot_card_vs_cpu", pools=16, cpu_wall_s=ref["wall_s"],
+             cpu_threads=ref["threads"], card_vs_cpu_16_rel=card_cpu)
+
+    refs.defer(check)
 
     # the Monte-Carlo replay of the rolling plan: the walk on the card
     rr, secs, walk_launches, peak = timed(
@@ -1421,7 +1553,7 @@ def phase_spot(pools, grid_rep):
     return walk_launches, rep
 
 
-def phase_migration(grid_rep):
+def phase_migration(grid_rep, refs):
     """The migration and convertible bands (a main path): the turnover
     fleet synthesized on the card through the turnover kernel (launches
     counted from 0 around it), the rolling grid plan and the one-shot plan
@@ -1460,6 +1592,21 @@ def phase_migration(grid_rep):
 
     rolling = RollingConfig(solver="grid", num_grid=NUM_GRID)
     bands = dict(migration=True, convertible=True)
+    # the 16 pools of two regions (whole pairs, all three clouds), card
+    # against CPU: the CPU's plans start now
+    keep = [i for i, key in enumerate(pools.keys)
+            if key[1] in MIGRATION_REGIONS]
+    sub = PoolSet(keys=tuple(pools.keys[i] for i in keep),
+                  demand=pools.demand[keep],
+                  configs=tuple(pools.configs[i] for i in keep))
+    modes = (("rolling", ("total_cost", "one_shot_cost"),
+              lambda r: float(r.conv_committed_cost.sum()),
+              PlanRequest(pools=sub, mode="rolling", rolling=rolling,
+                          **bands)),
+             ("one_shot", ("total_cost", "committed_cost", "on_demand_cost"),
+              lambda r: r.conv_cost,
+              PlanRequest(pools=sub, **bands)))
+    refs.start("migration", [("plan", m[3]) for m in modes])
     rep, secs, launches, peak = timed(lambda: plan(PlanRequest(
         pools=pools, mode="rolling", rolling=rolling, **bands)),
         "commitment_sweep")
@@ -1522,31 +1669,26 @@ def phase_migration(grid_rep):
                turnover_fleet_vs_grid_fleet_bill=(
                    blind.total_cost / grid_rep.total_cost))
 
-    # the 16 pools of two regions (whole pairs, all three clouds), card
-    # against CPU, as shares of the CPU bill
-    keep = [i for i, key in enumerate(pools.keys)
-            if key[1] in MIGRATION_REGIONS]
-    sub = PoolSet(keys=tuple(pools.keys[i] for i in keep),
-                  demand=pools.demand[keep],
-                  configs=tuple(pools.configs[i] for i in keep))
-    card_cpu = {}
-    for mode, fields, conv, req in (
-            ("rolling", ("total_cost", "one_shot_cost"),
-             lambda r: float(r.conv_committed_cost.sum()),
-             PlanRequest(pools=sub, mode="rolling", rolling=rolling,
-                         **bands)),
-            ("one_shot", ("total_cost", "committed_cost", "on_demand_cost"),
-             lambda r: r.conv_cost,
-             PlanRequest(pools=sub, **bands))):
-        cpu, card = plan(req, device="cpu"), plan(req)
-        bill = abs(cpu.total_cost)
-        rel = {kk: abs(getattr(card, kk) - getattr(cpu, kk)) / bill
-               for kk in fields}
-        rel["convertible_cost"] = abs(conv(card) - conv(cpu)) / bill
-        if max(rel.values()) > CARD_CPU_RTOL:
-            raise AssertionError(f"migration {mode} card vs CPU: {rel}")
-        card_cpu[mode] = rel
-    out["card_vs_cpu_16_rel"] = dict(pools=len(keep), **card_cpu)
+    # those 16 pools, card against CPU, as shares of the CPU bill
+    cards = [plan(m[3]) for m in modes]
+
+    def check():
+        ref = refs.get("migration")
+        card_cpu = {}
+        for (mode, fields, conv, _), card, cpu in zip(modes, cards,
+                                                      ref["reports"]):
+            bill = abs(cpu.total_cost)
+            rel = {kk: abs(getattr(card, kk) - getattr(cpu, kk)) / bill
+                   for kk in fields}
+            rel["convertible_cost"] = abs(conv(card) - conv(cpu)) / bill
+            if max(rel.values()) > CARD_CPU_RTOL:
+                raise AssertionError(f"migration {mode} card vs CPU: {rel}")
+            card_cpu[mode] = rel
+        emit("migration_card_vs_cpu", cpu_wall_s=ref["wall_s"],
+             cpu_threads=ref["threads"],
+             card_vs_cpu_16_rel=dict(pools=len(keep), **card_cpu))
+
+    refs.defer(check)
     out["planted_one_shot"] = planted_one_shot()
     emit("migration", solver="grid", nvidia_smi=smi(), **out)
     return turnover_launches, launches, pools, rep
@@ -1704,6 +1846,9 @@ def phase_scenarios(pools, grid_rep, plan_s, plan_profile, spot_rep,
                              len(rep.options)):
         raise AssertionError(f"scenario targets shape {rep.targets.shape}")
     scenario0_equal("grid plan", rep, grid_rep, per_week)
+    # phase sharded's ranks hold their merged report to this one
+    sharded_dir().mkdir(parents=True, exist_ok=True)
+    np.savez(sharded_dir() / "scenarios.npz", **report_values(rep))
     cr = rep.scenario_cr
     if not (np.isfinite(cr).all() and (rep.scenario_cost > 0).all()):
         raise AssertionError("grid plan: non-finite scenario ratios")
@@ -1863,12 +2008,288 @@ def phase_tournament(dev):
         raise AssertionError(f"tournament disagreement: {rel}")
     if not np.isfinite(card.competitive_ratio).all():
         raise AssertionError("tournament: non-finite ratios")
+    sharded_dir().mkdir(parents=True, exist_ok=True)
+    np.savez(sharded_dir() / "tournament.npz", cost=card.cost,
+             hindsight=card.hindsight_cost)
     emit("tournament", policies=names, families=list(sc.FAMILIES),
          seeds=card.num_seeds, pools=3, weeks=48, wall_s=secs,
          cpu_wall_s=cpu_s, rel=rel,
          cr_mean={p: {f: card.family_stats(p, f)["cr_mean"]
                       for f in card.families} for p in card.policies},
          cr_min=float(card.competitive_ratio.min()))
+
+
+def sharded_dir() -> Path:
+    return ROOT / "build" / "chip_smoke" / "sharded"
+
+
+def report_values(rep) -> dict:
+    """Every array and number of a report, by field name (the ladders and
+    other objects aside)."""
+    out = {}
+    for f in dataclasses.fields(rep):
+        v = getattr(rep, f.name)
+        if isinstance(v, np.ndarray) or (isinstance(v, (int, float))
+                                         and not isinstance(v, bool)):
+            out[f.name] = np.asarray(v)
+    return out
+
+
+def same_bits(name, got, want):
+    """Raise unless two tensors hold the same bits (and shape, dtype)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    a = got.contiguous().view(ints.get(got.element_size(), got.dtype))
+    b = want.contiguous().view(ints.get(want.element_size(), want.dtype))
+    if not torch.equal(a, b.to(a.device)):
+        raise AssertionError(f"{name}: not bit for bit")
+
+
+def sharded_cfg():
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(SHARDED_ARCH),
+                               num_layers=SHARDED_LAYERS)
+
+
+def elastic_state(cfg, dev) -> dict:
+    """stablelm's params and an AdamW state (float32 master, m and v, the
+    step) drawn from a generator seeded SHARDED_SEED on ``dev``: the same
+    bits in every process."""
+    from repro_torch.models.model import build
+    gen = torch.Generator(device=dev).manual_seed(SHARDED_SEED)
+    params = {n: p.detach() for n, p in
+              build(cfg, device=dev).init(gen).named_parameters()}
+    return {"params": params, "opt": {
+        "master": {n: p.float() for n, p in params.items()},
+        "m": {n: 1e-3 * torch.randn(p.shape, generator=gen, device=dev)
+              for n, p in params.items()},
+        "v": {n: 1e-6 * torch.rand(p.shape, generator=gen, device=dev)
+              for n, p in params.items()},
+        "step": torch.tensor(7, dtype=torch.int32)}}
+
+
+def flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from flat_leaves(v, f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def dryrun_device_bytes(cfg) -> dict:
+    """The dry run's per-device parameter and AdamW bytes of ``cfg`` on
+    SHARDED_MESH under the train rules (launch/cells.py, what
+    launch/dryrun.py reports as params_bytes and opt_state_bytes)."""
+    from repro_torch.launch.cells import Cell, cell_rules
+    from repro_torch.models.config import SHAPES
+    from repro_torch.models.model import build
+    cell = Cell(arch=SHARDED_ARCH, shape="train_4k", cfg=cfg,
+                cell=SHAPES["train_4k"], model=build(cfg, device="meta"))
+    return cell.device_bytes(SHARDED_MESH, cell_rules(cell, SHARDED_MESH))
+
+
+def sharded_rank(rank: int, out_dir: str, dev=None) -> int:
+    """One rank of phase sharded (``chip_smoke.py --sharded-rank R DIR``):
+    the 32-future grid plan and the tournament sharded over the ranks, the
+    elastic restore of the parent's world-1 checkpoint onto {"data": 2}
+    and a save of the placed state; writes ``rank<R>.json`` to DIR."""
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.core import policy as pol
+    from repro_torch.core import replan as rp
+    from repro_torch.core import tournament as tn
+    from repro_torch.core.api import (
+        PlanRequest, RollingConfig, ScenarioConfig, plan)
+    from repro_torch.data import traces
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.model import build
+    from repro_torch.sharding import placement
+    from repro_torch.sharding.rules import TRAIN_RULES
+    from repro_torch.train.optimizer import opt_state_shardings
+    out_dir = Path(out_dir)
+    t_start = time.perf_counter()
+    dev = dev or torch.device("cuda", 0)
+    torch.cuda.set_device(0)
+    torch.set_float32_matmul_precision("highest")
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/rdv",
+                            rank=rank, world_size=SHARDED_WORLD)
+    res = {"rank": rank}
+
+    # the exchange, timed and sized around the port's own functions
+    ex = {"s": 0.0, "gathered_bytes": 0, "sent_bytes": 0}
+    gather_reports, gather_rows = rp._gather_scenario_reports, \
+        mesh_mod.gather_rows
+
+    def timed_gather(local, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gather_reports(local, n)
+        ex["s"] += time.perf_counter() - t0
+        return out
+
+    def sized_rows(local, n, *, axis=0):
+        out = gather_rows(local, n, axis=axis)
+        ex["gathered_bytes"] += out.nbytes
+        ex["sent_bytes"] += np.asarray(local).nbytes
+        return out
+
+    rp._gather_scenario_reports = timed_gather
+    mesh_mod.gather_rows = sized_rows
+    try:
+        # (a) the 32-future grid plan, 16 futures a rank
+        pools = traces.synthetic_pool_set(num_pools=NUM_POOLS,
+                                          num_hours=NUM_HOURS, seed=0)
+        req = PlanRequest(pools=pools, mode="rolling", rolling=RollingConfig(
+            solver="grid", num_grid=NUM_GRID), scenarios=ScenarioConfig(
+                n_scenarios=SCEN_N, family="regime"))
+        rep, plan_s, launches, plan_peak = timed(
+            lambda: plan(req, device=dev), "commitment_sweep")
+        if launches != EXPECTED_LAUNCHES:
+            raise AssertionError(f"rank {rank}: {launches} sweep launches, "
+                                 f"expected {EXPECTED_LAUNCHES}")
+        want = np.load(out_dir / "scenarios.npz")
+        got = report_values(rep)
+        if set(got) != set(want.files):
+            raise AssertionError(f"report fields {sorted(got)} vs "
+                                 f"{sorted(want.files)}")
+        for name in want.files:
+            bits_equal(f"rank {rank} {name}", got[name], want[name])
+        res.update(plan_wall_s=plan_s, plan_max_memory_allocated=plan_peak,
+                   sweep_launches=launches,
+                   scenarios=list(mesh_mod.shard_rows(SCEN_N)),
+                   fields_bit_for_bit=len(want.files),
+                   exchange_s=ex["s"],
+                   exchange_gathered_bytes=ex["gathered_bytes"],
+                   exchange_sent_bytes=ex["sent_bytes"])
+        del rep, got, want, pools
+
+        # (b) the tournament at its defaults
+        ex.update(gathered_bytes=0, sent_bytes=0)
+        tour, tour_s, _, tour_peak = timed(
+            lambda: tn.run_tournament(list(pol.POLICIES), device=dev),
+            "commitment_sweep")
+        want = np.load(out_dir / "tournament.npz")
+        bits_equal(f"rank {rank} tournament cost", tour.cost, want["cost"])
+        bits_equal(f"rank {rank} tournament hindsight",
+                   tour.hindsight_cost, want["hindsight"])
+        res.update(tournament_wall_s=tour_s,
+                   tournament_max_memory_allocated=tour_peak,
+                   tournament_paths=list(mesh_mod.shard_rows(
+                       tour.cost.shape[1] * tour.cost.shape[2])),
+                   tournament_exchange_bytes=ex["gathered_bytes"])
+    finally:
+        rp._gather_scenario_reports = gather_reports
+        mesh_mod.gather_rows = gather_rows
+
+    # (c) the elastic round trip on {"data": 2}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg = sharded_cfg()
+    mesh = mesh_mod.make_mesh(SHARDED_MESH, device=dev)
+    psh = build(cfg, device="meta").param_shardings(mesh, TRAIN_RULES)
+    sh = {"params": psh, "opt": opt_state_shardings(psh)}
+    full = elastic_state(cfg, dev)
+    target = {"params": {n: t.to("meta") for n, t in
+                         full["params"].items()},
+              "opt": {k: ({n: t.to("meta") for n, t in v.items()}
+                          if isinstance(v, dict) else torch.zeros_like(v))
+                      for k, v in full["opt"].items()}}
+    got, meta = CheckpointManager(str(out_dir / "ckpt1")).restore(
+        1, target, shardings=sh)
+    if meta != {"world": 1}:
+        raise AssertionError(f"rank {rank}: restored metadata {meta}")
+    restore_s = time.perf_counter() - t0
+    local = {"params": 0, "opt_state": 0}
+    for (name, g), (_, f) in zip(flat_leaves(got), flat_leaves(full)):
+        if placement.is_placed(g):
+            want_local = placement.local_slice(f, mesh, g.placements)
+            same_bits(f"rank {rank} {name}", g.to_local(), want_local)
+            kind = "params" if name.startswith("params.") else "opt_state"
+            local[kind] += g.to_local().numel() * g.to_local().element_size()
+        else:
+            same_bits(f"rank {rank} {name}", g, f)
+    dry = dryrun_device_bytes(cfg)
+    for kind in ("params", "opt_state"):
+        if local[kind] != dry[kind]:
+            raise AssertionError(f"rank {rank}: {kind} {local[kind]} bytes "
+                                 f"placed, the dry run counts {dry[kind]}")
+    del got
+    t1 = time.perf_counter()
+    CheckpointManager(str(out_dir / "ckpt2")).save(
+        1, placement.place(full, sh), metadata={"world": SHARDED_WORLD})
+    torch.cuda.synchronize()
+    res.update(elastic=dict(
+        layers=SHARDED_LAYERS, restore_s=restore_s,
+        save_s=time.perf_counter() - t1, local_bytes=local,
+        dryrun_bytes=dry, leaves=sum(1 for _ in flat_leaves(full))),
+        wall_s=time.perf_counter() - t_start,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    dist.destroy_process_group()
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def phase_sharded(dev):
+    """Phase sharded: the parent's world-1 checkpoint, two rank processes
+    on the one card (:func:`sharded_rank`), then the ranks' checkpoint
+    restored here at world 1; returns the sweep launches of each rank."""
+    import shutil
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    out_dir = sharded_dir()
+    for name in ("ckpt1", "ckpt2"):
+        shutil.rmtree(out_dir / name, ignore_errors=True)
+    for name in ["rdv"] + [f"rank{r}.json" for r in range(SHARDED_WORLD)]:
+        (out_dir / name).unlink(missing_ok=True)
+    cfg = sharded_cfg()
+    t0 = time.perf_counter()
+    state = elastic_state(cfg, dev)
+    CheckpointManager(str(out_dir / "ckpt1")).save(1, state,
+                                                   metadata={"world": 1})
+    save1_s = time.perf_counter() - t0
+    del state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--sharded-rank",
+         str(r), str(out_dir)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(SHARDED_WORLD)]
+    try:
+        outs = [p.communicate(timeout=SHARDED_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    spawn_s = time.perf_counter() - t0
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} exited {p.returncode}:\n"
+                                 f"{err[-6000:]}")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(SHARDED_WORLD)]
+    t0 = time.perf_counter()
+    want = elastic_state(cfg, dev)
+    got, meta = CheckpointManager(str(out_dir / "ckpt2")).restore(1, want)
+    if meta != {"world": SHARDED_WORLD}:
+        raise AssertionError(f"restored metadata {meta}")
+    for (name, g), (_, w) in zip(flat_leaves(got), flat_leaves(want)):
+        same_bits(f"world-1 restore {name}", g, w)
+    restore2_s = time.perf_counter() - t0
+    del got, want
+    for name in ("ckpt1", "ckpt2"):
+        shutil.rmtree(out_dir / name, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit("sharded", world=SHARDED_WORLD, nvidia_smi=smi(),
+         ranks_share_one_card=True, ranks=ranks, ranks_wall_s=spawn_s,
+         parent_save_s=save1_s, parent_restore_s=restore2_s,
+         elastic_arch=SHARDED_ARCH, elastic_layers=SHARDED_LAYERS,
+         mesh=SHARDED_MESH, plan_bit_for_bit=True,
+         tournament_bit_for_bit=True, elastic_bit_for_bit=True)
+    return [r["sweep_launches"] for r in ranks]
 
 
 def breach_oracle(demand, lo_all, hi_all, start, band=(0.05, 0.95),
@@ -4866,6 +5287,7 @@ def phase_train_compressed(dev):
             torch.equal(p, snap[n]) for n, p in model.named_parameters())
         del snap
         sync_ms, busy_ms, state = sync_device_ms(step, state, batches[0])
+        host_route = nccl_host_route(dev, root)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(root, ignore_errors=True)
@@ -4907,8 +5329,41 @@ def phase_train_compressed(dev):
          sync_bound_ms=sync_bytes / peaks["bytes"] * 1e3,
          error_state_bytes=err_bytes, max_memory_allocated=peak,
          launches_per_step=want, rerun_bit_for_bit=True, sync_check=checks,
-         nvidia_smi=smi())
+         nccl_host_route=host_route, nvidia_smi=smi())
     return want
+
+
+def nccl_host_route(dev, root):
+    """The host route of the multi-rank pieces under an NCCL default group
+    (world 1): ``launch.mesh.host_group`` made once and kept, a row
+    exchange (``gather_rows``), and a placed bfloat16 leaf saved (gathered
+    over the host group) and restored onto its mesh, bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.sharding import placement
+    group = mesh_mod.host_group()
+    if group is None or mesh_mod.host_group() is not group:
+        raise AssertionError("train_compressed: no host group kept under "
+                             f"{dist.get_backend()}")
+    rows = np.arange(12, dtype=np.float32).reshape(4, 3)
+    if mesh_mod.gather_rows(rows, 4) is not rows:
+        raise AssertionError("train_compressed: gather_rows at world 1 is "
+                             "not the identity")
+    mesh = mesh_mod.make_mesh({"data": 1}, device=dev)
+    sh = (mesh, placement.placements_for(("data", None), mesh))
+    full = torch.randn(256, 128, dtype=torch.bfloat16, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(3))
+    mgr = CheckpointManager(str(root / "ckpt"))
+    mgr.save(1, placement.place({"w": full}, {"w": sh}))
+    if mesh_mod.host_group() is not group:
+        raise AssertionError("train_compressed: a save made a host group")
+    got, _ = mgr.restore(1, {"w": full.to("meta")}, shardings={"w": sh})
+    same_bits("train_compressed: placed leaf", got["w"].to_local(), full)
+    return dict(default_backend=dist.get_backend(),
+                host_group_backend=dist.get_backend(group),
+                placed_leaf_bit_for_bit=True, gather_rows_identity=True)
 
 
 # ------------------------------------------------------------------ cells
@@ -5657,6 +6112,10 @@ def phase_timing(dev, launches, errs, turnover):
             # carry 32 x the rows; that shape's times and bound
             "launches_per_scenario_plan":
                 launches["commitment_sweep_scenarios"],
+            # phase sharded: the same plan over two ranks on the card,
+            # 16 futures each, every rank its 234 launches
+            "launches_per_sharded_plan_rank":
+                launches["commitment_sweep_sharded"],
             # with telemetry=, cadence="breach" or scenarios= under the
             # breach cadence, still one launch per replayed week
             "launches_per_telemetry_breach_plan":
@@ -5940,21 +6399,27 @@ def main() -> int:
         num_pools=NUM_POOLS, num_hours=NUM_HOURS, seed=0)
     emit("fleet", pools=NUM_POOLS, hours=NUM_HOURS,
          synth_s=time.perf_counter() - t0)
-    phase_cpu(pools)
-    grid_rep, sweep_launches, plan_s = phase_plan(pools)
-    phase_quantile(pools, grid_rep)
-    one_shot_launches = phase_one_shot(pools, dev)
-    walk_launches, spot_rep = phase_spot(pools, grid_rep)
-    turnover_launches, migration_launches, mig_pools, mig_rep = (
-        phase_migration(grid_rep))
-    plan_profile = phase_profile(pools, grid_rep, plan_s)
-    scenario_launches = phase_scenarios(pools, grid_rep, plan_s,
-                                        plan_profile, spot_rep, mig_pools,
-                                        mig_rep)
-    telemetry_launches = phase_telemetry(pools, grid_rep)
-    del pools, grid_rep, spot_rep, mig_pools, mig_rep
-    fleet_launches = phase_fleet_sim(dev)
-    phase_tournament(dev)
+    refs = CpuRefs()
+    try:
+        phase_cpu(pools, refs)
+        grid_rep, sweep_launches, plan_s = phase_plan(pools)
+        phase_quantile(pools, grid_rep)
+        one_shot_launches = phase_one_shot(pools, dev)
+        walk_launches, spot_rep = phase_spot(pools, grid_rep, refs)
+        turnover_launches, migration_launches, mig_pools, mig_rep = (
+            phase_migration(grid_rep, refs))
+        plan_profile = phase_profile(pools, grid_rep, plan_s)
+        scenario_launches = phase_scenarios(pools, grid_rep, plan_s,
+                                            plan_profile, spot_rep,
+                                            mig_pools, mig_rep)
+        telemetry_launches = phase_telemetry(pools, grid_rep)
+        del pools, grid_rep, spot_rep, mig_pools, mig_rep
+        fleet_launches = phase_fleet_sim(dev)
+        phase_tournament(dev)
+        refs.finish()
+    finally:
+        refs.close()
+    sharded_launches = phase_sharded(dev)
     phase_autoscaler(dev)
     phase_model_cpu(dev)
     launches = {"commitment_sweep": sweep_launches,
@@ -5964,7 +6429,8 @@ def main() -> int:
                 "commitment_sweep_migration": migration_launches,
                 "commitment_sweep_scenarios": scenario_launches,
                 "commitment_sweep_telemetry": telemetry_launches,
-                "fleet_sim": fleet_launches}
+                "fleet_sim": fleet_launches,
+                "commitment_sweep_sharded": sharded_launches}
     launches["flash_attention"], dense = phase_serve(
         "serve_dense", configs.get("stablelm-1.6b"), dev, "flash_attention")
     launches["flash_by_kernel"] = dense["launches"]["flash_by_kernel"]
@@ -5994,4 +6460,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--sharded-rank":
+        sys.exit(sharded_rank(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--cpu-ref":
+        sys.exit(cpu_ref(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -80,6 +80,14 @@ batch and a chunked batch (``ScenarioConfig.chunk``: sequential
 sub-replays merged by :func:`_merge_scenario_reports`) give the unbatched
 replay's bits.  Ladders are built from scenario 0; report arrays gain an N
 axis only on a true batch.
+
+Under a process group of more than one rank the scenarios are sharded
+over the ranks (``launch.mesh.shard_rows``, where the reference places
+the flattened rows on its devices): each rank replays one contiguous
+block of whole scenarios (chunked by ``ScenarioConfig.chunk`` within
+it), and the blocks' reports are exchanged as the chunks' are merged
+(:func:`_gather_scenario_reports`), so every rank returns the one-rank
+report, bit for bit.  The unbatched replay is never sharded.
 """
 
 from __future__ import annotations
@@ -90,6 +98,7 @@ from typing import Literal
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.capacity import generations as gn
 from repro_torch.capacity import pricing
@@ -108,6 +117,7 @@ from repro_torch.core.planner import (
 )
 from repro_torch.data import scenarios as sc
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.obs import calibration as obs_calib
 from repro_torch.obs import config as obs_config
 from repro_torch.obs import kernelstats as obs_kstats
@@ -191,6 +201,7 @@ class RollingPlanReport:
     scenario_hindsight_cost: np.ndarray | None = None  # (N,)
     scenario_cr: np.ndarray | None = None              # (N,) cost/hindsight
     scenario_regret: np.ndarray | None = None          # (N,) cost-hindsight
+    scenario_all_on_demand_cost: np.ndarray | None = None  # (N,)
     # The resolved on-demand rate and scenario config, so the spot replay
     # needs no side channel.
     od_rate: float | None = None
@@ -294,50 +305,51 @@ def _tile_edges(edges: gn.MigrationEdges, n: int, p: int) -> gn.MigrationEdges:
     )
 
 
-def _merge_scenario_reports(
-    parts: list[RollingPlanReport],
-) -> RollingPlanReport:
-    """Stitch chunked scenario replays (``ScenarioConfig.chunk``) into one
-    report: per-week arrays concatenate along the scenario axis,
-    per-scenario distributions along N, and the scalar aggregates are
-    recomputed as means over the whole scenario set.  Ladders (built from
-    scenario 0) come from the first chunk."""
-    first = parts[0]
+#: Report arrays with a scenario axis, by the axis (a chunk's or a rank's
+#: block concatenates along it).
+_PER_WEEK = ("targets", "increments", "active", "committed_cost",
+             "on_demand_cost", "utilization", "spot_floor", "spot_cost",
+             "spot_volume", "conv_targets", "conv_increments", "conv_active",
+             "conv_alloc", "conv_committed_cost", "committed_by_sku",
+             "conv_committed_by_sku", "used_hours", "od_volume",
+             "breach_band_lo", "breach_band_hi", "fractile_levels",
+             "one_shot_weekly_cost", "hindsight_weekly_cost")
+_PER_SCEN = ("hindsight_widths", "scenario_cost", "scenario_one_shot_cost",
+             "scenario_hindsight_cost", "scenario_cr", "scenario_regret",
+             "scenario_all_on_demand_cost")
+_CALIBRATION = ("levels", "hits", "pinball", "realized_mean",
+                "realized_peak")
 
-    def cat(name: str, axis: int):
-        vals = [getattr(p, name) for p in parts]
-        return None if vals[0] is None else np.concatenate(vals, axis=axis)
 
-    ns = np.asarray([p.n_scenarios for p in parts], np.float64)
-    per_week = ("targets", "increments", "active", "committed_cost",
-                "on_demand_cost", "utilization", "spot_floor", "spot_cost",
-                "spot_volume", "conv_targets", "conv_increments",
-                "conv_active", "conv_alloc", "conv_committed_cost",
-                "committed_by_sku", "conv_committed_by_sku", "used_hours",
-                "od_volume", "breach_band_lo", "breach_band_hi",
-                "fractile_levels", "one_shot_weekly_cost",
-                "hindsight_weekly_cost")
-    per_scen = ("hindsight_widths", "scenario_cost", "scenario_one_shot_cost",
-                "scenario_hindsight_cost", "scenario_cr", "scenario_regret")
+def _merged(first: RollingPlanReport, cat, n: int) -> RollingPlanReport:
+    """One report of ``n`` scenarios from ``first`` (the block holding
+    scenario 0) and ``cat(get, axis)``, which joins the blocks' arrays
+    ``get(block)`` along ``axis`` (None where the blocks hold None): every
+    scenario-axis array joined, the scalar aggregates recomputed as means
+    over the whole scenario set.  Everything else (ladders, the decision
+    log, a weekly decision mask) is ``first``'s."""
+
+    def field(name: str, axis: int):
+        return cat(lambda r: getattr(r, name), axis)
+
     rep = dataclasses.replace(
         first,
-        **{name: cat(name, 1) for name in per_week},
-        **{name: cat(name, 0) for name in per_scen},
-        n_scenarios=int(ns.sum()),
+        **{name: field(name, 1) for name in _PER_WEEK},
+        **{name: field(name, 0) for name in _PER_SCEN},
+        n_scenarios=n,
     )
-    if first.decision_mask.ndim == 2:
-        # Breach masks carry the scenario axis; weekly masks are (S,) and
-        # the same in every chunk.
-        rep.decision_mask = cat("decision_mask", 1)
+    # Breach masks carry the scenario axis; weekly masks are (S,) and the
+    # same in every block.
+    mask = cat(lambda r: (r.decision_mask if r.decision_mask.ndim == 2
+                          else None), 1)
+    if mask is not None:
+        rep.decision_mask = mask
     if first.calibration is not None:
-        cubes = [p.calibration for p in parts]
-        rep.calibration = dataclasses.replace(cubes[0], **{
-            name: np.concatenate([getattr(c, name) for c in cubes], axis=1)
-            for name in ("levels", "hits", "pinball", "realized_mean",
-                         "realized_peak")})
+        rep.calibration = dataclasses.replace(first.calibration, **{
+            name: cat(lambda r, k=name: getattr(r.calibration, k), 1)
+            for name in _CALIBRATION})
     rep.total_cost = float(rep.scenario_cost.mean())
-    rep.all_on_demand_cost = float(np.average(
-        [p.all_on_demand_cost for p in parts], weights=ns))
+    rep.all_on_demand_cost = float(rep.scenario_all_on_demand_cost.mean())
     rep.savings_vs_on_demand = (
         1.0 - rep.total_cost / rep.all_on_demand_cost
         if rep.all_on_demand_cost > 0 else 0.0
@@ -355,6 +367,45 @@ def _merge_scenario_reports(
             if rep.hindsight_cost > 0 else 0.0
         )
     return rep
+
+
+def _merge_scenario_reports(
+    parts: list[RollingPlanReport],
+) -> RollingPlanReport:
+    """Stitch chunked scenario replays (``ScenarioConfig.chunk``) into one
+    report (:func:`_merged`): per-week arrays concatenate along the
+    scenario axis, per-scenario distributions along N.  Ladders (built
+    from scenario 0) come from the first chunk."""
+    def cat(get, axis):
+        vals = [get(p) for p in parts]
+        return None if vals[0] is None else np.concatenate(vals, axis=axis)
+
+    return _merged(parts[0], cat, sum(p.n_scenarios for p in parts))
+
+
+def _gather_scenario_reports(local: RollingPlanReport,
+                             n: int) -> RollingPlanReport:
+    """Every rank's block of an ``n``-scenario replay merged into one
+    report on every rank, as chunks merge (:func:`_merged`): each
+    scenario-axis array gathered in rank order by one ``all_gather`` of
+    its host bytes (``launch.mesh.gather_rows``); the rest of the report
+    is rank 0's, whose block holds scenario 0, broadcast without those
+    arrays; both over the gloo ``launch.mesh.host_group``.  A collective:
+    every rank calls it."""
+    strip = dict.fromkeys(_PER_WEEK + _PER_SCEN)
+    if local.decision_mask.ndim == 2:
+        strip["decision_mask"] = None
+    if local.calibration is not None:
+        strip["calibration"] = dataclasses.replace(
+            local.calibration, **dict.fromkeys(_CALIBRATION))
+    first = [dataclasses.replace(local, **strip)]
+    dist.broadcast_object_list(first, src=0, group=mesh_mod.host_group())
+
+    def cat(get, axis):
+        a = get(local)
+        return None if a is None else mesh_mod.gather_rows(a, n, axis=axis)
+
+    return _merged(first[0], cat, n)
 
 
 def _validate(total_weeks: int, start_weeks: int, cadence_weeks: int):
@@ -614,13 +665,19 @@ def replan_fleet_pools(
     if scen is None:
         return block(0, 1)
     n = scen.n_scenarios
+    # this rank's block of whole scenarios (all of them on one rank)
+    lo, hi = mesh_mod.shard_rows(n)
     step = scen.chunk or n
-    if step >= n:
-        return block(0, n)
-    # Sequential sub-replays over scenario chunks, merged into one.
-    return _merge_scenario_reports([
-        block(lo, min(lo + step, n)) for lo in range(0, n, step)
-    ])
+    if step >= hi - lo:
+        local = block(lo, hi)
+    else:
+        # Sequential sub-replays over scenario chunks, merged into one.
+        local = _merge_scenario_reports([
+            block(a, min(a + step, hi)) for a in range(lo, hi, step)
+        ])
+    if hi - lo == n:
+        return local
+    return _gather_scenario_reports(local, n)
 
 
 def _replay_block(
@@ -1121,6 +1178,8 @@ def _replay_block(
         n_scenarios=num_scen,
         scenario_family=scen.family if scen is not None else None,
         scenario_cost=scen_cost if scen is not None else None,
+        scenario_all_on_demand_cost=(scen_all_od if scen is not None
+                                     else None),
         od_rate=float(od),
         scenario_config=scen,
     )

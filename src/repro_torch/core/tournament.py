@@ -26,6 +26,12 @@ increments on decision weeks, bill committed rates plus on-demand
 overflow.  ``backend="loop"`` refits by re-accumulating the normal
 equations each week and sums the weekly bills in a running total (the
 reference's loop oracle); ``"scan"`` refits from prefix sums.
+
+Under a process group of more than one rank the F*N paths are sharded
+over the ranks (``launch.mesh.shard_rows``): each rank replays one
+contiguous block of whole paths, and the per-path costs and hindsight
+optima are gathered in path order (``launch.mesh.gather_rows``), so every
+rank returns the one-rank report.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from repro_torch.core import portfolio as pf
 from repro_torch.core.demand import HOURS_PER_WEEK
 from repro_torch.data import scenarios as sc
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.obs import spans as obs_spans
 
 pricing.validate_tables()
@@ -132,7 +139,9 @@ def _lean_replay(policy: pol.Policy, ctx: pol.PolicyContext, backend: str,
         weekly.append(committed.reshape(num_paths, -1).sum(-1)
                       + ctx.od * over.reshape(num_paths, -1).sum(-1))
     if backend == "scan":
-        return torch.stack(weekly).sum(0)
+        # each path's weeks summed along its own contiguous row: the
+        # reduction's order does not depend on how many paths there are
+        return torch.stack(weekly, dim=-1).sum(-1)
     total = torch.zeros(num_paths, device=dev)
     for cost in weekly:
         total = total + cost
@@ -160,9 +169,8 @@ def _hindsight_cost(demand, *, options, clouds, od, start_weeks,
             + od * over.reshape(num_paths, -1).sum(-1))
 
 
-def _run_on_paths(
+def _path_costs(
     resolved: list[pol.Policy],
-    families: tuple[str, ...],
     paths: np.ndarray,
     *,
     start_weeks: int,
@@ -174,12 +182,11 @@ def _run_on_paths(
     backend: str,
     device: torch.device,
     spans=None,
-) -> TournamentReport:
-    """The tournament on given (F, N, P, T) demand paths: one replay per
-    policy over all F*N*P rows on ``device``, each bracketed by a span of
-    ``spans`` (a ``SpanRecorder`` or None)."""
-    num_f, num_seeds, num_pools = paths.shape[:3]
-    num_paths = num_f * num_seeds
+) -> tuple[np.ndarray, np.ndarray]:
+    """(hindsight (M,), cost (Pol, M)) float64 on given (M, P, T) demand
+    paths: one replay per policy over all M*P rows on ``device``, each
+    bracketed by a span of ``spans`` (a ``SpanRecorder`` or None)."""
+    num_paths, num_pools = paths.shape[:2]
     clouds = tuple(c for c, _, _ in sc.scenario_keys(num_pools)) * num_paths
     demand = torch.from_numpy(np.ascontiguousarray(
         paths.reshape(num_paths * num_pools, -1), np.float32)).to(device)
@@ -200,9 +207,16 @@ def _run_on_paths(
             totals.append(_lean_replay(p, ctx, backend, num_paths))
     totals = torch.stack(totals)
     host = torch.cat([hindsight[None], totals]).cpu().numpy()
-    hind = host[0].astype(np.float64).reshape(num_f, num_seeds)
-    cost = host[1:].astype(np.float64).reshape(len(resolved), num_f,
-                                               num_seeds)
+    return host[0].astype(np.float64), host[1:].astype(np.float64)
+
+
+def _report(resolved, families, num_seeds, hindsight, cost, *,
+            start_weeks, cadence_weeks, horizon_weeks) -> TournamentReport:
+    """The report of path-major (F*N,) hindsight optima and (Pol, F*N)
+    costs."""
+    num_f = len(families)
+    hind = hindsight.reshape(num_f, num_seeds)
+    cost = cost.reshape(len(resolved), num_f, num_seeds)
     return TournamentReport(
         policies=tuple(p.name for p in resolved),
         families=families,
@@ -215,6 +229,35 @@ def _run_on_paths(
         competitive_ratio=cost / hind[None],
         regret=cost - hind[None],
     )
+
+
+def _run_on_paths(
+    resolved: list[pol.Policy],
+    families: tuple[str, ...],
+    paths: np.ndarray,
+    *,
+    start_weeks: int,
+    cadence_weeks: int,
+    horizon_weeks: int,
+    options: list,
+    od: float,
+    cfg: fc.ForecastConfig,
+    backend: str,
+    device: torch.device,
+    spans=None,
+) -> TournamentReport:
+    """The tournament on given (F, N, P, T) demand paths, on this rank
+    alone: one replay per policy over all F*N*P rows on ``device``, each
+    bracketed by a span of ``spans`` (a ``SpanRecorder`` or None)."""
+    num_f, num_seeds = paths.shape[:2]
+    hind, cost = _path_costs(
+        resolved, paths.reshape(num_f * num_seeds, *paths.shape[2:]),
+        start_weeks=start_weeks, cadence_weeks=cadence_weeks,
+        horizon_weeks=horizon_weeks, options=options, od=od, cfg=cfg,
+        backend=backend, device=device, spans=spans)
+    return _report(resolved, families, num_seeds, hind, cost,
+                   start_weeks=start_weeks, cadence_weeks=cadence_weeks,
+                   horizon_weeks=horizon_weeks)
 
 
 def run_tournament(
@@ -256,10 +299,16 @@ def run_tournament(
                           num_seeds=num_seeds, base_seed=base_seed)
         for f in families
     ])                                                     # (F, N, P, T)
-    return _run_on_paths(
-        resolved, families, paths, start_weeks=start_weeks,
-        cadence_weeks=cadence_weeks, horizon_weeks=horizon_weeks,
+    num_paths = len(families) * num_seeds
+    kw = dict(start_weeks=start_weeks, cadence_weeks=cadence_weeks,
+              horizon_weeks=horizon_weeks)
+    # this rank's block of whole paths (all of them on one rank)
+    lo, hi = mesh_mod.shard_rows(num_paths)
+    hind, cost = _path_costs(
+        resolved, paths.reshape(num_paths, *paths.shape[2:])[lo:hi],
         options=options if options is not None else pf.options_from_pricing(),
         od=od_rate if od_rate is not None else pricing.on_demand_premium(),
-        cfg=cfg, backend=backend, device=dev, spans=spans,
-    )
+        cfg=cfg, backend=backend, device=dev, spans=spans, **kw)
+    hind = mesh_mod.gather_rows(hind, num_paths)
+    cost = mesh_mod.gather_rows(cost, num_paths, axis=1)
+    return _report(resolved, families, num_seeds, hind, cost, **kw)

@@ -27,7 +27,7 @@ from repro_torch.launch.roofline import _local_bytes
 from repro_torch.models.config import SHAPES, ModelConfig, ShapeCell, cells_for
 from repro_torch.models.model import Model, build
 from repro_torch.models.params import Spec, named_specs
-from repro_torch.sharding.rules import RULESETS, Rules
+from repro_torch.sharding.rules import RULESETS, Rules, rules_on_mesh
 
 #: the port's AdamW state per parameter: float32 master, m and v
 OPT_STATE_COPIES = 3
@@ -54,18 +54,7 @@ def resolve_rules(rules: Rules, mesh_shape: dict, global_batch: int) -> Rules:
     """Adapt a ruleset to a mesh shape: drop mesh axes that don't exist
     (single-pod has no "pod"), and shrink the batch axes to a prefix whose
     product divides the global batch (long_500k has batch 1)."""
-    out = dict(rules)
-
-    def filter_part(part):
-        if part is None:
-            return None
-        parts = part if isinstance(part, (tuple, list)) else (part,)
-        kept = tuple(p for p in parts if p in mesh_shape)
-        return kept if kept else None
-
-    for k, v in out.items():
-        out[k] = filter_part(v)
-
+    out = rules_on_mesh(rules, mesh_shape)
     batch_axes = out.get("batch") or ()
     if not isinstance(batch_axes, tuple):
         batch_axes = (batch_axes,)

@@ -109,6 +109,57 @@ class Model(nn.Module):
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def param_shardings(self, mesh, rules) -> dict:
+        """Each parameter's ``(mesh, placements)`` on ``mesh`` (a
+        ``DeviceMesh`` with named dimensions) under ``rules``, by name: the
+        reference's ``param_shardings``.  A parameter's partition spec is
+        its reference leaf's (:func:`stacked_leaf`), sanitized on the
+        mesh's shape after dropping the rules' axes the mesh lacks
+        (``sharding.rules.rules_on_mesh``), less the leading ``layers`` axis
+        of a stacked leaf.  Raises ``ValueError`` where the reference's
+        spec shards the ``layers`` axis (a layer's tensor would live on
+        some ranks only) or cannot be expressed as DTensor placements
+        (``sharding.placement.placements_for``)."""
+        from repro_torch.models.params import (
+            named_spec_leaves,
+            sanitize_partition_spec,
+        )
+        from repro_torch.sharding.placement import placements_for
+        from repro_torch.sharding.rules import rules_on_mesh
+
+        axes = tuple(mesh.mesh_dim_names or ())
+        shape = {a: mesh.size(i) for i, a in enumerate(axes)}
+        rules = rules_on_mesh(rules, axes)
+        leaves = named_spec_leaves(param_specs(self.cfg))
+        out = {}
+        for name, p in self.named_parameters():
+            spec = leaves[stacked_leaf(self.cfg, name)]
+            pspec = sanitize_partition_spec(spec, rules, shape)
+            if spec.axes[:1] == ("layers",):
+                if pspec[0] is not None:
+                    raise ValueError(
+                        f"{name}: the reference's spec {pspec} shards the "
+                        "stacked layers axis; a per-layer tensor cannot "
+                        "hold it")
+                leaf_shape, pspec = spec.shape[1:], pspec[1:]
+            else:
+                leaf_shape = spec.shape
+            if tuple(leaf_shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(p.shape)}, its "
+                                 f"reference leaf's {tuple(leaf_shape)}")
+            out[name] = (mesh, placements_for(pspec, mesh, name))
+        return out
+
+    def placed_params(self, mesh, rules) -> dict:
+        """The parameters as DTensors on ``mesh`` by
+        :meth:`param_shardings`, by name: each rank keeps its slice of
+        its own full parameters (every rank must hold the same), and
+        nothing is communicated."""
+        from repro_torch.sharding.placement import place
+
+        return place({n: p.detach() for n, p in self.named_parameters()},
+                     self.param_shardings(mesh, rules))
+
     # ---- caches ----
     @staticmethod
     def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> dict[str, Spec]:

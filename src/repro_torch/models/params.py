@@ -11,8 +11,9 @@ reference's parameters across instead (``repro_torch.convert``).  The
 logical axes map to mesh axes through a ruleset
 (:mod:`repro_torch.sharding.rules`): :func:`partition_spec` and
 :func:`sanitize_partition_spec` give a tensor's spec on a mesh shape
-(``{axis: size}``, no device needed), which sizes its per-device bytes;
-placing tensors on several cards is not ported.
+(``{axis: size}``, no device needed), which sizes its per-device bytes
+and, on a mesh of ranks, places the tensor
+(``models.model.Model.param_shardings``).
 
 A family's whole parameter table is a tree of Specs (nested dicts and
 lists, layers stacked on a leading ``"layers"`` dim as in the reference),
@@ -86,6 +87,16 @@ def _spec_leaves(specs) -> list[Spec]:
     if isinstance(specs, dict):
         specs = specs.values()
     return [leaf for sub in specs for leaf in _spec_leaves(sub)]
+
+
+def named_spec_leaves(specs, prefix: str = "") -> dict[str, Spec]:
+    """The Specs of a tree of nested dicts and lists by dotted path (list
+    items by index), in order."""
+    if isinstance(specs, Spec):
+        return {prefix[:-1]: specs}
+    items = specs.items() if isinstance(specs, dict) else enumerate(specs)
+    return {name: leaf for k, sub in items
+            for name, leaf in named_spec_leaves(sub, f"{prefix}{k}.").items()}
 
 
 def count_params(specs) -> int:

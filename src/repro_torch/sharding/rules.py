@@ -16,8 +16,11 @@ Strategy:
 
 A partition spec in the port is a tuple with one entry per dimension, each
 ``None`` (replicated), a mesh-axis name, or a tuple of names.  The rules
-size per-device bytes (:mod:`repro_torch.launch.cells`); placing the
-model's parameters under them over several cards is not ported.
+size per-device bytes (:mod:`repro_torch.launch.cells`) and place the
+model's parameters on a mesh of ranks
+(``models.model.Model.param_shardings``, as DTensors by
+:mod:`repro_torch.sharding.placement`); :func:`rules_on_mesh` drops the
+axes a mesh lacks, as the dry run does (single-pod has no ``"pod"``).
 """
 
 from __future__ import annotations
@@ -90,3 +93,16 @@ def data_spec(rules: Rules, ndim: int) -> PartitionSpec:
     """(B, S, ...) activations: batch sharded, rest replicated
     (``data_pspec`` of the reference)."""
     return (rules.get("batch"), *(None,) * (ndim - 1))
+
+
+def rules_on_mesh(rules: Rules, axes) -> Rules:
+    """``rules`` with every mesh axis that ``axes`` lacks dropped: a
+    logical axis whose mesh axes are all absent is replicated."""
+    def keep(part):
+        if part is None:
+            return None
+        kept = tuple(p for p in (part if isinstance(part, (tuple, list))
+                                 else (part,)) if p in axes)
+        return kept if kept else None
+
+    return {k: keep(v) for k, v in rules.items()}

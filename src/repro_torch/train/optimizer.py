@@ -53,6 +53,14 @@ def init_opt_state(params: Mapping[str, torch.Tensor]) -> dict:
     }
 
 
+def opt_state_shardings(param_shardings: Mapping) -> dict:
+    """The AdamW state's shardings (the structure of
+    :func:`init_opt_state`) from the parameters': master, m and v each as
+    its parameter, the step counter unplaced."""
+    per = dict(param_shardings)
+    return {"master": per, "m": per, "v": per, "step": None}
+
+
 def _schedule(cfg: AdamWConfig, step: int) -> float:
     """The learning rate of step ``step`` (0-based), in float32."""
     f32 = np.float32

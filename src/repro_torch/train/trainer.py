@@ -17,14 +17,23 @@ Step times come from the port's span recorder (``obs.spans``), the one
 place the port reads time: CUDA events on the card, or the ``clock=``
 given to the :class:`Trainer` (a CPU model needs one; there is no
 fallback).  The model's device is the trainer's: a model built with
-``device=None`` is on the card.  The elastic re-mesh restore needs
-several cards and is not ported (ROADMAP item 12).
+``device=None`` is on the card.
+
+Elastic re-mesh (ROADMAP item 12): ``Trainer(..., shardings=)`` takes the
+parameters' placements (``Model.param_shardings``), and
+``init_or_restore`` places the initialized parameters and AdamW state on
+them, or restores the newest checkpoint onto them, whatever mesh saved
+it.  On a one-rank mesh the placed tensors are the full ones and ``fit``
+runs as without placements; on more ranks ``fit`` raises
+``NotImplementedError``: a train step over placed parameters (FSDP's
+gather of each layer's shards around the hand kernels) is not ported
+(ROADMAP Queue 1, "the sharded train step").
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -32,7 +41,8 @@ from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.models.model import Model
 from repro_torch.obs.spans import SpanRecorder
-from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.sharding import placement
+from repro_torch.train.optimizer import AdamWConfig, opt_state_shardings
 from repro_torch.train.step import build_train_step, init_train_state, to_device
 
 
@@ -80,8 +90,11 @@ class Trainer:
         ckpt_dir: str,
         *,
         clock: Callable[[], float] | None = None,
+        shardings: Any | None = None,
     ):
         self.model = model
+        # the parameters' (mesh, placements) by name, or None
+        self.shardings = shardings
         self.pipeline = pipeline
         self.cfg = cfg
         self.ckpt = CheckpointManager(ckpt_dir)
@@ -105,6 +118,8 @@ class Trainer:
             generator = torch.Generator(device=self.model.device)
             generator.manual_seed(0)
         params, opt_state = init_train_state(self.model, generator)
+        if self.shardings is not None:
+            return self._init_or_restore_placed(params, opt_state)
         restored = self.ckpt.restore_latest(
             {"params": params, "opt": opt_state}
         )
@@ -118,6 +133,40 @@ class Trainer:
             self.params, self.opt_state = params, tree["opt"]
             self.step = step
             self.pipeline.skip_to(meta.get("data_step", step))
+        return self.step
+
+    def _world(self) -> int:
+        """Ranks of the placements' meshes (1 without placements)."""
+        if self.shardings is None:
+            return 1
+        return max(mesh.size() for mesh, _ in self.shardings.values())
+
+    def _init_or_restore_placed(self, params, opt_state):
+        """``init_or_restore`` onto ``self.shardings``: the parameters and
+        AdamW state placed (or restored onto the placements); at one rank
+        the model's own parameters take the restored values, as without
+        placements."""
+        tree = {"params": params, "opt": opt_state}
+        sh = {"params": self.shardings,
+              "opt": opt_state_shardings(self.shardings)}
+        restored = self.ckpt.restore_latest(tree, shardings=sh)
+        step, placed = 0, None
+        if restored is not None:
+            step, placed, meta = restored
+            self.pipeline.skip_to(meta.get("data_step", step))
+        if self._world() > 1:
+            placed = placed or placement.place(tree, sh)
+            self.params, self.opt_state = placed["params"], placed["opt"]
+        else:
+            if placed is not None:
+                with torch.no_grad():
+                    for name, p in params.items():
+                        p.copy_(placed["params"][name].to_local())
+                opt_state = {k: ({n: t.to_local() for n, t in v.items()}
+                                 if isinstance(v, dict) else v)
+                             for k, v in placed["opt"].items()}
+            self.params, self.opt_state = params, opt_state
+        self.step = step
         return self.step
 
     def _checkpoint(self):
@@ -134,6 +183,11 @@ class Trainer:
         """Run to cfg.total_steps (or ``max_steps``).  ``fail_at_step``
         injects a crash for the fault-tolerance tests."""
         total = max_steps or self.cfg.total_steps
+        if self._world() > 1:
+            raise NotImplementedError(
+                "a train step over parameters placed on several ranks is "
+                "not ported (ROADMAP Queue 1, 'the sharded train step'); "
+                "init_or_restore and checkpoints take the placements")
         try:
             while self.step < total:
                 if fail_at_step is not None and self.step == fail_at_step:
